@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch / CUDA port: builds the hand-written kernels,
-checks each against its plain PyTorch version at the serving path's shapes,
-then drives the serving path once at bench settings on one GPU.
+checks each against its plain PyTorch version at the shapes of the path
+that runs it, then trains both half-sequence NeRFs and drives the serving
+path at bench settings on one GPU.
 
-    python3 chip_smoke.py            # from the repository root, one CUDA device
+    python3 chip_smoke.py                    # from the repository root, one CUDA device
+    python3 chip_smoke.py --nerf-steps 800   # the bench's full NeRF schedule
 
 Phases (any failure raises, and the script exits non-zero):
 1. device and toolchain: the card's name and power limit (nvidia-smi),
    torch / CUDA / nvcc versions;
-2. build K1-K3 from ``imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch/ops/csrc``;
+2. build K1-K4 from ``imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch/ops/csrc``;
 3. per kernel, kernel vs plain version on the card, error and both times:
    K1 on the 128^3 grid of a randomly initialised full-width field, K2 at
-   50,000 x 50,000, K3 with 5,625 queries x 80,000 keys at 12 dims;
-4. the serving path of the bench (8 views at 224 px, 128^3 grid,
+   50,000 x 50,000, K3 with 5,625 queries x 80,000 keys at 12 dims, K4 at
+   the train step's shapes (2 halves x 1,200 rays x 64 coarse / 320 fine
+   points, full-width random fields, both embeddings, synthetic targets);
+4. NeRF training of both halves (``train_nerf_fused``) at the bench's
+   settings: 8 views at 224 px, full-width bf16 field, 400 rays per image,
+   batch 3, warmup 266, seed 1, ``--nerf-steps`` steps (default 200), with
+   K4's launches counted over exactly that run; then one step with K4
+   against one with its plain version from the same state and draws;
+5. the serving path of the bench (8 views at 224 px, 128^3 grid,
    FeatConfig(mc_threshold=0.05, n_points=20000, sample_loops=3), 8 images
    through InferenceConfig(), ICP with 20 iterations) on a full-width
    planted NerfField and a full-width random ResNetUNet from ``--seed``,
    with each kernel's launches counted over exactly that run;
-5. checks of the outputs: shapes, finiteness, keys on the planted shell,
+6. checks of the outputs: shapes, finiteness, keys on the planted shell,
    and ICP from a perturbed ground-truth pose, card against the CPU plain
    path.
 
@@ -41,17 +50,23 @@ TPU_KERNELS = {
     "density": "imagesequenceregistrationfor6dposeestimationlabeling_tpu/ops/field_kernel.py:304",
     "nn_min": "imagesequenceregistrationfor6dposeestimationlabeling_tpu/ops/pallas_kernels.py:134",
     "corr_argmax": "imagesequenceregistrationfor6dposeestimationlabeling_tpu/ops/pallas_kernels.py:41",
+    "bundle_loss": "imagesequenceregistrationfor6dposeestimationlabeling_tpu/ops/field_kernel.py:701",
 }
 SOURCES = {
     "density": f"{PKG}/ops/csrc/density.cu",
     "nn_min": f"{PKG}/ops/csrc/nn_min.cu",
     "corr_argmax": f"{PKG}/ops/csrc/corr_argmax.cu",
+    "bundle_loss": f"{PKG}/ops/csrc/bundle_loss.cu",
 }
-TOL = {"density": 2e-2, "nn_min": 0.0, "corr_argmax": 1e-4}
+# K4: loss sums (relative), EA weights (absolute), each grad block scaled by its max |g|
+TOL = {"density": 2e-2, "nn_min": 0.0, "corr_argmax": 1e-4, "loss_rel": 1e-3, "w_abs": 1e-3, "grad_scaled": 3e-2}
 # the bench's serving settings (bench.py run_pipeline, full-size branch)
 SERVE = {"n_views": 8, "image_size": 224, "grid_res": 128, "n_infer": 8, "n_points": 20000,
          "sample_loops": 3, "icp_iters": 20}
 FIELD = {"act_dtype": "bfloat16"}  # FieldConfig defaults otherwise: 60 harmonics, 256 hidden
+# the bench's NeRF settings (bench.py:239-254): 3 cams x 400 rays per half and
+# step, warmup min(300, 800 // 3), seed 1
+TRAIN = {"n_views": 8, "image_size": 224, "n_rays": 400, "batch": 3, "warmup": 266, "seed": 1}
 
 
 def log(msg: str):
@@ -160,6 +175,7 @@ def launch_counts():
         "density": field_kernel.density_cuda.launches,
         "nn_min": point_kernels.nn_min_cuda.launches,
         "corr_argmax": point_kernels.correspondence_argmax_cuda.launches,
+        "bundle_loss": field_kernel.bundle_loss_cuda.launches,
     }
 
 
@@ -169,25 +185,254 @@ def reset_launch_counts():
     field_kernel.density_cuda.launches = 0
     point_kernels.nn_min_cuda.launches = 0
     point_kernels.correspondence_argmax_cuda.launches = 0
+    field_kernel.bundle_loss_cuda.launches = 0
 
 
-def profile_run(once, path: str):
-    """One more serve run under torch.profiler: device time by kernel to
-    ``path``, and the card's busy share of that run's serve time."""
+def profile_run(run, path: str, what: str):
+    """``run()`` once more under torch.profiler: device time by kernel to
+    ``path``, and the card's busy share of the wall seconds ``run`` returns."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stages = once("profiled")[-1]
+        wall_s = run()
     events = prof.key_averages()
     # device-side events only (kernels, copies): CPU ops repeat their kernels' time
     busy_ms = sum(e.self_device_time_total for e in events if e.device_type != DeviceType.CPU) / 1e3
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=40))
-    log(f"profiled run: device busy {busy_ms:.1f} ms of {1e3 * stages['serve_s']:.1f} ms serve "
-        f"({100 * busy_ms / (1e3 * stages['serve_s']):.1f}%), kernel table in {path}")
+    log(f"profiled {what}: device busy {busy_ms:.1f} ms of {1e3 * wall_s:.1f} ms "
+        f"({100 * busy_ms / (1e3 * wall_s):.1f}%), kernel table in {path}")
+
+
+def train_inputs(dev, seed: int):
+    """The two synthetic halves at the bench's NeRF size, stacked on a
+    leading half axis, on the card."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+
+    halves = [synthetic.make_scene(TRAIN["n_views"], TRAIN["image_size"],
+                                   torch.Generator(device=dev).manual_seed(seed + uh), device=dev) for uh in (0, 1)]
+    return {f: torch.stack([getattr(h, f) for h in halves]) for f in ("images", "sils", "R_bop", "t_bop", "K")}
+
+
+def step_rays(data, dev, seed: int, render):
+    """One train step's rays and targets for both halves: the first batch
+    of each half's schedule, draws from per-half generators."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.grid_sample import (
+        sample_images_at_mc_locs,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    B, n, S = TRAIN["batch"], TRAIN["n_rays"], TRAIN["image_size"]
+    H, N = 2, B * n
+    min_d, max_d = nerf_trainer.depth_bounds(data["t_bop"].reshape(-1, 3).cpu().numpy())
+    cam = cam_lib.camera_from_bop(data["R_bop"][:, :B], data["t_bop"][:, :B], data["K"][:, :B], S)
+    gens = [torch.Generator(device=dev).manual_seed(seed + h) for h in range(H)]
+    xys, u, u_pdf = nerf_trainer.draw(gens, B, render, dev)
+    bundle = cam_lib.monte_carlo_rays(cam, n, render.n_pts_coarse, min_d, max_d, xys=xys, u=u)
+    flat_xy = xys.reshape(H * B, n, 2)
+    col = sample_images_at_mc_locs(data["images"][:, :B].reshape(H * B, S, S, 3), flat_xy).reshape(H, N, 3)
+    sil = sample_images_at_mc_locs(data["sils"][:, :B].reshape(H * B, S, S, 1), flat_xy).reshape(H, N, 1)
+    d = bundle.directions.reshape(H, N, 3)
+    tgt = torch.cat([col, sil, torch.ones_like(sil), torch.zeros_like(col)], -1).contiguous()
+    return dict(o=bundle.origins.reshape(H, N, 3), d=d, lengths=bundle.lengths.reshape(H, N, -1), u_pdf=u_pdf,
+                dn=(d / torch.linalg.vector_norm(d, dim=-1, keepdim=True).clamp_min(1e-12)).contiguous(), tgt=tgt,
+                cam=cam, min_d=min_d, max_d=max_d, draws=(xys, u, u_pdf))
+
+
+def compare_bundle(tag: str, got, want, again):
+    """K4's outputs against its plain version's, and a second launch's."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel
+
+    (gk, lk, wk), (gp, lp, wp) = got, want
+    loss_rel = float(((lk - lp).abs() / lp.abs().clamp_min(1e-12)).max())
+    w_err = float((wk - wp).abs().max()) if wk is not None else 0.0
+    errs = {name: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3)
+            for name, a, b in zip(field_kernel.LOSS_BLOCKS, gk, gp)}
+    worst = max(errs, key=errs.get)
+    same = (all(torch.equal(a, b) for a, b in zip(gk, again[0])) and torch.equal(lk, again[1])
+            and (wk is None or torch.equal(wk, again[2])))
+    log(f"  {tag}: ce/se kernel {lk.flatten().tolist()} plain {lp.flatten().tolist()} (max rel err {loss_rel:.2e}); "
+        f"w max abs err {w_err:.2e}; grad max err / block max |g| {errs[worst]:.2e} ({worst}); "
+        f"second launch bit-identical: {same}")
+    if not (loss_rel <= TOL["loss_rel"] and w_err <= TOL["w_abs"] and errs[worst] <= TOL["grad_scaled"] and same):
+        raise AssertionError(f"K4 disagrees with its plain version ({tag})")
+    return errs[worst]
+
+
+def bundle_loss_phase(dev, seed: int):
+    """K4 against its plain version at the train step's own shapes: both
+    halves in one launch, the coarse pass (64 points, with the EA weights)
+    and the fine pass (320 points, resampled from the kernel's weights),
+    full-width random fields (density bias 0), both embeddings, targets
+    from the synthetic scene.  Returns (worst scaled grad error, kernel ms
+    per step, plain ms per step) of the direct embedding's two passes."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
+        FieldConfig,
+        NerfTrainConfig,
+        RenderConfig,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import NerfField
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import raymarch
+
+    render = RenderConfig(n_rays_per_image=TRAIN["n_rays"])
+    train = NerfTrainConfig()
+    r = step_rays(train_inputs(dev, seed), dev, seed, render)
+    o, d, lengths, N = r["o"], r["d"], r["lengths"], r["d"].shape[1]
+    worst, step_ms = 0.0, {}
+    for embed in ("direct", "grouped"):
+        cfg = FieldConfig(**FIELD, embed_method=embed)
+        fields = []
+        for h in range(2):
+            f = NerfField(cfg).reset_parameters(torch.Generator().manual_seed(seed + 10 + h))
+            torch.nn.init.zeros_(f.density_layer.bias)
+            fields.append(f.to(dev))
+        weights = tuple(torch.stack(b) for b in zip(*(fk.loss_weights(f) for f in fields)))
+        fm = torch.from_numpy(fk.fmat_of(cfg)).to(dev)
+        rest = (r["dn"], r["tgt"], fm, weights, fk.ladder_of(cfg), cfg.softplus_beta, train.huber_scaling,
+                train.loss_scale / N)
+        z = {"coarse": lengths}
+        for tag in ("coarse", "fine"):
+            pts = (o[:, :, None] + d[:, :, None] * z[tag][..., None]).contiguous()
+            want_w = tag == "coarse"
+            ms, got = cuda_ms(lambda: fk.bundle_loss_cuda(pts, *rest, want_w))
+            plain_ms, want = cuda_ms(lambda: fk.bundle_loss_plain(pts, *rest, want_w), reps=1)
+            again = fk.bundle_loss_cuda(pts, *rest, want_w)
+            log(f"K4 bundle_loss {embed} {tag}: 2 halves x {N} rays x {pts.shape[2]} points; kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms")
+            worst = max(worst, compare_bundle(f"{embed} {tag}", got, want, again))
+            step_ms[(embed, tag)] = (ms, plain_ms)
+            if want_w:
+                z["fine"] = raymarch.importance_resample(lengths, got[2], render.n_pts_fine, u=r["u_pdf"])
+            del got, want, again
+    ms = step_ms[("direct", "coarse")][0] + step_ms[("direct", "fine")][0]
+    plain_ms = step_ms[("direct", "coarse")][1] + step_ms[("direct", "fine")][1]
+    log(f"K4 per train step (direct, coarse + fine): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+        f"worst grad error / block max |g| over all passes {worst:.2e} (tol {TOL['grad_scaled']})")
+    return worst, ms, plain_ms
+
+
+def kernel_step_vs_plain_step(states, data, dev, seed: int, render, train, tag: str, whole_step: bool):
+    """One train step with K4 and one with its plain version, from copies
+    of the same states, on the same batch and draws.  The coarse fields'
+    grads must agree.  The fine pass resamples its depths from the coarse
+    weights, and the inverse cdf magnifies their differences where a cdf
+    segment is thin, which is rare at a fresh init and common on a trained
+    surface: ``whole_step`` holds the loss, the fine grads and the updated
+    params to the bars as well; otherwise they are reported."""
+    import copy
+
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import raymarch
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    r = step_rays(data, dev, seed, render)
+    B = TRAIN["batch"]
+    args = (r["cam"], data["images"][:, :B].contiguous(), data["sils"][:, :B].contiguous(),
+            nerf_trainer.make_optimizer(train), render, train, r["min_d"], r["max_d"])
+    a = [copy.deepcopy(st) for st in states]
+    b = [copy.deepcopy(st) for st in states]
+    lr = nerf_trainer.make_optimizer(train).learning_rate(states[0].opt.count)
+    a, loss_a, _ = nerf_trainer.train_step(a, *args, draws=r["draws"])
+    kernel_op = fk.bundle_loss_op
+    fk.bundle_loss_op = fk.bundle_loss_plain     # this step only: the plain version on the card
+    try:
+        b, loss_b, _ = nerf_trainer.train_step(b, *args, draws=r["draws"])
+    finally:
+        fk.bundle_loss_op = kernel_op
+    sync(dev)
+    loss_rel = float(((loss_a - loss_b).abs() / loss_b.abs()).max())
+    err = {"coarse": 0.0, "fine": 0.0}
+    param_err = 0.0
+    for sa, sb in zip(a, b):
+        for which in err:
+            for (_, pa), (_, pb) in zip(nerf_trainer.trainable(getattr(sa, which)),
+                                        nerf_trainer.trainable(getattr(sb, which))):
+                g = float((pa.grad - pb.grad).abs().max()) / max(float(pb.grad.abs().max()), 1e-3)
+                err[which] = max(err[which], g)
+                param_err = max(param_err, float((pa.detach() - pb.detach()).abs().max()))
+    # what the fine pass saw: depths resampled from each version's coarse weights
+    cfg = FieldConfig(**FIELD)
+    pts = (r["o"][:, :, None] + r["d"][:, :, None] * r["lengths"][..., None]).contiguous()
+    weights = tuple(torch.stack(x) for x in zip(*(fk.loss_weights(st.coarse) for st in states)))
+    fm = torch.from_numpy(fk.fmat_of(cfg)).to(dev)
+    rest = (r["dn"], r["tgt"], fm, weights, fk.ladder_of(cfg), cfg.softplus_beta, train.huber_scaling, 1.0, True)
+    z = [raymarch.importance_resample(r["lengths"], op(pts, *rest)[2], render.n_pts_fine, u=r["u_pdf"])
+         for op in (fk.bundle_loss_cuda, fk.bundle_loss_plain)]
+    dz = (z[0] - z[1]).abs()
+    log(f"train step at the {tag} state, K4 vs plain from the same state and draws: loss {loss_a.tolist()} vs "
+        f"{loss_b.tolist()} (max rel err {loss_rel:.2e}); grad max err / tensor max |g|: coarse fields "
+        f"{err['coarse']:.2e}, fine fields {err['fine']:.2e}; params after the step max abs diff {param_err:.2e} "
+        f"(rate {lr:.2e}); fine depths resampled from the two versions' coarse weights: max diff "
+        f"{float(dz.max()):.2e}, share > 1e-4: {float((dz > 1e-4).float().mean()):.2e}")
+    ok = err["coarse"] <= TOL["grad_scaled"]
+    if whole_step:
+        ok = ok and loss_rel <= TOL["loss_rel"] and err["fine"] <= TOL["grad_scaled"] and param_err <= 2.01 * lr
+    if not ok:
+        raise AssertionError(f"the train step through K4 disagrees with the step through its plain version ({tag})")
+
+
+def train_path(dev, seed: int, n_steps: int, profile: str | None = None):
+    """train_nerf_fused on both synthetic halves at the bench's settings;
+    K4's launches are counted over exactly the measured run."""
+    import numpy as np
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
+        FieldConfig,
+        NerfTrainConfig,
+        RenderConfig,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    data = train_inputs(dev, seed)
+    cfg = FieldConfig(**FIELD)
+    render = RenderConfig(n_rays_per_image=TRAIN["n_rays"])
+    train = NerfTrainConfig(warmup_steps=TRAIN["warmup"], batch_size=TRAIN["batch"])
+    args = (data["images"], data["sils"], data["R_bop"], data["t_bop"], data["K"], cfg, render, train)
+
+    def run(steps: int):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = nerf_trainer.train_nerf_fused(*args, n_steps=steps, seed=TRAIN["seed"], device=dev)
+        sync(dev)
+        return out, time.perf_counter() - t0
+
+    _, cold_s = run(1)
+    reset_launch_counts()
+    (states, losses), wall_s = run(n_steps)
+    counts = launch_counts()
+    first, last = losses[:, :10].mean(1), losses[:, -10:].mean(1)
+    log(f"NeRF training, 2 halves x {n_steps} steps ({TRAIN['batch']} cams x {TRAIN['n_rays']} rays, "
+        f"{render.n_pts_coarse} + {render.n_pts_coarse + render.n_pts_fine} points): cold first step {1e3 * cold_s:.1f} ms; warm {1e3 * wall_s / n_steps:.2f} ms per step "
+        f"({wall_s:.2f} s); bundle_loss launches {counts['bundle_loss']}; mean loss of the first 10 steps "
+        f"{np.round(first, 3).tolist()}, of the last 10 {np.round(last, 3).tolist()}")
+    if counts["bundle_loss"] != 2 * n_steps:
+        raise AssertionError(f"expected 2 bundle_loss launches per step, counted {counts['bundle_loss']}")
+    if not (np.isfinite(losses).all() and (last < first).all()):
+        raise AssertionError("training losses are not finite or do not fall")
+    fresh = [nerf_trainer.init_state(cfg, train, torch.Generator().manual_seed(TRAIN["seed"] + h), device=dev)
+             for h in range(2)]
+    kernel_step_vs_plain_step(fresh, data, dev, seed + 100, render, train, "initial", whole_step=True)
+    kernel_step_vs_plain_step(states, data, dev, seed + 100, render, train, f"step-{n_steps}", whole_step=False)
+    if profile:
+        profile_run(lambda: run(20)[1], profile + ".train.txt", "20 training steps")
+    return counts, 1e3 * wall_s / n_steps
 
 
 def icp_check(dev, upper, lower, cad, R_gt, t_gt, diameter: float, scale: float):
@@ -319,10 +564,10 @@ def serve_path(dev, seed: int, out_dir: str, profile: str | None = None):
     reset_launch_counts()
     (verts_scaled, feats, verts_real, n_real, adds, pred_R, pred_t, R_gt, t_gt, best, chamfers,
      cad, upper, lower, out, stages) = once("warm")
-    counts = launch_counts()
+    counts = {k: v for k, v in launch_counts().items() if k != "bundle_loss"}  # the serve path's kernels
     log("launches in the serve run: " + json.dumps(counts))
     if profile:
-        profile_run(once, profile)
+        profile_run(lambda: once("profiled")[-1]["serve_s"], profile, "serve run")
 
     # ---- checks of what came out
     if not (n_real > 0 and feats.shape == (verts_scaled.shape[0], 12) and np.isfinite(feats).all()):
@@ -353,7 +598,9 @@ def serve_path(dev, seed: int, out_dir: str, profile: str | None = None):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--profile", metavar="PATH", help="also profile one serve run, kernel table to PATH")
+    parser.add_argument("--profile", metavar="PATH",
+                        help="also profile one serve run (kernel table to PATH) and 20 training steps (PATH.train.txt)")
+    parser.add_argument("--nerf-steps", type=int, default=200, help="NeRF training steps (the bench runs 800)")
     args = parser.parse_args(argv)
 
     import torch
@@ -379,14 +626,17 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     cuda_build.kernels()
-    log(f"built K1-K3 for sm_90a in {time.perf_counter() - t0:.1f} s ({cuda_build.BUILD_DIR})")
+    log(f"built K1-K4 for sm_90a in {time.perf_counter() - t0:.1f} s ({cuda_build.BUILD_DIR})")
 
     phases = kernel_phases(dev, args.seed)
+    phases["bundle_loss"] = bundle_loss_phase(dev, args.seed)
+    train_counts, _ = train_path(dev, args.seed, args.nerf_steps, args.profile)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         counts, _ = serve_path(dev, args.seed, out_dir, args.profile)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    counts["bundle_loss"] = train_counts["bundle_loss"]
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

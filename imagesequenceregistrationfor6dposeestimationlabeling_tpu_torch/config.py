@@ -8,6 +8,8 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu.config import (  #
     FeatConfig,
     FieldConfig,
     InferenceConfig,
+    NerfTrainConfig,
     RegistrationConfig,
+    RenderConfig,
     replace,
 )

@@ -9,6 +9,9 @@ arrays) onto this package's ``NerfField`` and ``ResNetUNet`` state dicts:
 * a flax Conv kernel is HWIO; a torch Conv2d weight is OIHW;
 * a flax GroupNorm ``scale`` is the torch GroupNorm ``weight``.
 
+``train_state_from_jax`` carries a NeRF training state (params, Adam
+moments, counts) across the same way.
+
 ``planted_field_params`` builds a full NerfField tree in the flax layout
 with numpy alone, so the reference (through JAX) and the port (without
 JAX) can share one fixture that has a surface.
@@ -87,6 +90,41 @@ def params_from_jax(tree) -> dict:
     if "Conv_0" in p:
         return _unet_state(p)
     raise ValueError(f"unrecognized parameter tree with keys {sorted(p)[:8]}")
+
+
+def train_state_from_jax(state, cfg: FieldConfig, device="cpu"):
+    """The port's per-half ``NerfTrainState`` from the reference's (its
+    leaves as numpy): coarse and fine params, the Adam moments of the
+    trained parameters (the frozen feature head has none), the optimizer
+    count and the step, so a resumed run computes what the reference's
+    would.  ``state.opt_state`` is optax's ``multi_transform`` state, read
+    by attribute: ``inner_states["train"].inner_state`` = (ScaleByAdamState,
+    ScaleByScheduleState)."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import (
+        NON_FEATURE_MODULES,
+        NerfField,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train.nerf_trainer import (
+        AdamState,
+        NerfTrainState,
+        trainable,
+    )
+
+    adam, sched = state.opt_state.inner_states["train"].inner_state
+    count = int(np.asarray(adam.count))
+    if int(np.asarray(sched.count)) != count:
+        raise ValueError(f"Adam count {count} and schedule count {int(np.asarray(sched.count))} disagree")
+    pair, mu, nu = [], [], []
+    for i, params in enumerate((state.params_coarse, state.params_fine)):
+        f = NerfField(cfg)
+        f.load_state_dict(params_from_jax(params))
+        pair.append(f.to(device))
+        for moments, out in ((adam.mu[i], mu), (adam.nu[i], nu)):
+            sd = {}
+            for name in NON_FEATURE_MODULES:
+                sd.update(_dense(name, moments["params"][name]))
+            out.extend(sd[name].to(device) for name, _ in trainable(f))
+    return NerfTrainState(pair[0], pair[1], AdamState(count, mu, nu), int(np.asarray(state.step)))
 
 
 # ------------------------------------------------------------- planted field

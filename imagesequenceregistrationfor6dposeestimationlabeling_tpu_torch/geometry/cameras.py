@@ -87,6 +87,37 @@ def grid_rays(cam: Camera, image_size: int, n_pts: int, min_depth, max_depth) ->
     return RayBundle(origins=origins, directions=dirs, lengths=lengths, xys=xys)
 
 
+def depth_edges(min_depth: float, max_depth: float, n_pts: int, device="cpu") -> torch.Tensor:
+    """The n_pts + 1 stratification edges of [min_depth, max_depth] in f32,
+    by the reference's own ``linspace`` formula: ``start * (1 - i/n) +
+    stop * (i/n)``, then ``stop`` itself.  ``torch.linspace`` steps from
+    both ends instead and lands up to an ulp away on most edges."""
+    step = torch.arange(n_pts, dtype=torch.float32, device=device) / n_pts
+    start = torch.tensor(min_depth, dtype=torch.float32, device=device)
+    stop = torch.tensor(max_depth, dtype=torch.float32, device=device)
+    return torch.cat([start * (1 - step) + stop * step, stop[None]])
+
+
+def monte_carlo_rays(cam: Camera, n_rays: int, n_pts: int, min_depth: float, max_depth: float,
+                     generator: torch.Generator | None = None, xys: torch.Tensor | None = None,
+                     u: torch.Tensor | None = None) -> RayBundle:
+    """Uniform ray xys in [-1, 1)^2 per camera and stratified jittered
+    depths.  ``xys`` (..., n_rays, 2) in [-1, 1) and the depth jitter ``u``
+    (..., n_rays, n_pts) in [0, 1) may be passed in; otherwise they are
+    drawn from ``generator`` on the camera's device."""
+    batch = cam.R.shape[:-2]
+    dev = cam.R.device
+    if xys is None:
+        xys = torch.rand(batch + (n_rays, 2), generator=generator, device=dev) * 2.0 - 1.0
+    if u is None:
+        u = torch.rand(batch + (n_rays, n_pts), generator=generator, device=dev)
+    dirs = ndc_directions(cam, xys)
+    origins = camera_center(cam)[..., None, :].expand(dirs.shape)
+    edges = depth_edges(min_depth, max_depth, n_pts, dev)
+    lo, hi = edges[:-1], edges[1:]
+    return RayBundle(origins=origins, directions=dirs, lengths=lo + (hi - lo) * u, xys=xys)
+
+
 def ray_points(bundle: RayBundle) -> torch.Tensor:
     """(..., P, 3) world points o + d * length."""
     return bundle.origins[..., None, :] + bundle.directions[..., None, :] * bundle.lengths[..., :, None]

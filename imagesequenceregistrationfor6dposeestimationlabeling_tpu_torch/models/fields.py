@@ -240,3 +240,34 @@ class NerfField(nn.Module):
 def eval_features(field: NerfField, pts: torch.Tensor) -> torch.Tensor:
     """Feature-head keys for points."""
     return field.features(pts)
+
+
+# Explicit module partition for freeze_spec: every top-level NerfField
+# module is in exactly one set, so a renamed or added layer raises instead
+# of silently training or freezing the wrong head.
+FEATURE_HEAD_MODULES = frozenset({"feature_layer", "feat1", "feat2"})
+NON_FEATURE_MODULES = frozenset({"trunk1", "trunk2", "density_layer", "color1", "color2"})
+
+
+def freeze_spec(train_feature_head: bool):
+    """``label_fn(field) -> {parameter name: "train" | "freeze"}``.
+
+    NeRF training freezes the feature head; descriptor training trains only
+    the feature head.  Membership is decided by the module sets above; an
+    unknown top-level module raises."""
+
+    def label_fn(field: nn.Module) -> dict:
+        labels = {}
+        for name, _ in field.named_parameters():
+            top = name.split(".")[0]
+            if top in FEATURE_HEAD_MODULES:
+                is_feat = True
+            elif top in NON_FEATURE_MODULES:
+                is_feat = False
+            else:
+                raise ValueError(f"freeze_spec: unknown NerfField module {top!r}: update FEATURE_HEAD_MODULES / "
+                                 "NON_FEATURE_MODULES in models/fields.py when renaming or adding field layers")
+            labels[name] = "train" if is_feat == train_feature_head else "freeze"
+        return labels
+
+    return label_fn

@@ -33,10 +33,28 @@ void corr_argmax(uintptr_t queries, int64_t n, uintptr_t keys, int64_t m, int e,
                      ptr<int32_t>(idx), ptr<float>(conf), ptr<void>(stream));
 }
 
+void bundle_loss(uintptr_t pts, uintptr_t dirs, uintptr_t tgt, int n_halves, int n_rays, int n_pts,
+                 uintptr_t fmat, int n_base, int ladder, uintptr_t w1s, uintptr_t w1c, uintptr_t b1,
+                 uintptr_t w2, uintptr_t b2, uintptr_t wd, uintptr_t bd, uintptr_t wc1h, uintptr_t wc1ds,
+                 uintptr_t wc1dc, uintptr_t bc1, uintptr_t wc2, uintptr_t bc2, uintptr_t w2t, uintptr_t wc1ht,
+                 int n_hidden, float beta, float hs, float hs2, float scale, float scale3, uintptr_t work,
+                 int n_blocks, uintptr_t out, uintptr_t w_out, uintptr_t stream) {
+  const float* weights[13] = {ptr<const float>(w1s),  ptr<const float>(w1c),   ptr<const float>(b1),
+                              ptr<const float>(w2),   ptr<const float>(b2),    ptr<const float>(wd),
+                              ptr<const float>(bd),   ptr<const float>(wc1h),  ptr<const float>(wc1ds),
+                              ptr<const float>(wc1dc), ptr<const float>(bc1),  ptr<const float>(wc2),
+                              ptr<const float>(bc2)};
+  launch_bundle_loss(ptr<const float>(pts), ptr<const float>(dirs), ptr<const float>(tgt), n_halves, n_rays,
+                     n_pts, ptr<const float>(fmat), n_base, ladder, weights, ptr<const float>(w2t),
+                     ptr<const float>(wc1ht), n_hidden, beta, hs, hs2, scale, scale3, ptr<float>(work), n_blocks,
+                     ptr<float>(out), ptr<float>(w_out), ptr<void>(stream));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("density", &density);
   mod.def("nn_min", &nn_min);
   mod.def("corr_argmax", &corr_argmax);
+  mod.def("bundle_loss", &bundle_loss);
 }

@@ -23,3 +23,15 @@ void launch_nn_min(const float* query, int64_t n, const float* ref, const float*
 // over keys (M, E) of q . k and max_logit - logsumexp.
 void launch_corr_argmax(const float* queries, int64_t n, const float* keys, int64_t m, int e,
                         int32_t* idx, float* conf, void* stream);
+
+// K4: NeRF bundle loss and backward for n_halves fields (bundle_loss.cu).
+// pts (H, R, P, 3), unit dirs (H, R, 3), tgt (H, R, 8); weights[13] are the
+// per-half blocks in the order w1s w1c b1 w2 b2 wd bd wc1h wc1ds wc1dc bc1
+// wc2 bc2, each with a leading half axis; w2t / wc1ht the transposes.
+// work is (H, n_blocks, G + 2) scratch; out (H, G + 2) receives the grads
+// (same order, flat) then (ce_sum, se_sum); w_out (H, R, P) may be null.
+void launch_bundle_loss(const float* pts, const float* dirs, const float* tgt, int n_halves, int n_rays,
+                        int n_pts, const float* fmat, int n_base, int ladder, const float* const* weights,
+                        const float* w2t, const float* wc1ht, int n_hidden, float beta, float hs, float hs2,
+                        float scale, float scale3, float* work, int n_blocks, float* out, float* w_out,
+                        void* stream);

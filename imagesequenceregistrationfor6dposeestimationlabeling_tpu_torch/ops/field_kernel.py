@@ -1,18 +1,25 @@
-"""The density field op: kernel K1 (``csrc/density.cu``) and its plain version.
+"""The field ops: kernels K1 (``csrc/density.cu``) and K4
+(``csrc/bundle_loss.cu``), each beside its plain version.
 
-Counterpart of the density half of the reference's ops/field_kernel.py
-(``_dens_kernel`` / ``field_density`` / ``density_eval_fn``): embed ->
-trunk -> density head for a flat list of points, forward only.  Numerics
-are the kernel's, not flax's: angles are exact f32 products, the
-embedding, W1, h1 and W2 are rounded to bf16 with f32 accumulation, the
-density head is f32 on the unrounded h2.
+K1 is the counterpart of the reference's ``_dens_kernel`` /
+``field_density`` / ``density_eval_fn``: embed -> trunk -> density head
+for a flat list of points, forward only.  K4 is the counterpart of
+``_loss_kernel`` / ``bundle_loss_grads``: the NeRF train step's field
+forward, EA composite, huber loss and backward.  Numerics are the
+kernels', not flax's: angles are exact f32 products, the embedding, the
+bf16 weights and the stored activations are rounded to bf16 with f32
+accumulation, the density head is f32 on the unrounded h2.
 
 The host helpers (frequency matrices, the ladder's row permutation, the
-weight split) are shared by both versions.  ``density_op`` runs the plain
-version for a CPU tensor and the kernel for a CUDA tensor.
+weight splits) are shared by both versions.  ``density_op`` and
+``bundle_loss_op`` run the plain version for a CPU tensor and the kernel
+for a CUDA tensor.
 """
 
 from __future__ import annotations
+
+import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -77,30 +84,20 @@ def ladder_perm(n_harmonic: int, ladder: int) -> np.ndarray:
     return perm
 
 
+def fmat_of(cfg) -> np.ndarray:
+    """The kernels' frequency matrix for a field config: the ladder's base
+    frequencies for the grouped embedding, every frequency for "direct"."""
+    H, ladder = cfg.n_harmonic_functions, ladder_of(cfg)
+    return freq_matrix_g(H, cfg.omega0, ladder) if ladder else freq_matrix(H, cfg.omega0)
+
+
 def density_weights(field):
     """The field's density path in the kernel's layout, f32 (in, out):
     (fmat, w1s, w1c, b1, w2, b2, wd (nh,), bd (1,)); W1's rows permuted to
     the ladder's rung-major order for the grouped embedding."""
-    cfg = field.cfg
-    H = cfg.n_harmonic_functions
-    ladder = ladder_of(cfg)
-    dev = field.trunk1.weight.device
-    fm = freq_matrix_g(H, cfg.omega0, ladder) if ladder else freq_matrix(H, cfg.omega0)
-    w1 = field.trunk1.weight.detach().T
-    w1s, w1c = w1[: 3 * H], w1[3 * H :]
-    if ladder:
-        perm = torch.from_numpy(ladder_perm(H, ladder)).to(dev)
-        w1s, w1c = w1s[perm], w1c[perm]
-    return (
-        torch.from_numpy(fm).to(dev),
-        w1s.contiguous(),
-        w1c.contiguous(),
-        field.trunk1.bias.detach().contiguous(),
-        field.trunk2.weight.detach().T.contiguous(),
-        field.trunk2.bias.detach().contiguous(),
-        field.density_layer.weight.detach()[0].contiguous(),
-        field.density_layer.bias.detach().contiguous(),
-    )
+    w = dict(zip(LOSS_BLOCKS, loss_weights(field)))
+    fm = torch.from_numpy(fmat_of(field.cfg)).to(w["w1s"].device)
+    return (fm,) + tuple(w[k] for k in ("w1s", "w1c", "b1", "w2", "b2", "wd", "bd"))
 
 
 def _embed_plain(x, fm, ladder: int):
@@ -186,3 +183,262 @@ def density_eval_fn(field):
     if cfg is None or not enabled(cfg, device):
         return field.density
     return lambda pts: field_density(field, pts)
+
+
+# ------------------------------------------------- K4: the bundle loss
+#
+# Counterpart of the reference's _loss_kernel / _make_loss_op /
+# bundle_loss_grads: field forward, closed-form EA composite, huber colour
+# and silhouette loss and the hand-written backward into the 13 weight
+# grads, for H independent fields (the two half-sequence NeRFs) in one
+# launch.  Shapes: pts (H, R, P, 3), unit view dirs (H, R, 3), targets
+# (H, R, 8) = [col(3), sil, valid, 0, 0, 0]; each weight block carries the
+# leading H.  Returns (13 grads with leading H, loss (H, 2) = [ce_sum,
+# se_sum], EA weights (H, R, P) or None).
+
+LOSS_BLOCKS = ("w1s", "w1c", "b1", "w2", "b2", "wd", "bd", "wc1h", "wc1ds", "wc1dc", "bc1", "wc2", "bc2")
+# the blocks that enter products as bf16 (the density head stays f32)
+_BF16_BLOCKS = frozenset({"w1s", "w1c", "w2", "wc1h", "wc1ds", "wc1dc", "wc2"})
+# blocks whose rows are embedding columns: permuted for the grouped ladder
+_EMBED_ROW_BLOCKS = frozenset({"w1s", "w1c", "wc1ds", "wc1dc"})
+
+
+def loss_weights(field):
+    """The field's 13 loss-kernel blocks, f32, in (in, out) layout:
+    w1s, w1c (3H, nh); b1 (nh,); w2 (nh, nh); b2 (nh,); wd (nh,); bd (1,);
+    wc1h (nh, nh); wc1ds, wc1dc (3H, nh); bc1 (nh,); wc2 (nh, 3); bc2 (3,).
+    For the grouped embedding the rows of w1s, w1c, wc1ds and wc1dc are
+    permuted to the ladder's rung-major order."""
+    cfg = field.cfg
+    H, nh = cfg.n_harmonic_functions, cfg.n_hidden
+    E = 3 * H
+    w1 = field.trunk1.weight.detach().T
+    wc1 = field.color1.weight.detach().T
+    blocks = dict(
+        w1s=w1[:E], w1c=w1[E:], b1=field.trunk1.bias.detach(),
+        w2=field.trunk2.weight.detach().T, b2=field.trunk2.bias.detach(),
+        wd=field.density_layer.weight.detach()[0], bd=field.density_layer.bias.detach(),
+        wc1h=wc1[:nh], wc1ds=wc1[nh:nh + E], wc1dc=wc1[nh + E:], bc1=field.color1.bias.detach(),
+        wc2=field.color2.weight.detach().T, bc2=field.color2.bias.detach(),
+    )
+    ladder = ladder_of(cfg)
+    if ladder:
+        perm = torch.from_numpy(ladder_perm(H, ladder)).to(w1.device)
+        for k in _EMBED_ROW_BLOCKS:
+            blocks[k] = blocks[k][perm]
+    return tuple(blocks[k].contiguous() for k in LOSS_BLOCKS)
+
+
+def _sig_from_act(h: torch.Tensor, beta: float) -> torch.Tensor:
+    """sigmoid(beta x) recovered from h = softplus_beta(x)."""
+    return 1.0 - torch.exp(-beta * h)
+
+
+def _t(x: torch.Tensor) -> torch.Tensor:
+    return x.transpose(-1, -2)
+
+
+def _bundle_forward(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float):
+    """The plain K4 forward: field, closed-form composite and loss, with
+    the kernel's rounding points.  Returns its intermediates by name."""
+    w1s, w1c, b1, w2, b2, wd, bd, wc1h, wc1ds, wc1dc, bc1, wc2, bc2 = weights
+    nH, R, P, _ = pts.shape
+    N = R * P
+    bf = _bf16
+
+    # ---- field
+    s, c = _embed_plain(pts.reshape(-1, 3), fmat, ladder)
+    es, ec = bf(s).reshape(nH, N, -1), bf(c).reshape(nH, N, -1)
+    h1 = softplus_beta(es @ bf(w1s) + ec @ bf(w1c) + b1[:, None], beta)
+    h1b = bf(h1)
+    h2 = softplus_beta(h1b @ bf(w2) + b2[:, None], beta)
+    h2b = bf(h2)
+    raw = softplus_beta(h2 @ wd[..., None] + bd[:, None], beta)                  # (nH, N, 1), unrounded h2
+    ds, dc = _embed_plain(dirs.reshape(-1, 3), fmat, ladder)
+    dsb, dcb = bf(ds).reshape(nH, R, -1), bf(dc).reshape(nH, R, -1)
+    dpart = dsb @ bf(wc1ds) + dcb @ bf(wc1dc) + bc1[:, None]                       # (nH, R, C), once per ray
+    c1 = softplus_beta((h2b @ bf(wc1h)).reshape(nH, R, P, -1) + dpart[:, :, None], beta)
+    c1b = bf(c1).reshape(nH, N, -1)
+    rgb = torch.sigmoid(c1b @ bf(wc2) + bc2[:, None])                              # (nH, N, 3)
+
+    # ---- closed-form composite and loss
+    rawr = raw.reshape(nH, R, P)
+    Q = torch.cumsum(rawr, -1)
+    A = torch.exp(rawr - Q)                      # exp(-exclusive prefix)
+    w = (1.0 - torch.exp(-rawr)) * A
+    rgbr = rgb.reshape(nH, R, P, 3)
+    feat = (w[..., None] * rgbr).sum(2)                                           # (nH, R, 3)
+    eS = torch.exp(-rawr.sum(-1, keepdim=True))
+    opac = 1.0 - eS
+    col, sil, v = tgt[..., 0:3], tgt[..., 3:4], tgt[..., 4:5]
+    dcol = feat - col
+    rc = torch.sqrt(1.0 + dcol * dcol / (hs * hs))
+    dsil = opac - sil
+    rs = torch.sqrt(1.0 + dsil * dsil / (hs * hs))
+    loss = torch.stack([((rc - 1.0) * hs * v).sum((1, 2)) / 3.0, ((rs - 1.0) * hs * v).sum((1, 2))], -1)
+    return SimpleNamespace(es=es, ec=ec, h1b=h1b, h2b=h2b, raw=raw, dsb=dsb, dcb=dcb, c1b=c1b, rgb=rgb, A=A, w=w,
+                           eS=eS, v=v, dcol=dcol, rc=rc, dsil=dsil, rs=rs, loss=loss)
+
+
+def bundle_loss_plain(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float, scale: float,
+                      want_weights: bool):
+    """Plain PyTorch version of K4: one expression per line of the
+    reference kernel's forward, composite, loss and hand backward, with
+    its rounding points (bf16 operands of every product but the density
+    head's, f32 accumulation; the backward reads the rounded activations)."""
+    w2, wd, wc1h, wc2 = weights[3], weights[5], weights[7], weights[11]
+    nH, R, P, _ = pts.shape
+    N = R * P
+    bf = _bf16
+    f = _bundle_forward(pts, dirs, tgt, fmat, weights, ladder, beta, hs)
+    es, ec, h1b, h2b, raw, dsb, dcb, c1b, rgb = f.es, f.ec, f.h1b, f.h2b, f.raw, f.dsb, f.dcb, f.c1b, f.rgb
+    A, w, v = f.A, f.w, f.v
+    rgbr = rgb.reshape(nH, R, P, 3)
+
+    # ---- backward: loss -> (du, grgb)
+    gf = (scale / 3.0) * v * f.dcol / (hs * f.rc)                                 # (nH, R, 3)
+    gO = scale * v * f.dsil / (hs * f.rs)                                         # (nH, R, 1)
+    gw = (gf[:, :, None, :] * rgbr).sum(-1)                                       # (nH, R, P)
+    grgb = (w[..., None] * gf[:, :, None, :]).reshape(nH, N, 3)
+    T = gw * w
+    rev_excl = T.sum(-1, keepdim=True) - torch.cumsum(T, -1)
+    g_raw = gw * (A - w) - rev_excl + gO * f.eS
+    du = g_raw.reshape(nH, N, 1) * _sig_from_act(raw, beta)
+
+    # ---- backward through the field, contractions over the point axis
+    dc2p = grgb * rgb * (1.0 - rgb)
+    dc2pb = bf(dc2p)
+    dwc2 = _t(c1b) @ dc2pb
+    dbc2 = dc2p.sum(1)
+    dc1p = (dc2pb @ _t(bf(wc2))) * _sig_from_act(c1b, beta)
+    dc1pb = bf(dc1p)
+    dwc1h = _t(h2b) @ dc1pb
+    dbc1 = dc1p.sum(1)
+    ddpart = bf(dc1p.reshape(nH, R, P, -1).sum(2))                                # (nH, R, C)
+    dwc1ds = _t(dsb) @ ddpart
+    dwc1dc = _t(dcb) @ ddpart
+    dwd = (_t(h2b) @ du)[..., 0]
+    dbd = du.sum(1)
+    dh2p = (dc1pb @ _t(bf(wc1h)) + du @ wd[:, None, :]) * _sig_from_act(h2b, beta)
+    dh2pb = bf(dh2p)
+    dw2 = _t(h1b) @ dh2pb
+    db2 = dh2p.sum(1)
+    dh1p = (dh2pb @ _t(bf(w2))) * _sig_from_act(h1b, beta)
+    dh1pb = bf(dh1p)
+    grads = (_t(es) @ dh1pb, _t(ec) @ dh1pb, dh1p.sum(1), dw2, db2, dwd, dbd, dwc1h, dwc1ds, dwc1dc, dbc1,
+             dwc2, dbc2)
+    return grads, f.loss, (w if want_weights else None)
+
+
+def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float, scale: float,
+                     want_weights: bool):
+    """K4 on the card (``csrc/bundle_loss.cu``): the same contract as
+    ``bundle_loss_plain``.  A persistent grid walks the rays; each block
+    accumulates into its own f32 slice of a workspace, and a second small
+    kernel sums the slices in a fixed order, so two launches give
+    bit-identical grads."""
+    dev = pts.device
+    f32 = torch.float32
+    nH, R, P, _ = pts.shape
+    n_base = fmat.shape[1]
+    E = n_base * max(ladder, 1)
+    nh = weights[2].shape[-1]
+    if nh > 256:
+        raise ValueError(f"bundle-loss kernel covers at most 256 hidden units, got {nh}")
+    cuda_build.check(pts, "pts", f32, (nH, R, P, 3), dev)
+    cuda_build.check(dirs, "dirs", f32, (nH, R, 3), dev)
+    cuda_build.check(tgt, "tgt", f32, (nH, R, 8), dev)
+    cuda_build.check(fmat, "fmat", f32, (3, n_base), dev)
+    shapes = dict(w1s=(E, nh), w1c=(E, nh), b1=(nh,), w2=(nh, nh), b2=(nh,), wd=(nh,), bd=(1,), wc1h=(nh, nh),
+                  wc1ds=(E, nh), wc1dc=(E, nh), bc1=(nh,), wc2=(nh, 3), bc2=(3,))
+    wts = {}
+    for name, t in zip(LOSS_BLOCKS, weights):
+        cuda_build.check(t, name, f32, (nH,) + shapes[name], dev)
+        # the product operands as bf16 values (stored as f32), as in the TPU kernel
+        wts[name] = _bf16(t) if name in _BF16_BLOCKS else t
+    # the backward's products read W2 and Wc1h transposed
+    w2t = _t(wts["w2"]).contiguous()
+    wc1ht = _t(wts["wc1h"]).contiguous()
+    sizes = [math.prod(shapes[k]) for k in LOSS_BLOCKS]
+    n_grad = sum(sizes)
+    # one resident wave: a block per SM (its shared memory allows no more at
+    # full width), split over the halves; each walks its half's rays
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_blocks = max(1, min(R, n_sm // nH))
+    work = torch.empty((nH, n_blocks, n_grad + 2), dtype=f32, device=dev)
+    flat = torch.empty((nH, n_grad + 2), dtype=f32, device=dev)
+    w_out = torch.empty((nH, R, P), dtype=f32, device=dev) if want_weights else None
+    if R and P:
+        cuda_build.kernels().bundle_loss(
+            pts.data_ptr(), dirs.data_ptr(), tgt.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder,
+            *(wts[k].data_ptr() for k in LOSS_BLOCKS), w2t.data_ptr(), wc1ht.data_ptr(), nh, float(beta),
+            float(hs), float(hs * hs), float(scale), float(scale / 3.0), work.data_ptr(), n_blocks,
+            flat.data_ptr(), 0 if w_out is None else w_out.data_ptr(), cuda_build.stream_ptr(dev),
+        )
+        bundle_loss_cuda.launches += 1
+    else:
+        flat.zero_()
+    grads, off = [], 0
+    for name, n in zip(LOSS_BLOCKS, sizes):
+        grads.append(flat[:, off:off + n].reshape((nH,) + shapes[name]))
+        off += n
+    return tuple(grads), flat[:, n_grad:], w_out
+
+
+bundle_loss_cuda.launches = 0
+
+
+def bundle_loss_op(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float, scale: float,
+                   want_weights: bool):
+    """K4 for a CUDA tensor, its plain version for a CPU tensor."""
+    if pts.device.type == "cuda":
+        return bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder, beta, hs, scale, want_weights)
+    if pts.device.type == "cpu":
+        return bundle_loss_plain(pts, dirs, tgt, fmat, weights, ladder, beta, hs, scale, want_weights)
+    raise ValueError(f"bundle loss op: unsupported device {pts.device}")
+
+
+def _set_grads(field, grads, inv):
+    """Write the 13 kernel-layout grads of one field into its parameters'
+    ``.grad``: transpose to (out, in), concatenate the split blocks, undo
+    the ladder's row permutation.  The frozen feature head gets none."""
+    g = dict(zip(LOSS_BLOCKS, grads))
+    if inv is not None:
+        for k in _EMBED_ROW_BLOCKS:
+            g[k] = g[k][inv]
+    new = {
+        field.trunk1.weight: torch.cat([g["w1s"], g["w1c"]]).T, field.trunk1.bias: g["b1"],
+        field.trunk2.weight: g["w2"].T, field.trunk2.bias: g["b2"],
+        field.density_layer.weight: g["wd"][None], field.density_layer.bias: g["bd"],
+        field.color1.weight: torch.cat([g["wc1h"], g["wc1ds"], g["wc1dc"]]).T, field.color1.bias: g["bc1"],
+        field.color2.weight: g["wc2"].T, field.color2.bias: g["bc2"],
+    }
+    for p, gp in new.items():
+        p.grad = gp.contiguous()
+
+
+def bundle_loss_grads(fields, pts, dirs, col, sil, valid, cfg, huber_scaling: float, scale: float,
+                      want_weights: bool = False):
+    """Field forward + EA composite + huber loss + backward for H fields in
+    one K4 call (the kernel on a CUDA device, its plain version on the CPU).
+
+    ``fields``: one NerfField per half, all of config ``cfg``.  pts (H, R,
+    P, 3); dirs (H, R, 3) un-normalized; col (H, R, 3); sil, valid (H, R,
+    1).  ``scale`` is the cotangent of each ray's (ce + se).  Sets each
+    trained parameter's ``.grad`` and returns (ce_sum (H,), se_sum (H,),
+    EA weights (H, R, P) or None)."""
+    ladder = ladder_of(cfg)
+    dev = pts.device
+    # the field's own normalization expression (NerfField.color)
+    dn = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True).clamp_min(1e-12)
+    tgt = torch.cat([col, sil, valid, torch.zeros_like(col)], -1).to(torch.float32).contiguous()
+    weights = tuple(torch.stack(blocks) for blocks in zip(*(loss_weights(f) for f in fields)))
+    grads, loss, w = bundle_loss_op(pts.detach().contiguous(), dn.detach().contiguous(), tgt,
+                                    torch.from_numpy(fmat_of(cfg)).to(dev), weights, ladder,
+                                    float(cfg.softplus_beta), float(huber_scaling), float(scale), want_weights)
+    inv = None
+    if ladder:
+        inv = torch.from_numpy(np.argsort(ladder_perm(cfg.n_harmonic_functions, ladder))).to(dev)
+    for h, f in enumerate(fields):
+        _set_grads(f, [g[h] for g in grads], inv)
+    return loss[:, 0], loss[:, 1], w

@@ -1,7 +1,9 @@
-"""Emission-absorption compositing (counterpart of render/raymarch.py).
+"""Emission-absorption compositing and importance sampling (counterpart of
+render/raymarch.py).
 
 The composite here is the reference's eps-cumprod form,
-``weights = density * shifted_cumprod((1 + eps) - density)``.
+``weights = density * shifted_cumprod((1 + eps) - density)``; the training
+kernel's closed form lives with it in ops/field_kernel.py.
 """
 
 from __future__ import annotations
@@ -55,3 +57,42 @@ def surface_depth(lengths: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 def surface_points(origins, directions, lengths, weights):
     """o + d * surface_depth."""
     return origins + directions * surface_depth(lengths, weights)[..., None]
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               generator: torch.Generator | None = None, u: torch.Tensor | None = None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Inverse-CDF sampling of ``n_samples`` depths per ray: bins (..., B)
+    sorted, weights (..., B-1) non-negative.  The uniforms ``u`` (...,
+    n_samples) in [0, 1 - 1e-6) may be passed in; otherwise they are drawn
+    from ``generator``."""
+    weights = weights + eps
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1).contiguous()       # (..., B)
+    if u is None:
+        u = torch.rand(cdf.shape[:-1] + (n_samples,), generator=generator, device=cdf.device) * (1.0 - 1e-6)
+    # idx = #(cdf <= u): the cdf is non-decreasing, so this is a right search
+    idx = torch.searchsorted(cdf, u.contiguous(), right=True).clamp(1, cdf.shape[-1] - 1)
+    cdf_b, cdf_a = torch.gather(cdf, -1, idx - 1), torch.gather(cdf, -1, idx)
+    bin_b, bin_a = torch.gather(bins, -1, idx - 1), torch.gather(bins, -1, idx)
+    denom = torch.where(cdf_a - cdf_b < 1e-10, torch.ones_like(cdf_a), cdf_a - cdf_b)
+    t = (u - cdf_b) / denom
+    return bin_b + t * (bin_a - bin_b)
+
+
+def importance_resample(lengths: torch.Tensor, weights: torch.Tensor, n_samples: int,
+                        generator: torch.Generator | None = None, u: torch.Tensor | None = None,
+                        add_input_samples: bool = True) -> torch.Tensor:
+    """New depths from the (detached) coarse weight distribution at the bin
+    midpoints, optionally joined with the input depths, sorted."""
+    z_mid = 0.5 * (lengths[..., 1:] + lengths[..., :-1])
+    z_new = sample_pdf(z_mid, weights[..., 1:-1].detach(), n_samples, generator, u)
+    z = torch.cat([lengths, z_new], -1) if add_input_samples else z_new
+    return torch.sort(z, -1).values
+
+
+def huber(x: torch.Tensor, y: torch.Tensor, scaling: float = 0.1) -> torch.Tensor:
+    """Smooth-L1 loss: (sqrt(1 + (x - y)^2 / s^2) - 1) * s."""
+    diff_sq = (x - y) ** 2
+    return (torch.sqrt(torch.clamp(1.0 + diff_sq / (scaling**2), min=1e-4)) - 1.0) * scaling

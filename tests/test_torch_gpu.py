@@ -1,6 +1,7 @@
-"""Kernels K1-K3 on the card against their plain PyTorch versions, at the
-shapes the serving path gives them.  Marked ``gpu``: they skip where
-torch.cuda is unavailable, and build the kernels on first use.
+"""Kernels K1-K4 on the card against their plain PyTorch versions, at the
+shapes the serving path and the NeRF train step give them.  Marked ``gpu``:
+they skip where torch.cuda is unavailable, and build the kernels on first
+use.
 
 Run on a machine with the card:  python -m pytest tests/test_torch_gpu.py -q
 """
@@ -82,3 +83,58 @@ def test_corr_kernel_matches_plain(cuda, n, m):
     assert float((lk - lp).abs().max()) < 1e-5 if bool(diff.any()) else True
     assert float(diff.float().mean()) < 1e-3
     assert float((c_k - c_p).abs().max()) < 1e-4
+
+
+def _bundle_inputs(cfg, n_halves, R, P, dev, seed):
+    """Random full fields (density bias 0, so densities spread over (0, 1))
+    and rays through the object's box from a sphere of radius 4."""
+    fields = []
+    for h in range(n_halves):
+        f = NerfField(cfg).reset_parameters(torch.Generator().manual_seed(seed + h))
+        torch.nn.init.zeros_(f.density_layer.bias)
+        fields.append(f.to(dev))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    o = torch.randn((n_halves, R, 3), generator=g, device=dev)
+    o = 4.0 * o / o.norm(dim=-1, keepdim=True)
+    d = -o / 4.0 + 0.1 * torch.randn((n_halves, R, 3), generator=g, device=dev)
+    lengths = torch.sort(2.0 + 4.0 * torch.rand((n_halves, R, P), generator=g, device=dev), -1).values
+    pts = (o[:, :, None] + d[:, :, None] * lengths[..., None]).contiguous()
+    dn = (d / d.norm(dim=-1, keepdim=True)).contiguous()
+    col = torch.rand((n_halves, R, 3), generator=g, device=dev)
+    sil = (torch.rand((n_halves, R, 1), generator=g, device=dev) > 0.5).float()
+    valid = torch.ones_like(sil)
+    valid[:, ::7] = 0.0  # rows that must contribute nothing
+    tgt = torch.cat([col, sil, valid, torch.zeros_like(col)], -1).contiguous()
+    weights = tuple(torch.stack(b) for b in zip(*(field_kernel.loss_weights(f) for f in fields)))
+    fm = torch.from_numpy(field_kernel.fmat_of(cfg)).to(dev)
+    return pts, dn, tgt, fm, weights, field_kernel.ladder_of(cfg)
+
+
+@pytest.mark.parametrize("cfg,n_halves,R,P", [
+    (FieldConfig(act_dtype="bfloat16"), 2, 1201, 64),
+    (FieldConfig(act_dtype="bfloat16"), 2, 601, 320),
+    (FieldConfig(act_dtype="bfloat16", embed_method="grouped"), 1, 1201, 64),
+    (FieldConfig(act_dtype="bfloat16", embed_method="grouped"), 2, 257, 320),
+    (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16"), 2, 37, 12),
+])
+def test_bundle_loss_kernel_matches_plain(cuda, cfg, n_halves, R, P):
+    pts, dn, tgt, fm, weights, ladder = _bundle_inputs(cfg, n_halves, R, P, cuda, R + P)
+    args = (pts, dn, tgt, fm, weights, ladder, cfg.softplus_beta, 0.1, 500.0 / R, True)
+    gk, lk, wk = field_kernel.bundle_loss_cuda(*args)
+    gp, lp, wp = field_kernel.bundle_loss_plain(*args)
+    torch.cuda.synchronize()
+    # same rounding points, f32 sums in another order: a flipped bf16
+    # rounding moves a point's activation by one bf16 ulp
+    assert torch.allclose(lk, lp, rtol=1e-3, atol=0), (lk, lp)
+    assert float((wk - wp).abs().max()) < 1e-3
+    for name, a, b in zip(field_kernel.LOSS_BLOCKS, gk, gp):
+        s = max(float(b.abs().max()), 1e-3)
+        assert float((a - b).abs().max()) / s < 3e-2, name
+    # fixed-order sums: a second launch is bit-identical
+    gk2, lk2, wk2 = field_kernel.bundle_loss_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(gk, gk2)) and torch.equal(lk, lk2) and torch.equal(wk, wk2)
+    # rows with valid = 0 change nothing
+    tgt2 = tgt.clone()
+    tgt2[:, ::7, :4] = torch.rand_like(tgt2[:, ::7, :4])
+    gk3, lk3, _ = field_kernel.bundle_loss_cuda(pts, dn, tgt2, *args[3:])
+    assert all(torch.equal(a, b) for a, b in zip(gk, gk3)) and torch.equal(lk, lk3)
