@@ -1,32 +1,44 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch / CUDA port: builds the hand-written kernels,
 checks each against its plain PyTorch version at the shapes of the path
-that runs it, then trains both half-sequence NeRFs and drives the serving
-path at bench settings on one GPU.
+that runs it, then trains both half-sequence NeRFs, trains one NeRF at a
+large ray batch (chunked steps) and drives the serving path at bench
+settings on one GPU.
 
     python3 chip_smoke.py                    # from the repository root, one CUDA device
     python3 chip_smoke.py --nerf-steps 800   # the bench's full NeRF schedule
+    python3 chip_smoke.py --chunk-steps 200  # the reference's full large-batch schedule
 
 Phases (any failure raises, and the script exits non-zero):
 1. device and toolchain: the card's name and power limit (nvidia-smi),
    torch / CUDA / nvcc versions;
-2. build K1-K4 from ``imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch/ops/csrc``;
+2. build K1-K6 from ``imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch/ops/csrc``;
 3. per kernel, kernel vs plain version on the card, error and both times:
    K1 on the 128^3 grid of a randomly initialised full-width field, K2 at
    50,000 x 50,000, K3 with 5,625 queries x 80,000 keys at 12 dims, K4 at
    the train step's shapes (2 halves x 1,200 rays x 64 coarse / 320 fine
-   points, full-width random fields, both embeddings, synthetic targets);
+   points, full-width random fields, both embeddings, synthetic targets),
+   K5 / K6 at a chunk's shapes (one half, 4,096 rays and the ragged 704,
+   x 64 / 320 points, both embeddings);
 4. NeRF training of both halves (``train_nerf_fused``) at the bench's
    settings: 8 views at 224 px, full-width bf16 field, 400 rays per image,
    batch 3, warmup 266, seed 1, ``--nerf-steps`` steps (default 200), with
    K4's launches counted over exactly that run; then one step with K4
    against one with its plain version from the same state and draws;
-5. the serving path of the bench (8 views at 224 px, 128^3 grid,
+5. chunked NeRF training of one half (``train_nerf``) at the reference's
+   large-batch schedule (experiments/nerf_schedule.py:40): 6 cams x 800
+   rays a step, chunks of 4,096 and 704 rays through K5 / K6,
+   ``--chunk-steps`` steps (default 100), with K5's and K6's launches
+   counted over exactly that run; a chunked step through K5 / K6 against
+   one through their plain versions; exact resume through
+   ``train.checkpoint``; the trained fine field's point cloud (K1 grid,
+   marching tetrahedra) against the analytic surface;
+6. the serving path of the bench (8 views at 224 px, 128^3 grid,
    FeatConfig(mc_threshold=0.05, n_points=20000, sample_loops=3), 8 images
    through InferenceConfig(), ICP with 20 iterations) on a full-width
    planted NerfField and a full-width random ResNetUNet from ``--seed``,
    with each kernel's launches counted over exactly that run;
-6. checks of the outputs: shapes, finiteness, keys on the planted shell,
+7. checks of the outputs: shapes, finiteness, keys on the planted shell,
    and ICP from a perturbed ground-truth pose, card against the CPU plain
    path.
 
@@ -51,22 +63,37 @@ TPU_KERNELS = {
     "nn_min": "imagesequenceregistrationfor6dposeestimationlabeling_tpu/ops/pallas_kernels.py:134",
     "corr_argmax": "imagesequenceregistrationfor6dposeestimationlabeling_tpu/ops/pallas_kernels.py:41",
     "bundle_loss": "imagesequenceregistrationfor6dposeestimationlabeling_tpu/ops/field_kernel.py:701",
+    "field_color_fwd": "imagesequenceregistrationfor6dposeestimationlabeling_tpu/ops/field_kernel.py:248",
+    "field_color_bwd": "imagesequenceregistrationfor6dposeestimationlabeling_tpu/ops/field_kernel.py:481",
 }
 SOURCES = {
     "density": f"{PKG}/ops/csrc/density.cu",
     "nn_min": f"{PKG}/ops/csrc/nn_min.cu",
     "corr_argmax": f"{PKG}/ops/csrc/corr_argmax.cu",
     "bundle_loss": f"{PKG}/ops/csrc/bundle_loss.cu",
+    "field_color_fwd": f"{PKG}/ops/csrc/field_color.cu",
+    "field_color_bwd": f"{PKG}/ops/csrc/field_color.cu",
 }
-# K4: loss sums (relative), EA weights (absolute), each grad block scaled by its max |g|
-TOL = {"density": 2e-2, "nn_min": 0.0, "corr_argmax": 1e-4, "loss_rel": 1e-3, "w_abs": 1e-3, "grad_scaled": 3e-2}
+# K4: loss sums (relative), EA weights (absolute), each grad block scaled by
+# its max |g|.  K5: dens and rgb (absolute), the share of bf16 residual
+# values that are not bit-equal; K6 as K4's grads
+TOL = {"density": 2e-2, "nn_min": 0.0, "corr_argmax": 1e-4, "loss_rel": 1e-3, "w_abs": 1e-3, "grad_scaled": 3e-2,
+       "color_abs": 2e-2, "res_share": 1e-2}
 # the bench's serving settings (bench.py run_pipeline, full-size branch)
 SERVE = {"n_views": 8, "image_size": 224, "grid_res": 128, "n_infer": 8, "n_points": 20000,
          "sample_loops": 3, "icp_iters": 20}
 FIELD = {"act_dtype": "bfloat16"}  # FieldConfig defaults otherwise: 60 harmonics, 256 hidden
+SERVE_KERNELS = ("density", "nn_min", "corr_argmax")
 # the bench's NeRF settings (bench.py:239-254): 3 cams x 400 rays per half and
 # step, warmup min(300, 800 // 3), seed 1
 TRAIN = {"n_views": 8, "image_size": 224, "n_rays": 400, "batch": 3, "warmup": 266, "seed": 1}
+# the reference's large-batch schedule (experiments/nerf_schedule.py:40) for
+# one half: 6 cams x 800 rays a step (4,800 rays: chunks of 4,096 and 704),
+# warmup min(300, steps // 3), seed 1; the resume check's step count
+CHUNKED = {"n_views": 8, "image_size": 224, "n_rays": 800, "batch": 6, "seed": 1, "resume_steps": 10}
+# K5 / K6 at a chunk's shapes, (rays, points): a full chunk and the ragged
+# last chunk of a 4,800-ray step, each of the coarse and the fine pass
+FIELD_COLOR_SHAPES = [(4096, 64), (4096, 320), (704, 64), (704, 320)]
 
 
 def log(msg: str):
@@ -176,6 +203,8 @@ def launch_counts():
         "nn_min": point_kernels.nn_min_cuda.launches,
         "corr_argmax": point_kernels.correspondence_argmax_cuda.launches,
         "bundle_loss": field_kernel.bundle_loss_cuda.launches,
+        "field_color_fwd": field_kernel.field_color_fwd_cuda.launches,
+        "field_color_bwd": field_kernel.field_color_bwd_cuda.launches,
     }
 
 
@@ -186,6 +215,8 @@ def reset_launch_counts():
     point_kernels.nn_min_cuda.launches = 0
     point_kernels.correspondence_argmax_cuda.launches = 0
     field_kernel.bundle_loss_cuda.launches = 0
+    field_kernel.field_color_fwd_cuda.launches = 0
+    field_kernel.field_color_bwd_cuda.launches = 0
 
 
 def profile_run(run, path: str, what: str):
@@ -435,6 +466,224 @@ def train_path(dev, seed: int, n_steps: int, profile: str | None = None):
     return counts, 1e3 * wall_s / n_steps
 
 
+def chunk_rays(dev, R: int, P: int, seed: int):
+    """One half's rays through the object's box from a sphere of radius 4:
+    points (1, R, P, 3) at sorted depths in [2, 6], unit dirs (1, R, 3)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    o = torch.randn((1, R, 3), generator=g, device=dev)
+    o = 4.0 * o / o.norm(dim=-1, keepdim=True)
+    d = -o / 4.0 + 0.1 * torch.randn((1, R, 3), generator=g, device=dev)
+    lengths = torch.sort(2.0 + 4.0 * torch.rand((1, R, P), generator=g, device=dev), -1).values
+    pts = (o[:, :, None] + d[:, :, None] * lengths[..., None]).contiguous()
+    return pts, (d / d.norm(dim=-1, keepdim=True)).contiguous()
+
+
+def field_color_phase(dev, seed: int):
+    """K5 and K6 against their plain versions at a chunk's shapes
+    (``FIELD_COLOR_SHAPES``, one half), full-width random fields (density
+    bias 0), both embeddings.  K6 runs on K5's own residuals and outputs
+    with random cotangents.  Returns {name: (worst error, kernel ms, plain
+    ms)}, the times summed over the four shapes of the direct embedding:
+    one 4,800-ray chunked step's launches (2 chunks x 2 passes)."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import NerfField
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
+
+    worst = {"field_color_fwd": 0.0, "field_color_bwd": 0.0}
+    step_ms = {"field_color_fwd": [0.0, 0.0], "field_color_bwd": [0.0, 0.0]}
+    for embed in ("direct", "grouped"):
+        cfg = FieldConfig(**FIELD, embed_method=embed)
+        field = NerfField(cfg).reset_parameters(torch.Generator().manual_seed(seed + 20))
+        torch.nn.init.zeros_(field.density_layer.bias)
+        weights = tuple(b[None] for b in fk.loss_weights(field.to(dev)))
+        fm = torch.from_numpy(fk.fmat_of(cfg)).to(dev)
+        ladder, beta = fk.ladder_of(cfg), cfg.softplus_beta
+        for R, P in FIELD_COLOR_SHAPES:
+            pts, dn = chunk_rays(dev, R, P, seed + R + P)
+            fwd = (pts, dn, fm, weights, ladder, beta)
+            ms, (dk, rk, res_k) = cuda_ms(lambda: fk.field_color_fwd_cuda(*fwd))
+            plain_ms, (dp, rp, res_p) = cuda_ms(lambda: fk.field_color_fwd_plain(*fwd), reps=1)
+            dk2, rk2, res_k2 = fk.field_color_fwd_cuda(*fwd)
+            err = max(float((dk - dp).abs().max()), float((rk - rp).abs().max()))
+            share = max(float(((dk - dp).abs() > 1e-4).float().mean()), float(((rk - rp).abs() > 1e-4).float().mean()))
+            res_share = max(float((res_k[k] != res_p[k]).float().mean()) for k in fk.RESIDUALS)
+            same = (torch.equal(dk, dk2) and torch.equal(rk, rk2)
+                    and all(torch.equal(res_k[k], res_k2[k]) for k in fk.RESIDUALS))
+            del dp, rp, res_p, dk2, rk2, res_k2
+            log(f"K5 field_color_fwd {embed} {R} rays x {P} points (dens std {float(dk.std()):.3f}): dens / rgb max abs "
+                f"err {err:.3e} (tol {TOL['color_abs']}), share > 1e-4 {share:.2e}; residuals not bit-equal "
+                f"{res_share:.2e} (tol {TOL['res_share']}); second launch bit-identical: {same}; kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms")
+            if not (err <= TOL["color_abs"] and share < 1e-3 and res_share <= TOL["res_share"] and same
+                    and float(dk.std()) > 1e-3):
+                raise AssertionError(f"K5 disagrees with its plain version ({embed}, {R} x {P})")
+            worst["field_color_fwd"] = max(worst["field_color_fwd"], err)
+            g = torch.Generator(device=dev).manual_seed(seed + R)
+            bwd = (dn, fm, weights, res_k, dk, rk, torch.randn(dk.shape, generator=g, device=dev),
+                   torch.randn(rk.shape, generator=g, device=dev), ladder, beta)
+            bms, gk = cuda_ms(lambda: fk.field_color_bwd_cuda(*bwd))
+            plain_bms, gp = cuda_ms(lambda: fk.field_color_bwd_plain(*bwd), reps=1)
+            gk2 = fk.field_color_bwd_cuda(*bwd)
+            errs = {name: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3)
+                    for name, a, b in zip(fk.LOSS_BLOCKS, gk, gp)}
+            bad = max(errs, key=errs.get)
+            same = all(torch.equal(a, b) for a, b in zip(gk, gk2))
+            log(f"K6 field_color_bwd {embed} {R} rays x {P} points: grad max err / block max |g| {errs[bad]:.2e} ({bad}, "
+                f"tol {TOL['grad_scaled']}); second launch bit-identical: {same}; kernel {bms:.3f} ms, "
+                f"plain {plain_bms:.3f} ms")
+            if not (errs[bad] <= TOL["grad_scaled"] and same):
+                raise AssertionError(f"K6 disagrees with its plain version ({embed}, {R} x {P})")
+            worst["field_color_bwd"] = max(worst["field_color_bwd"], errs[bad])
+            if embed == "direct":
+                for name, pair in (("field_color_fwd", (ms, plain_ms)), ("field_color_bwd", (bms, plain_bms))):
+                    step_ms[name] = [a + b for a, b in zip(step_ms[name], pair)]
+            del dk, rk, res_k, bwd, gk, gp, gk2
+    log(f"K5 / K6 per chunked step (direct, 4,096 + 704 rays x (64 + 320) points): K5 kernel "
+        f"{step_ms['field_color_fwd'][0]:.3f} ms, plain {step_ms['field_color_fwd'][1]:.3f} ms; K6 kernel "
+        f"{step_ms['field_color_bwd'][0]:.3f} ms, plain {step_ms['field_color_bwd'][1]:.3f} ms")
+    return {name: (worst[name], *step_ms[name]) for name in worst}
+
+
+def chunked_step_vs_plain_step(state, data, dev, render, train, tag: str, whole_step: bool):
+    """One chunked train step through K5 / K6 and one through their plain
+    versions, from copies of the same state, on the first batch of the
+    schedule with the same draws.  ``whole_step`` holds the loss and both
+    fields' grads to the bars; otherwise they are reported (the fine pass
+    resamples from the coarse weights, which magnifies ulp differences on
+    a trained surface, as for K4)."""
+    import copy
+
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    images, sils, R_bop, t_bop, K = data
+    n, S, bs = images.shape[0], images.shape[1], CHUNKED["batch"]
+    idx = torch.as_tensor(nerf_trainer.half_schedule(n, bs, 1, CHUNKED["seed"])[0], device=dev)
+    cams = cam_lib.camera_from_bop(R_bop, t_bop, K, S)
+    cam = cam_lib.Camera(cams.R[idx][None], cams.T[idx][None], cams.focal[idx][None], cams.principal[idx][None], S)
+    min_d, max_d = nerf_trainer.depth_bounds(t_bop.cpu().numpy())
+    draws = nerf_trainer.draw([nerf_trainer.step_generator(CHUNKED["seed"], 0, dev)], bs, render, dev)
+    args = (cam, images[idx][None], sils[idx][None], nerf_trainer.make_optimizer(train), render, train, min_d, max_d)
+    (a,), loss_a, _ = nerf_trainer.train_step([copy.deepcopy(state)], *args, draws=draws)
+    ops = fk.field_color_fwd_op, fk.field_color_bwd_op
+    fk.field_color_fwd_op, fk.field_color_bwd_op = fk.field_color_fwd_plain, fk.field_color_bwd_plain
+    try:  # this step only: the plain versions on the card
+        (b,), loss_b, _ = nerf_trainer.train_step([copy.deepcopy(state)], *args, draws=draws)
+    finally:
+        fk.field_color_fwd_op, fk.field_color_bwd_op = ops
+    sync(dev)
+    loss_rel = float((loss_a - loss_b).abs().max() / loss_b.abs().max())
+    err = {}
+    for which in ("coarse", "fine"):
+        err[which] = max(float((pa.grad - pb.grad).abs().max()) / max(float(pb.grad.abs().max()), 1e-3)
+                         for (_, pa), (_, pb) in zip(nerf_trainer.trainable(getattr(a, which)),
+                                                     nerf_trainer.trainable(getattr(b, which))))
+    log(f"chunked train step at the {tag} state, K5 / K6 vs plain from the same state and draws: loss "
+        f"{float(loss_a[0]):.6f} vs {float(loss_b[0]):.6f} (rel err {loss_rel:.2e}); grad max err / tensor max |g|: "
+        f"coarse {err['coarse']:.2e}, fine {err['fine']:.2e}")
+    if whole_step and not (loss_rel <= TOL["loss_rel"] and max(err.values()) <= TOL["grad_scaled"]):
+        raise AssertionError(f"the chunked step through K5 / K6 disagrees with the step through their plain "
+                             f"versions ({tag})")
+
+
+def chunked_train_path(dev, seed: int, n_steps: int, profile: str | None = None):
+    """``train_nerf`` on synthetic half 0 at the reference's large-batch
+    schedule (``CHUNKED``): K5's and K6's launches counted over exactly the
+    measured run, a kernel step against a plain step, exact resume through
+    ``train.checkpoint``, and the trained fine field's point cloud."""
+    import numpy as np
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
+        FieldConfig,
+        NerfTrainConfig,
+        RenderConfig,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pointcloud as pc
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import renderer
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import checkpoint, nerf_trainer
+
+    c = CHUNKED
+    scene = synthetic.make_scene(c["n_views"], c["image_size"], torch.Generator(device=dev).manual_seed(seed),
+                                 device=dev)
+    data = (scene.images, scene.sils, scene.R_bop, scene.t_bop, scene.K)
+    cfg = FieldConfig(**FIELD)
+    render = RenderConfig(n_rays_per_image=c["n_rays"])
+    train = NerfTrainConfig(batch_size=c["batch"], warmup_steps=min(300, n_steps // 3))
+    n_chunks = -(-c["batch"] * c["n_rays"] // nerf_trainer.RAY_CHUNK)
+
+    def run(steps: int, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = nerf_trainer.train_nerf(*data, cfg, render, train, n_steps=steps, seed=c["seed"], device=dev, **kw)
+        sync(dev)
+        return out, time.perf_counter() - t0
+
+    _, cold_s = run(1)
+    reset_launch_counts()
+    (state, losses), wall_s = run(n_steps)
+    counts = launch_counts()
+    losses = np.asarray(losses)
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    log(f"chunked NeRF training, 1 half x {n_steps} steps ({c['batch']} cams x {c['n_rays']} rays = "
+        f"{c['batch'] * c['n_rays']} rays in {n_chunks} chunks, {render.n_pts_coarse} + "
+        f"{render.n_pts_coarse + render.n_pts_fine} points): cold first step {1e3 * cold_s:.1f} ms; warm "
+        f"{1e3 * wall_s / n_steps:.2f} ms per step ({wall_s:.2f} s); launches field_color_fwd "
+        f"{counts['field_color_fwd']}, field_color_bwd {counts['field_color_bwd']}, bundle_loss "
+        f"{counts['bundle_loss']}; mean loss of the first 10 steps {first:.3f}, of the last 10 {last:.3f}")
+    want = 2 * n_chunks * n_steps
+    if not (counts["field_color_fwd"] == counts["field_color_bwd"] == want and counts["bundle_loss"] == 0):
+        raise AssertionError(f"expected {want} launches of each of K5 and K6 and none of K4, counted {counts}")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError("chunked training losses are not finite or do not fall")
+
+    fresh = nerf_trainer.init_state(cfg, train, torch.Generator().manual_seed(c["seed"]), device=dev)
+    chunked_step_vs_plain_step(fresh, data, dev, render, train, "initial", whole_step=True)
+    chunked_step_vs_plain_step(state, data, dev, render, train, f"step-{n_steps}", whole_step=False)
+
+    # exact resume: N steps against N / 2, save_state, load_state, resume to N
+    n_res = c["resume_steps"]
+    (full, full_losses), _ = run(n_res)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        (_, head), _ = run(n_res // 2, on_checkpoint=lambda st, i: checkpoint.save_latest(ckpt_dir, st))
+        resumed = checkpoint.load_state(os.path.join(ckpt_dir, checkpoint.STATE), cfg, device=dev)
+        (end, tail), _ = run(n_res, resume_state=resumed)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    same = (head + tail == full_losses and end.step == full.step == n_res and end.opt.count == full.opt.count
+            and all(torch.equal(x, y) for x, y in zip(nerf_trainer.train_params(end) + end.opt.mu + end.opt.nu,
+                                                      nerf_trainer.train_params(full) + full.opt.mu + full.opt.nu)))
+    log(f"exact resume: {n_res} steps against {n_res // 2} + save_state / load_state + {n_res - n_res // 2}: params, "
+        f"Adam moments and losses of steps {n_res // 2 + 1}-{n_res} bit-identical: {same}")
+    if not same:
+        raise AssertionError("a resumed chunked run differs from the uninterrupted one")
+
+    # the trained fine field's point cloud against the analytic surface (reported)
+    t0 = time.perf_counter()
+    verts, tris = nerf_trainer.extract_point_cloud(state.fine, threshold=0.03, grid_res=128)
+    peak = float(renderer.density_grid_cached(state.fine, grid_res=128).max())
+    gt, ok = synthetic.analytic_surface_points(20000, torch.Generator(device=dev).manual_seed(9), device=dev)
+    cham = float("nan")
+    if verts.shape[0]:
+        sub = verts[np.random.default_rng(0).permutation(verts.shape[0])[:20000]]
+        cham = float(pc.chamfer_distance(torch.as_tensor(sub, dtype=torch.float32, device=dev), gt[ok]))
+    log(f"extract_point_cloud of the step-{n_steps} fine field at 128^3 (threshold 0.03, grid max density "
+        f"{peak:.4f}): {verts.shape[0]} vertices, {tris.shape[0]} triangles, Chamfer to the analytic surface "
+        f"{cham:.4f} (object diameter {scene.diameter:.3f}; {time.perf_counter() - t0:.2f} s)")
+    if profile:
+        profile_run(lambda: run(20)[1], profile + ".chunked.txt", "20 chunked training steps")
+    return counts, 1e3 * wall_s / n_steps
+
+
 def icp_check(dev, upper, lower, cad, R_gt, t_gt, diameter: float, scale: float):
     """Registration of the baked keys from a known small perturbation of the
     ground-truth pose, on the card and on the CPU plain path: ICP must find
@@ -564,7 +813,7 @@ def serve_path(dev, seed: int, out_dir: str, profile: str | None = None):
     reset_launch_counts()
     (verts_scaled, feats, verts_real, n_real, adds, pred_R, pred_t, R_gt, t_gt, best, chamfers,
      cad, upper, lower, out, stages) = once("warm")
-    counts = {k: v for k, v in launch_counts().items() if k != "bundle_loss"}  # the serve path's kernels
+    counts = {k: launch_counts()[k] for k in SERVE_KERNELS}
     log("launches in the serve run: " + json.dumps(counts))
     if profile:
         profile_run(lambda: once("profiled")[-1]["serve_s"], profile, "serve run")
@@ -601,6 +850,8 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", metavar="PATH",
                         help="also profile one serve run (kernel table to PATH) and 20 training steps (PATH.train.txt)")
     parser.add_argument("--nerf-steps", type=int, default=200, help="NeRF training steps (the bench runs 800)")
+    parser.add_argument("--chunk-steps", type=int, default=100,
+                        help="chunked NeRF training steps at the large-batch schedule (the reference runs 200)")
     args = parser.parse_args(argv)
 
     import torch
@@ -626,17 +877,20 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     cuda_build.kernels()
-    log(f"built K1-K4 for sm_90a in {time.perf_counter() - t0:.1f} s ({cuda_build.BUILD_DIR})")
+    log(f"built K1-K6 for sm_90a in {time.perf_counter() - t0:.1f} s ({cuda_build.BUILD_DIR})")
 
     phases = kernel_phases(dev, args.seed)
     phases["bundle_loss"] = bundle_loss_phase(dev, args.seed)
+    phases.update(field_color_phase(dev, args.seed))
     train_counts, _ = train_path(dev, args.seed, args.nerf_steps, args.profile)
+    chunked_counts, _ = chunked_train_path(dev, args.seed, args.chunk_steps, args.profile)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         counts, _ = serve_path(dev, args.seed, out_dir, args.profile)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     counts["bundle_loss"] = train_counts["bundle_loss"]
+    counts.update({k: chunked_counts[k] for k in ("field_color_fwd", "field_color_bwd")})
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

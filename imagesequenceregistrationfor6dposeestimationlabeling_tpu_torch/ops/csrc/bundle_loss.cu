@@ -41,16 +41,12 @@
 
 #include <c10/cuda/CUDAException.h>
 
+#include "field_common.cuh"
 #include "kernels.h"
 
+using namespace field;
+
 namespace {
-
-constexpr int TP = 64;     // points per chunk
-constexpr int NT = 256;    // threads per block: 8 point groups x 32 unit lanes
-constexpr int HMAX = 256;  // widest hidden layer the block covers
-constexpr int KT = 16;     // weight rows staged per shared tile
-
-using bf16 = __nv_bfloat16;
 
 struct LossArgs {
   const float* pts;   // (H, R, P, 3)
@@ -69,177 +65,6 @@ struct LossArgs {
   int64_t G;
   float* w_out;  // (H, R, P) or null
 };
-
-// offsets of the 13 grads in a slice, in the order of LOSS_BLOCKS
-struct GradOffsets {
-  int64_t w1s, w1c, b1, w2, b2, wd, bd, wc1h, wc1ds, wc1dc, bc1, wc2, bc2, total;
-  __host__ __device__ GradOffsets(int64_t E, int64_t C) {
-    w1s = 0;
-    w1c = w1s + E * C;
-    b1 = w1c + E * C;
-    w2 = b1 + C;
-    b2 = w2 + C * C;
-    wd = b2 + C;
-    bd = wd + C;
-    wc1h = bd + 1;
-    wc1ds = wc1h + C * C;
-    wc1dc = wc1ds + E * C;
-    bc1 = wc1dc + E * C;
-    wc2 = bc1 + C;
-    bc2 = wc2 + 3 * C;
-    total = bc2 + 3;
-  }
-};
-
-__device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// (max(y, 0) + log1p(exp(-|y|))) / beta with y = beta * x
-__device__ __forceinline__ float softplus_b(float x, float beta) {
-  const float y = x * beta;
-  return (fmaxf(y, 0.f) + log1pf(expf(-fabsf(y)))) / beta;
-}
-
-// sigmoid(beta x) from h = softplus_b(x)
-__device__ __forceinline__ float sig_from_act(float h, float beta) { return 1.f - expf(-beta * h); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Harmonic embedding of `rows` points (x, rows of 3; rows >= n_valid read
-// as 0) into sin / cos blocks of width E = n_base * max(ladder, 1), rung-
-// major for the grouped ladder (column l * n_base + cb), rounded to bf16.
-template <typename T>
-__device__ __forceinline__ void embed(const float* __restrict__ x, int n_valid, int rows,
-                                      const float* __restrict__ fmat, int n_base, int ladder, int E, T* es,
-                                      T* ec) {
-  for (int i = threadIdx.x; i < rows * n_base; i += NT) {
-    const int p = i / n_base;
-    const int cb = i % n_base;
-    float x0 = 0.f, x1 = 0.f, x2 = 0.f;
-    if (p < n_valid) {
-      x0 = x[p * 3];
-      x1 = x[p * 3 + 1];
-      x2 = x[p * 3 + 2];
-    }
-    // one nonzero frequency per column: the sum is exact, as the TPU kernel's
-    const float ang = __fadd_rn(__fadd_rn(__fmul_rn(x0, fmat[cb]), __fmul_rn(x1, fmat[n_base + cb])),
-                                __fmul_rn(x2, fmat[2 * n_base + cb]));
-    float s, c;
-    sincosf(ang, &s, &c);
-    store(es + p * E + cb, bf16_round(s));
-    store(ec + p * E + cb, bf16_round(c));
-    for (int l = 1; l < ladder; ++l) {
-      const float s2 = __fmul_rn(__fmul_rn(2.f, s), c);
-      const float c2 = __fsub_rn(1.f, __fmul_rn(2.f, __fmul_rn(s, s)));
-      s = s2;
-      c = c2;
-      store(es + p * E + l * n_base + cb, bf16_round(s));
-      store(ec + p * E + l * n_base + cb, bf16_round(c));
-    }
-  }
-}
-
-// acc[r][c] += sum_k A[(8 g + r) * lda + k] * W[k * nh + lane + 32 c], k < K,
-// with g = threadIdx.x / 32, lane = threadIdx.x % 32; W streams through a
-// shared tile.  Starts with a barrier, so A may have just been written.
-__device__ __forceinline__ void gemm_acc(const bf16* A, int lda, int K, const float* __restrict__ W, int nh,
-                                         float* wtile, float acc[8][8]) {
-  const int tid = threadIdx.x;
-  const int g = tid >> 5;
-  const int lane = tid & 31;
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    const int kn = min(KT, K - k0);
-    __syncthreads();  // the previous tile is consumed and A is written
-    for (int i = tid; i < KT * HMAX; i += NT) {
-      const int kk = i / HMAX;
-      const int j = i % HMAX;
-      wtile[i] = (kk < kn && j < nh) ? W[(size_t)(k0 + kk) * nh + j] : 0.f;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kn; ++kk) {
-      float a[8], w[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) a[r] = to_f(A[(g * 8 + r) * lda + k0 + kk]);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) w[c] = wtile[kk * HMAX + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], w[c], acc[r][c]);
-    }
-  }
-}
-
-// out[k * N + j] += sum_{t < tn} A[t * lda + k] * D[t * HMAX + j] for k < K,
-// j < N: a weight grad contracted over the chunk's points, added to this
-// block's slice.  Each output belongs to one thread.
-__device__ __forceinline__ void contract(const bf16* A, int lda, int K, const bf16* D, int N, int tn,
-                                         float* out) {
-  const int tid = threadIdx.x;
-  const int g = tid >> 5;
-  const int lane = tid & 31;
-  for (int k0 = 0; k0 < K; k0 += 64) {
-    float acc[8][8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-    for (int t = 0; t < tn; ++t) {
-      float a[8], d[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int k = k0 + g * 8 + r;
-        a[r] = k < K ? to_f(A[t * lda + k]) : 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < 8; ++c) d[c] = to_f(D[t * HMAX + lane + 32 * c]);
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], d[c], acc[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int k = k0 + g * 8 + r;
-      if (k >= K) continue;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int j = lane + 32 * c;
-        if (j < N) out[(size_t)k * N + j] += acc[r][c];
-      }
-    }
-  }
-}
-
-// out[j] (+ also[j]) += sum over the chunk's points of acc's column j, summed
-// per point group first, then over the eight groups in a fixed order.
-__device__ __forceinline__ void column_sum(const float acc[8][8], float* red, int nh, float* out,
-                                           float* also) {
-  const int tid = threadIdx.x;
-  const int g = tid >> 5;
-  const int lane = tid & 31;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    float part = 0.f;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) part += acc[r][c];
-    red[g * HMAX + lane + 32 * c] = part;
-  }
-  __syncthreads();
-  if (tid < nh) {
-    float s = 0.f;
-    for (int gg = 0; gg < NT / 32; ++gg) s += red[gg * HMAX + tid];
-    out[tid] += s;
-    if (also) also[tid] += s;
-  }
-  __syncthreads();
-}
 
 struct Smem {
   float *wtile, *red, *dpart, *ddpart, *dsr, *dcr, *raw, *A, *w, *du, *rgb, *dc2p, *dc2pb, *misc;
@@ -446,16 +271,12 @@ __device__ __forceinline__ void composite_ray(const LossArgs& a, const Smem& s, 
 }
 
 // Backward of points [p0, p0 + tn) after chunk_forward (pass B): the
-// cotangents through the colour head, trunk and density head, and every
-// weight grad's contraction over these points into the block's slice.
+// colour output's cotangent from the composite, then the shared hand
+// backward of the field and its contractions into the block's slice.
 __device__ __forceinline__ void chunk_backward(const LossArgs& a, const HalfWeights& hw, const Smem& s,
                                                const GradOffsets& o, float* ws, int p0, int tn,
                                                float acc[8][8]) {
   const int tid = threadIdx.x;
-  const int g = tid >> 5;
-  const int lane = tid & 31;
-  const int nh = a.nh;
-  const float beta = a.beta;
   // colour output: dc2p = grgb rgb (1 - rgb), grgb = w gf
   if (tid < 3 * TP) {
     const int t = tid / 3;
@@ -469,93 +290,8 @@ __device__ __forceinline__ void chunk_backward(const LossArgs& a, const HalfWeig
     s.dc2pb[tid] = bf16_round(d);
   }
   __syncthreads();
-  if (tid < nh) {
-    float g0 = 0.f, g1 = 0.f, g2 = 0.f, gd = 0.f;
-    for (int t = 0; t < tn; ++t) {
-      const float c1 = to_f(s.c1[t * HMAX + tid]);
-      g0 += c1 * s.dc2pb[t * 3];
-      g1 += c1 * s.dc2pb[t * 3 + 1];
-      g2 += c1 * s.dc2pb[t * 3 + 2];
-      gd += to_f(s.h2[t * HMAX + tid]) * s.du[p0 + t];  // density head, rounded h2, f32
-    }
-    ws[o.wc2 + tid * 3] += g0;
-    ws[o.wc2 + tid * 3 + 1] += g1;
-    ws[o.wc2 + tid * 3 + 2] += g2;
-    ws[o.wd + tid] += gd;
-  }
-  if (tid < 3) {
-    float sum = 0.f;
-    for (int t = 0; t < tn; ++t) sum += s.dc2p[t * 3 + tid];
-    ws[o.bc2 + tid] += sum;
-  }
-  if (tid == 3) {
-    float sum = 0.f;
-    for (int t = 0; t < tn; ++t) sum += s.du[p0 + t];
-    ws[o.bd] += sum;
-  }
-  __syncthreads();
-  // dc1p = (dc2pb Wc2^T) sigmoid'(c1b); dc1pb replaces c1b in place
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int t = g * 8 + r;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int j = lane + 32 * c;
-      float v = 0.f;
-      if (j < nh && t < tn) {
-        const float dc1 = s.dc2pb[t * 3] * hw.wc2[j * 3] + s.dc2pb[t * 3 + 1] * hw.wc2[j * 3 + 1] +
-                          s.dc2pb[t * 3 + 2] * hw.wc2[j * 3 + 2];
-        v = dc1 * sig_from_act(to_f(s.c1[t * HMAX + j]), beta);
-      }
-      acc[r][c] = v;
-      s.c1[t * HMAX + j] = __float2bfloat16_rn(v);
-    }
-  }
-  column_sum(acc, s.red, nh, ws + o.bc1, s.ddpart);
-  contract(s.h2, HMAX, nh, s.c1, nh, tn, ws + o.wc1h);
-  // dh2p = (dc1pb Wc1h^T + du wd) sigmoid'(h2b); dh2pb replaces h2b
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-  gemm_acc(s.c1, HMAX, nh, hw.wc1ht, nh, s.wtile, acc);
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int t = g * 8 + r;
-    const float du = t < tn ? s.du[p0 + t] : 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int j = lane + 32 * c;
-      float v = 0.f;
-      if (j < nh && t < tn) v = (acc[r][c] + du * hw.wd[j]) * sig_from_act(to_f(s.h2[t * HMAX + j]), beta);
-      acc[r][c] = v;
-      s.h2[t * HMAX + j] = __float2bfloat16_rn(v);
-    }
-  }
-  column_sum(acc, s.red, nh, ws + o.b2, nullptr);
-  contract(s.h1, HMAX, nh, s.h2, nh, tn, ws + o.w2);
-  // dh1p = (dh2pb W2^T) sigmoid'(h1b); dh1pb replaces h1b
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-  gemm_acc(s.h2, HMAX, nh, hw.w2t, nh, s.wtile, acc);
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int t = g * 8 + r;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int j = lane + 32 * c;
-      float v = 0.f;
-      if (j < nh && t < tn) v = acc[r][c] * sig_from_act(to_f(s.h1[t * HMAX + j]), beta);
-      acc[r][c] = v;
-      s.h1[t * HMAX + j] = __float2bfloat16_rn(v);
-    }
-  }
-  column_sum(acc, s.red, nh, ws + o.b1, nullptr);
-  contract(s.es, a.E, a.E, s.h1, nh, tn, ws + o.w1s);
-  contract(s.ec, a.E, a.E, s.h1, nh, tn, ws + o.w1c);
-  __syncthreads();  // the next chunk overwrites es, ec and h1
+  const TileGrad tg{s.es, s.ec, s.h1, s.h2, s.c1, s.dc2p, s.dc2pb, s.du + p0, s.red, s.wtile, s.ddpart};
+  tile_backward(tg, hw.wc2, hw.wd, hw.wc1ht, hw.w2t, a.E, a.nh, a.beta, o, ws, tn, acc);
 }
 
 __global__ void __launch_bounds__(NT, 1) bundle_loss_kernel(LossArgs a) {
@@ -580,17 +316,8 @@ __global__ void __launch_bounds__(NT, 1) bundle_loss_kernel(LossArgs a) {
     const int64_t ray = (int64_t)h * R + r;
     const float* pts_ray = a.pts + ray * P * 3;
     // the ray's direction part of the colour head, once per ray
-    embed(a.dirs + ray * 3, 1, 1, a.fmat, a.n_base, a.ladder, E, s.dsr, s.dcr);
-    __syncthreads();
-    if (tid < nh) {
-      float ps = 0.f, pc = 0.f;
-      for (int k = 0; k < E; ++k) {
-        ps += s.dsr[k] * hw.wc1ds[(int64_t)k * nh + tid];
-        pc += s.dcr[k] * hw.wc1dc[(int64_t)k * nh + tid];
-      }
-      s.dpart[tid] = ps + pc + hw.bc1[tid];
-      s.ddpart[tid] = 0.f;
-    }
+    dir_part(a.dirs + ray * 3, a.fmat, a.n_base, a.ladder, E, hw.wc1ds, hw.wc1dc, hw.bc1, nh, s.dsr, s.dcr, s.dpart);
+    if (tid < nh) s.ddpart[tid] = 0.f;
     // pass A: raw and rgb of every point of the ray
     for (int p0 = 0; p0 < P; p0 += TP) chunk_forward(a, hw, s, pts_ray, p0, min(TP, P - p0), true, acc);
     __syncthreads();
@@ -603,29 +330,13 @@ __global__ void __launch_bounds__(NT, 1) bundle_loss_kernel(LossArgs a) {
       chunk_backward(a, hw, s, o, ws, p0, tn, acc);
     }
     // direction-part grads: the ray's summed dc1p, rounded, against its embedding
-    for (int64_t i = tid; i < EC; i += NT) {
-      const int k = (int)(i / nh);
-      const int j = (int)(i % nh);
-      const float dd = bf16_round(s.ddpart[j]);
-      ws[o.wc1ds + i] += s.dsr[k] * dd;
-      ws[o.wc1dc + i] += s.dcr[k] * dd;
-    }
+    dir_grads(s.dsr, s.dcr, s.ddpart, E, nh, o, ws);
     __syncthreads();
   }
   if (tid == 0) {
     ws[a.G] = s.misc[3];
     ws[a.G + 1] = s.misc[4];
   }
-}
-
-// out[h][i] = sum_b work[h][b][i], b in order.
-__global__ void sum_slices(const float* __restrict__ work, int n_blocks, int64_t width, float* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= width) return;
-  const float* base = work + (int64_t)blockIdx.y * n_blocks * width + i;
-  float sum = 0.f;
-  for (int b = 0; b < n_blocks; ++b) sum += base[(int64_t)b * width];
-  out[(int64_t)blockIdx.y * width + i] = sum;
 }
 
 }  // namespace

@@ -35,3 +35,22 @@ void launch_bundle_loss(const float* pts, const float* dirs, const float* tgt, i
                         const float* w2t, const float* wc1ht, int n_hidden, float beta, float hs, float hs2,
                         float scale, float scale3, float* work, int n_blocks, float* out, float* w_out,
                         void* stream);
+
+// K5: NeRF field colour forward for n_halves fields, residuals stored
+// (field_color.cu).  pts (H, R, P, 3), unit dirs (H, R, 3); weights[13] as
+// for K4.  Writes dens (H, R, P, 1) and rgb (H, R, P, 3) in f32, and the
+// bf16 residuals h1, h2, c1 (H, R, P, n_hidden) and es, ec (H, R, P, E).
+void launch_field_color_fwd(const float* pts, const float* dirs, int n_halves, int n_rays, int n_pts,
+                            const float* fmat, int n_base, int ladder, const float* const* weights, int n_hidden,
+                            float beta, float* dens, float* rgb, void* h1, void* h2, void* c1, void* es, void* ec,
+                            void* stream);
+
+// K6: its backward (field_color.cu).  From K5's residuals and outputs and
+// the cotangents gdens (H, R, P, 1), grgb (H, R, P, 3): the 13 grads, flat
+// per half in K4's order, into out (H, G).  wd, wc2, w2t (W2^T) and wc1ht
+// (Wc1h^T) carry the leading half axis; work is (H, n_blocks, G) scratch.
+void launch_field_color_bwd(const float* dirs, int n_halves, int n_rays, int n_pts, const float* fmat, int n_base,
+                            int ladder, const float* wd, const float* wc2, const float* w2t, const float* wc1ht,
+                            int n_hidden, float beta, const void* h1, const void* h2, const void* c1, const void* es,
+                            const void* ec, const float* dens, const float* rgb, const float* gdens,
+                            const float* grgb, float* work, int n_blocks, float* out, void* stream);

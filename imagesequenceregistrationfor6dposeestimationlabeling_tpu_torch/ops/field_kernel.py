@@ -1,19 +1,23 @@
-"""The field ops: kernels K1 (``csrc/density.cu``) and K4
-(``csrc/bundle_loss.cu``), each beside its plain version.
+"""The field ops: kernels K1 (``csrc/density.cu``), K4
+(``csrc/bundle_loss.cu``) and K5/K6 (``csrc/field_color.cu``), each beside
+its plain version.
 
 K1 is the counterpart of the reference's ``_dens_kernel`` /
 ``field_density`` / ``density_eval_fn``: embed -> trunk -> density head
 for a flat list of points, forward only.  K4 is the counterpart of
 ``_loss_kernel`` / ``bundle_loss_grads``: the NeRF train step's field
-forward, EA composite, huber loss and backward.  Numerics are the
-kernels', not flax's: angles are exact f32 products, the embedding, the
-bf16 weights and the stored activations are rounded to bf16 with f32
+forward, EA composite, huber loss and backward.  K5/K6 are the
+counterpart of ``_fwd_kernel`` / ``_bwd_kernel`` / ``field_color``: the
+field's colour forward with stored residuals and its backward, as one
+``torch.autograd.Function`` (``FieldColor``).  Numerics are the kernels',
+not flax's: angles are exact f32 products, the embedding, the bf16
+weights and the stored activations are rounded to bf16 with f32
 accumulation, the density head is f32 on the unrounded h2.
 
 The host helpers (frequency matrices, the ladder's row permutation, the
-weight splits) are shared by both versions.  ``density_op`` and
-``bundle_loss_op`` run the plain version for a CPU tensor and the kernel
-for a CUDA tensor.
+weight splits) are shared by both versions.  ``density_op``,
+``bundle_loss_op`` and ``field_color_fwd_op`` / ``field_color_bwd_op``
+run the plain version for a CPU tensor and the kernel for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -203,30 +207,38 @@ _BF16_BLOCKS = frozenset({"w1s", "w1c", "w2", "wc1h", "wc1ds", "wc1dc", "wc2"})
 _EMBED_ROW_BLOCKS = frozenset({"w1s", "w1c", "wc1ds", "wc1dc"})
 
 
-def loss_weights(field):
-    """The field's 13 loss-kernel blocks, f32, in (in, out) layout:
+def color_weights(field):
+    """The field's 13 blocks in the kernels' layout, f32, (in, out):
     w1s, w1c (3H, nh); b1 (nh,); w2 (nh, nh); b2 (nh,); wd (nh,); bd (1,);
     wc1h (nh, nh); wc1ds, wc1dc (3H, nh); bc1 (nh,); wc2 (nh, 3); bc2 (3,).
     For the grouped embedding the rows of w1s, w1c, wc1ds and wc1dc are
-    permuted to the ladder's rung-major order."""
+    permuted to the ladder's rung-major order.  Built from the parameters
+    with differentiable ops (transposes, slices, ``index_select``), so
+    autograd carries grads of the blocks back to each parameter, unpermuted."""
     cfg = field.cfg
     H, nh = cfg.n_harmonic_functions, cfg.n_hidden
     E = 3 * H
-    w1 = field.trunk1.weight.detach().T
-    wc1 = field.color1.weight.detach().T
+    w1 = field.trunk1.weight.T
+    wc1 = field.color1.weight.T
     blocks = dict(
-        w1s=w1[:E], w1c=w1[E:], b1=field.trunk1.bias.detach(),
-        w2=field.trunk2.weight.detach().T, b2=field.trunk2.bias.detach(),
-        wd=field.density_layer.weight.detach()[0], bd=field.density_layer.bias.detach(),
-        wc1h=wc1[:nh], wc1ds=wc1[nh:nh + E], wc1dc=wc1[nh + E:], bc1=field.color1.bias.detach(),
-        wc2=field.color2.weight.detach().T, bc2=field.color2.bias.detach(),
+        w1s=w1[:E], w1c=w1[E:], b1=field.trunk1.bias,
+        w2=field.trunk2.weight.T, b2=field.trunk2.bias,
+        wd=field.density_layer.weight[0], bd=field.density_layer.bias,
+        wc1h=wc1[:nh], wc1ds=wc1[nh:nh + E], wc1dc=wc1[nh + E:], bc1=field.color1.bias,
+        wc2=field.color2.weight.T, bc2=field.color2.bias,
     )
     ladder = ladder_of(cfg)
     if ladder:
         perm = torch.from_numpy(ladder_perm(H, ladder)).to(w1.device)
         for k in _EMBED_ROW_BLOCKS:
-            blocks[k] = blocks[k][perm]
-    return tuple(blocks[k].contiguous() for k in LOSS_BLOCKS)
+            blocks[k] = blocks[k].index_select(0, perm)
+    return tuple(blocks[k] for k in LOSS_BLOCKS)
+
+
+def loss_weights(field):
+    """``color_weights`` detached and contiguous, for the kernels that
+    take their grads as outputs (K4) or read only densities (K1)."""
+    return tuple(b.detach().contiguous() for b in color_weights(field))
 
 
 def _sig_from_act(h: torch.Tensor, beta: float) -> torch.Tensor:
@@ -238,15 +250,14 @@ def _t(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2)
 
 
-def _bundle_forward(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float):
-    """The plain K4 forward: field, closed-form composite and loss, with
-    the kernel's rounding points.  Returns its intermediates by name."""
+def _field_forward(pts, dirs, fmat, weights, ladder: int, beta: float):
+    """The plain field forward of K4 and K5, with the TPU kernels' rounding
+    points: pts (nH, R, P, 3), unit dirs (nH, R, 3).  Returns its
+    intermediates by name, flat over (R, P) points."""
     w1s, w1c, b1, w2, b2, wd, bd, wc1h, wc1ds, wc1dc, bc1, wc2, bc2 = weights
     nH, R, P, _ = pts.shape
     N = R * P
     bf = _bf16
-
-    # ---- field
     s, c = _embed_plain(pts.reshape(-1, 3), fmat, ladder)
     es, ec = bf(s).reshape(nH, N, -1), bf(c).reshape(nH, N, -1)
     h1 = softplus_beta(es @ bf(w1s) + ec @ bf(w1c) + b1[:, None], beta)
@@ -260,13 +271,54 @@ def _bundle_forward(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs:
     c1 = softplus_beta((h2b @ bf(wc1h)).reshape(nH, R, P, -1) + dpart[:, :, None], beta)
     c1b = bf(c1).reshape(nH, N, -1)
     rgb = torch.sigmoid(c1b @ bf(wc2) + bc2[:, None])                              # (nH, N, 3)
+    return SimpleNamespace(es=es, ec=ec, h1b=h1b, h2b=h2b, raw=raw, dsb=dsb, dcb=dcb, c1b=c1b, rgb=rgb)
+
+
+def _field_backward(f, du, grgb, weights, R: int, P: int, beta: float):
+    """The reference's _grad_math in plain PyTorch: the 13 weight grads
+    (leading nH) from the stored activations ``f`` (as ``_field_forward``
+    names them), the density head's pre-activation cotangent du (nH, N, 1)
+    and the rgb cotangent grgb (nH, N, 3).  Every product operand is bf16;
+    sigmoid' comes from the rounded activations; a ray's ddpart is summed
+    in f32 and rounded once."""
+    w2, wd, wc1h, wc2 = weights[3], weights[5], weights[7], weights[11]
+    nH = du.shape[0]
+    bf = _bf16
+    dc2p = grgb * f.rgb * (1.0 - f.rgb)
+    dc2pb = bf(dc2p)
+    dwc2 = _t(f.c1b) @ dc2pb
+    dbc2 = dc2p.sum(1)
+    dc1p = (dc2pb @ _t(bf(wc2))) * _sig_from_act(f.c1b, beta)
+    dc1pb = bf(dc1p)
+    dwc1h = _t(f.h2b) @ dc1pb
+    dbc1 = dc1p.sum(1)
+    ddpart = bf(dc1p.reshape(nH, R, P, -1).sum(2))                                # (nH, R, C)
+    dwc1ds = _t(f.dsb) @ ddpart
+    dwc1dc = _t(f.dcb) @ ddpart
+    dwd = (_t(f.h2b) @ du)[..., 0]
+    dbd = du.sum(1)
+    dh2p = (dc1pb @ _t(bf(wc1h)) + du @ wd[:, None, :]) * _sig_from_act(f.h2b, beta)
+    dh2pb = bf(dh2p)
+    dw2 = _t(f.h1b) @ dh2pb
+    db2 = dh2p.sum(1)
+    dh1p = (dh2pb @ _t(bf(w2))) * _sig_from_act(f.h1b, beta)
+    dh1pb = bf(dh1p)
+    return (_t(f.es) @ dh1pb, _t(f.ec) @ dh1pb, dh1p.sum(1), dw2, db2, dwd, dbd, dwc1h, dwc1ds, dwc1dc, dbc1,
+            dwc2, dbc2)
+
+
+def _bundle_forward(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float):
+    """The plain K4 forward: field, closed-form composite and loss, with
+    the kernel's rounding points.  Returns its intermediates by name."""
+    nH, R, P, _ = pts.shape
+    f = _field_forward(pts, dirs, fmat, weights, ladder, beta)
 
     # ---- closed-form composite and loss
-    rawr = raw.reshape(nH, R, P)
+    rawr = f.raw.reshape(nH, R, P)
     Q = torch.cumsum(rawr, -1)
     A = torch.exp(rawr - Q)                      # exp(-exclusive prefix)
     w = (1.0 - torch.exp(-rawr)) * A
-    rgbr = rgb.reshape(nH, R, P, 3)
+    rgbr = f.rgb.reshape(nH, R, P, 3)
     feat = (w[..., None] * rgbr).sum(2)                                           # (nH, R, 3)
     eS = torch.exp(-rawr.sum(-1, keepdim=True))
     opac = 1.0 - eS
@@ -276,8 +328,7 @@ def _bundle_forward(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs:
     dsil = opac - sil
     rs = torch.sqrt(1.0 + dsil * dsil / (hs * hs))
     loss = torch.stack([((rc - 1.0) * hs * v).sum((1, 2)) / 3.0, ((rs - 1.0) * hs * v).sum((1, 2))], -1)
-    return SimpleNamespace(es=es, ec=ec, h1b=h1b, h2b=h2b, raw=raw, dsb=dsb, dcb=dcb, c1b=c1b, rgb=rgb, A=A, w=w,
-                           eS=eS, v=v, dcol=dcol, rc=rc, dsil=dsil, rs=rs, loss=loss)
+    return SimpleNamespace(field=f, A=A, w=w, eS=eS, v=v, dcol=dcol, rc=rc, dsil=dsil, rs=rs, loss=loss)
 
 
 def bundle_loss_plain(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float, scale: float,
@@ -286,48 +337,60 @@ def bundle_loss_plain(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, h
     reference kernel's forward, composite, loss and hand backward, with
     its rounding points (bf16 operands of every product but the density
     head's, f32 accumulation; the backward reads the rounded activations)."""
-    w2, wd, wc1h, wc2 = weights[3], weights[5], weights[7], weights[11]
     nH, R, P, _ = pts.shape
     N = R * P
-    bf = _bf16
-    f = _bundle_forward(pts, dirs, tgt, fmat, weights, ladder, beta, hs)
-    es, ec, h1b, h2b, raw, dsb, dcb, c1b, rgb = f.es, f.ec, f.h1b, f.h2b, f.raw, f.dsb, f.dcb, f.c1b, f.rgb
-    A, w, v = f.A, f.w, f.v
-    rgbr = rgb.reshape(nH, R, P, 3)
+    b = _bundle_forward(pts, dirs, tgt, fmat, weights, ladder, beta, hs)
+    f, A, w, v = b.field, b.A, b.w, b.v
+    rgbr = f.rgb.reshape(nH, R, P, 3)
 
-    # ---- backward: loss -> (du, grgb)
-    gf = (scale / 3.0) * v * f.dcol / (hs * f.rc)                                 # (nH, R, 3)
-    gO = scale * v * f.dsil / (hs * f.rs)                                         # (nH, R, 1)
+    # ---- backward: loss -> (du, grgb), then through the field
+    gf = (scale / 3.0) * v * b.dcol / (hs * b.rc)                                 # (nH, R, 3)
+    gO = scale * v * b.dsil / (hs * b.rs)                                         # (nH, R, 1)
     gw = (gf[:, :, None, :] * rgbr).sum(-1)                                       # (nH, R, P)
     grgb = (w[..., None] * gf[:, :, None, :]).reshape(nH, N, 3)
     T = gw * w
     rev_excl = T.sum(-1, keepdim=True) - torch.cumsum(T, -1)
-    g_raw = gw * (A - w) - rev_excl + gO * f.eS
-    du = g_raw.reshape(nH, N, 1) * _sig_from_act(raw, beta)
+    g_raw = gw * (A - w) - rev_excl + gO * b.eS
+    du = g_raw.reshape(nH, N, 1) * _sig_from_act(f.raw, beta)
+    grads = _field_backward(f, du, grgb, weights, R, P, beta)
+    return grads, b.loss, (w if want_weights else None)
 
-    # ---- backward through the field, contractions over the point axis
-    dc2p = grgb * rgb * (1.0 - rgb)
-    dc2pb = bf(dc2p)
-    dwc2 = _t(c1b) @ dc2pb
-    dbc2 = dc2p.sum(1)
-    dc1p = (dc2pb @ _t(bf(wc2))) * _sig_from_act(c1b, beta)
-    dc1pb = bf(dc1p)
-    dwc1h = _t(h2b) @ dc1pb
-    dbc1 = dc1p.sum(1)
-    ddpart = bf(dc1p.reshape(nH, R, P, -1).sum(2))                                # (nH, R, C)
-    dwc1ds = _t(dsb) @ ddpart
-    dwc1dc = _t(dcb) @ ddpart
-    dwd = (_t(h2b) @ du)[..., 0]
-    dbd = du.sum(1)
-    dh2p = (dc1pb @ _t(bf(wc1h)) + du @ wd[:, None, :]) * _sig_from_act(h2b, beta)
-    dh2pb = bf(dh2p)
-    dw2 = _t(h1b) @ dh2pb
-    db2 = dh2p.sum(1)
-    dh1p = (dh2pb @ _t(bf(w2))) * _sig_from_act(h1b, beta)
-    dh1pb = bf(dh1p)
-    grads = (_t(es) @ dh1pb, _t(ec) @ dh1pb, dh1p.sum(1), dw2, db2, dwd, dbd, dwc1h, dwc1ds, dwc1dc, dbc1,
-             dwc2, dbc2)
-    return grads, f.loss, (w if want_weights else None)
+
+def _block_shapes(E: int, nh: int) -> dict:
+    """Each of the 13 blocks' shape (without the leading half axis), in
+    LOSS_BLOCKS order."""
+    return dict(w1s=(E, nh), w1c=(E, nh), b1=(nh,), w2=(nh, nh), b2=(nh,), wd=(nh,), bd=(1,), wc1h=(nh, nh),
+                wc1ds=(E, nh), wc1dc=(E, nh), bc1=(nh,), wc2=(nh, 3), bc2=(3,))
+
+
+def _kernel_weights(weights, shapes: dict, nH: int, dev) -> dict:
+    """Check the 13 blocks (leading nH) for a kernel and return them by
+    name, the product operands rounded to bf16 values (stored as f32), as
+    the TPU kernels read them."""
+    if shapes["b1"][0] > 256:
+        raise ValueError(f"the field kernels cover at most 256 hidden units, got {shapes['b1'][0]}")
+    wts = {}
+    for name, t in zip(LOSS_BLOCKS, weights):
+        cuda_build.check(t, name, torch.float32, (nH,) + shapes[name], dev)
+        wts[name] = _bf16(t) if name in _BF16_BLOCKS else t
+    return wts
+
+
+def _resident_blocks(dev, R: int, nH: int) -> int:
+    """One resident wave of a grad-accumulating kernel: a block per SM (its
+    shared memory allows no more at full width), split over the halves."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(R, n_sm // nH))
+
+
+def _split_grads(flat, shapes: dict) -> tuple:
+    """The 13 grads (leading nH) from a kernel's flat (nH, >= G) output."""
+    grads, off = [], 0
+    for name in LOSS_BLOCKS:
+        n = math.prod(shapes[name])
+        grads.append(flat[:, off:off + n].reshape(flat.shape[:1] + shapes[name]))
+        off += n
+    return tuple(grads)
 
 
 def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float, scale: float,
@@ -343,28 +406,17 @@ def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs
     n_base = fmat.shape[1]
     E = n_base * max(ladder, 1)
     nh = weights[2].shape[-1]
-    if nh > 256:
-        raise ValueError(f"bundle-loss kernel covers at most 256 hidden units, got {nh}")
     cuda_build.check(pts, "pts", f32, (nH, R, P, 3), dev)
     cuda_build.check(dirs, "dirs", f32, (nH, R, 3), dev)
     cuda_build.check(tgt, "tgt", f32, (nH, R, 8), dev)
     cuda_build.check(fmat, "fmat", f32, (3, n_base), dev)
-    shapes = dict(w1s=(E, nh), w1c=(E, nh), b1=(nh,), w2=(nh, nh), b2=(nh,), wd=(nh,), bd=(1,), wc1h=(nh, nh),
-                  wc1ds=(E, nh), wc1dc=(E, nh), bc1=(nh,), wc2=(nh, 3), bc2=(3,))
-    wts = {}
-    for name, t in zip(LOSS_BLOCKS, weights):
-        cuda_build.check(t, name, f32, (nH,) + shapes[name], dev)
-        # the product operands as bf16 values (stored as f32), as in the TPU kernel
-        wts[name] = _bf16(t) if name in _BF16_BLOCKS else t
+    shapes = _block_shapes(E, nh)
+    wts = _kernel_weights(weights, shapes, nH, dev)
     # the backward's products read W2 and Wc1h transposed
     w2t = _t(wts["w2"]).contiguous()
     wc1ht = _t(wts["wc1h"]).contiguous()
-    sizes = [math.prod(shapes[k]) for k in LOSS_BLOCKS]
-    n_grad = sum(sizes)
-    # one resident wave: a block per SM (its shared memory allows no more at
-    # full width), split over the halves; each walks its half's rays
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_blocks = max(1, min(R, n_sm // nH))
+    n_grad = sum(math.prod(s) for s in shapes.values())
+    n_blocks = _resident_blocks(dev, R, nH)
     work = torch.empty((nH, n_blocks, n_grad + 2), dtype=f32, device=dev)
     flat = torch.empty((nH, n_grad + 2), dtype=f32, device=dev)
     w_out = torch.empty((nH, R, P), dtype=f32, device=dev) if want_weights else None
@@ -378,11 +430,7 @@ def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs
         bundle_loss_cuda.launches += 1
     else:
         flat.zero_()
-    grads, off = [], 0
-    for name, n in zip(LOSS_BLOCKS, sizes):
-        grads.append(flat[:, off:off + n].reshape((nH,) + shapes[name]))
-        off += n
-    return tuple(grads), flat[:, n_grad:], w_out
+    return _split_grads(flat, shapes), flat[:, n_grad:], w_out
 
 
 bundle_loss_cuda.launches = 0
@@ -442,3 +490,169 @@ def bundle_loss_grads(fields, pts, dirs, col, sil, valid, cfg, huber_scaling: fl
     for h, f in enumerate(fields):
         _set_grads(f, [g[h] for g in grads], inv)
     return loss[:, 0], loss[:, 1], w
+
+
+# ---------------------------------------- K5 / K6: the split colour pair
+#
+# Counterpart of the reference's _fwd_kernel / _bwd_kernel / _make_op /
+# field_color: the field's colour forward with its residuals stored (K5),
+# and the backward from them into the 13 weight grads (K6), bound as one
+# autograd.Function.  Shapes as K4's: pts (H, R, P, 3), unit view dirs
+# (H, R, 3), each weight block with a leading H.  The residuals are the
+# bf16 activations h1, h2, c1 (H, R, P, nh) and the embedding es, ec
+# (H, R, P, E), E in the kernels' (rung-major) column order.
+
+RESIDUALS = ("h1", "h2", "c1", "es", "ec")
+
+
+def field_color_fwd_plain(pts, dirs, fmat, weights, ladder: int, beta: float):
+    """Plain PyTorch version of K5: (dens (H, R, P, 1), rgb (H, R, P, 3),
+    residuals {name: bf16 (H, R, P, .)}), with the TPU kernel's rounding
+    points."""
+    nH, R, P, _ = pts.shape
+    f = _field_forward(pts, dirs, fmat, weights, ladder, beta)
+    res = dict(h1=f.h1b, h2=f.h2b, c1=f.c1b, es=f.es, ec=f.ec)
+    res = {k: v.reshape(nH, R, P, -1).to(torch.bfloat16) for k, v in res.items()}
+    dens = (1.0 - torch.exp(-f.raw)).reshape(nH, R, P, 1)
+    return dens, f.rgb.reshape(nH, R, P, 3), res
+
+
+def field_color_bwd_plain(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder: int, beta: float):
+    """Plain PyTorch version of K6: the 13 weight grads (leading H) from
+    K5's residuals and outputs and the cotangents gdens (H, R, P, 1), grgb
+    (H, R, P, 3).  The density head's sigmoid' comes from the stored dens,
+    the direction embedding is recomputed per ray."""
+    nH, R, P, _ = dens.shape
+    N = R * P
+    ds, dc = _embed_plain(dirs.reshape(-1, 3), fmat, ladder)
+    acts = {k: res[k].to(torch.float32).reshape(nH, N, -1) for k in RESIDUALS}
+    f = SimpleNamespace(h1b=acts["h1"], h2b=acts["h2"], c1b=acts["c1"], es=acts["es"], ec=acts["ec"],
+                        dsb=_bf16(ds).reshape(nH, R, -1), dcb=_bf16(dc).reshape(nH, R, -1),
+                        rgb=rgb.reshape(nH, N, 3))
+    d = dens.reshape(nH, N, 1)
+    du = gdens.reshape(nH, N, 1) * (1.0 - d) * (1.0 - torch.exp(beta * torch.log1p(-d)))
+    return _field_backward(f, du, grgb.reshape(nH, N, 3), weights, R, P, beta)
+
+
+def field_color_fwd_cuda(pts, dirs, fmat, weights, ladder: int, beta: float):
+    """K5 on the card (``csrc/field_color.cu``): the contract of
+    ``field_color_fwd_plain``.  One block per 64-point tile of a ray."""
+    dev = pts.device
+    f32 = torch.float32
+    nH, R, P, _ = pts.shape
+    n_base = fmat.shape[1]
+    E = n_base * max(ladder, 1)
+    nh = weights[2].shape[-1]
+    cuda_build.check(pts, "pts", f32, (nH, R, P, 3), dev)
+    cuda_build.check(dirs, "dirs", f32, (nH, R, 3), dev)
+    cuda_build.check(fmat, "fmat", f32, (3, n_base), dev)
+    wts = _kernel_weights(weights, _block_shapes(E, nh), nH, dev)
+    dens = torch.empty((nH, R, P, 1), dtype=f32, device=dev)
+    rgb = torch.empty((nH, R, P, 3), dtype=f32, device=dev)
+    res = {k: torch.empty((nH, R, P, E if k in ("es", "ec") else nh), dtype=torch.bfloat16, device=dev)
+           for k in RESIDUALS}
+    if R and P:
+        cuda_build.kernels().field_color_fwd(
+            pts.data_ptr(), dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder,
+            *(wts[k].data_ptr() for k in LOSS_BLOCKS), nh, float(beta), dens.data_ptr(), rgb.data_ptr(),
+            *(res[k].data_ptr() for k in RESIDUALS), cuda_build.stream_ptr(dev),
+        )
+        field_color_fwd_cuda.launches += 1
+    return dens, rgb, res
+
+
+field_color_fwd_cuda.launches = 0
+
+
+def field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder: int, beta: float):
+    """K6 on the card (``csrc/field_color.cu``): the contract of
+    ``field_color_bwd_plain``.  A persistent grid walks whole rays, each
+    block adding into its own f32 slice of a workspace, and a second small
+    kernel sums the slices in a fixed order: two launches give bit-identical
+    grads."""
+    dev = dens.device
+    f32 = torch.float32
+    nH, R, P, _ = dens.shape
+    n_base = fmat.shape[1]
+    E = n_base * max(ladder, 1)
+    nh = weights[2].shape[-1]
+    cuda_build.check(dirs, "dirs", f32, (nH, R, 3), dev)
+    cuda_build.check(fmat, "fmat", f32, (3, n_base), dev)
+    for name, t, shape in (("dens", dens, 1), ("rgb", rgb, 3), ("gdens", gdens, 1), ("grgb", grgb, 3)):
+        cuda_build.check(t, name, f32, (nH, R, P, shape), dev)
+    for k in RESIDUALS:
+        cuda_build.check(res[k], k, torch.bfloat16, (nH, R, P, E if k in ("es", "ec") else nh), dev)
+    shapes = _block_shapes(E, nh)
+    wts = _kernel_weights(weights, shapes, nH, dev)
+    w2t = _t(wts["w2"]).contiguous()
+    wc1ht = _t(wts["wc1h"]).contiguous()
+    n_grad = sum(math.prod(s) for s in shapes.values())
+    n_blocks = _resident_blocks(dev, R, nH)
+    work = torch.empty((nH, n_blocks, n_grad), dtype=f32, device=dev)
+    flat = torch.zeros((nH, n_grad), dtype=f32, device=dev)
+    if R and P:
+        cuda_build.kernels().field_color_bwd(
+            dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, wts["wd"].data_ptr(), wts["wc2"].data_ptr(),
+            w2t.data_ptr(), wc1ht.data_ptr(), nh, float(beta), *(res[k].data_ptr() for k in RESIDUALS),
+            dens.data_ptr(), rgb.data_ptr(), gdens.data_ptr(), grgb.data_ptr(), work.data_ptr(), n_blocks,
+            flat.data_ptr(), cuda_build.stream_ptr(dev),
+        )
+        field_color_bwd_cuda.launches += 1
+    return _split_grads(flat, shapes)
+
+
+field_color_bwd_cuda.launches = 0
+
+
+def field_color_fwd_op(pts, dirs, fmat, weights, ladder: int, beta: float):
+    """K5 for a CUDA tensor, its plain version for a CPU tensor."""
+    if pts.device.type == "cuda":
+        return field_color_fwd_cuda(pts, dirs, fmat, weights, ladder, beta)
+    if pts.device.type == "cpu":
+        return field_color_fwd_plain(pts, dirs, fmat, weights, ladder, beta)
+    raise ValueError(f"field colour op: unsupported device {pts.device}")
+
+
+def field_color_bwd_op(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder: int, beta: float):
+    """K6 for a CUDA tensor, its plain version for a CPU tensor."""
+    if dens.device.type == "cuda":
+        return field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder, beta)
+    if dens.device.type == "cpu":
+        return field_color_bwd_plain(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder, beta)
+    raise ValueError(f"field colour op: unsupported device {dens.device}")
+
+
+class FieldColor(torch.autograd.Function):
+    """(pts, unit dirs, fmat, ladder, beta, *13 blocks) -> (dens, rgb):
+    K5 forward, residuals saved, K6 backward into the 13 blocks.  No
+    gradient flows to the points or directions (the reference's custom VJP
+    returns zeros for them)."""
+
+    @staticmethod
+    def forward(ctx, pts, dirs, fmat, ladder, beta, *weights):
+        dens, rgb, res = field_color_fwd_op(pts, dirs, fmat, weights, ladder, beta)
+        ctx.save_for_backward(dirs, fmat, dens, rgb, *(res[k] for k in RESIDUALS), *weights)
+        ctx.ladder, ctx.beta = ladder, beta
+        return dens, rgb
+
+    @staticmethod
+    def backward(ctx, gdens, grgb):
+        dirs, fmat, dens, rgb, *rest = ctx.saved_tensors
+        res = dict(zip(RESIDUALS, rest[:len(RESIDUALS)]))
+        grads = field_color_bwd_op(dirs, fmat, tuple(rest[len(RESIDUALS):]), res, dens, rgb, gdens.contiguous(),
+                                   grgb.contiguous(), ctx.ladder, ctx.beta)
+        return (None, None, None, None, None) + tuple(grads)
+
+
+def field_color(fields, pts, dirs, cfg):
+    """Densities (H, R, P, 1) and rgb (H, R, P, 3) of H NerfFields of config
+    ``cfg`` at pts (H, R, P, 3) with per-ray view dirs (H, R, 3), through
+    K5 (the kernel for CUDA tensors, its plain version for CPU ones); the
+    backward runs K6 into each field's parameters.  Points and directions
+    carry no gradient."""
+    # the field's own normalization expression (NerfField.color)
+    dn = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True).clamp_min(1e-12)
+    weights = tuple(torch.stack(blocks) for blocks in zip(*(color_weights(f) for f in fields)))
+    fm = torch.from_numpy(fmat_of(cfg)).to(pts.device)
+    return FieldColor.apply(pts.detach().contiguous(), dn.detach().contiguous(), fm, ladder_of(cfg),
+                            float(cfg.softplus_beta), *weights)

@@ -1,22 +1,25 @@
-"""NeRF training of the two half-sequence fields (counterpart of
-train/nerf_trainer.py, its fused single-chunk path).
+"""NeRF training (counterpart of train/nerf_trainer.py): both half-sequence
+fields at once (``train_nerf_fused``) or one field with exact resume
+(``train_nerf``), and ``extract_point_cloud``.
 
 One step per half: Monte-Carlo rays from a batch of cameras, ground truth
 sampled at the ray xys, the coarse field on stratified depths, the fine
 field on depths resampled from the coarse weights, loss = loss_scale *
 (huber colour + huber silhouette) of both passes, then Adam with a linear
-warmup over everything but the frozen feature head.  Both halves run
-through one K4 launch per pass on a leading half axis (the reference gets
-that axis from ``vmap``).
+warmup over everything but the frozen feature head.  The halves share
+every launch on a leading half axis (the reference gets that axis from
+``vmap``).
 
-Where ``field_kernel.enabled`` is false (the CPU, or a field with f32
-activations) the step takes the field's autograd path instead: the field's
-own colour forward, the eps-cumprod composite, huber, ``backward()``.
-Only single-chunk steps (rays per half <= 4096) are ported: a larger step
-raises, since its kernel path needs K5/K6.
+A step with at most ``ray_chunk`` rays per half runs through K4, one
+launch per pass.  A larger step, or any step where ``field_kernel.enabled``
+is false (the CPU, or a field with f32 activations), is the reference's
+chunked ``loss_fn``: rays in ``ray_chunk`` groups, each chunk's field
+evaluated through K5/K6 (``field_kernel.field_color``) where enabled and
+the field's own colour path otherwise, composited with the eps-cumprod
+form, and its share of the loss backpropagated at once.
 
-Random draws come from one ``torch.Generator`` per half, or are passed in
-(``draws``), so tests can replay the reference's ``jax.random`` streams.
+Random draws come from generators, or are passed in (``draws``), so tests
+can replay the reference's ``jax.random`` streams.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu.ops import mcubes
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
     FieldConfig,
     NerfTrainConfig,
@@ -35,9 +39,9 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry imp
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models import fields
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.grid_sample import sample_images_at_mc_locs
-from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import raymarch
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import raymarch, renderer
 
-# rays per half that one step evaluates at once (the reference's ray chunk)
+# rays per half that one field evaluation covers (the reference's ray chunk)
 RAY_CHUNK = 4096
 
 
@@ -152,54 +156,75 @@ def draw(generators, n_cams: int, render_cfg: RenderConfig, device):
     return tuple(torch.stack(x) for x in zip(*out))
 
 
-def _autograd_losses(states, o, d, lengths, col, sil, render_cfg, train_cfg, u_pdf):
-    """The field's own differentiable path, per half: colour forward,
-    eps-cumprod composite, huber, ``backward()`` into ``.grad``."""
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """A generator seeded from (seed, step) alone, so a resumed run draws
+    what the uninterrupted run drew at that step."""
+    return torch.Generator(device=device).manual_seed(int(np.random.SeedSequence([seed, step]).generate_state(1)[0]))
+
+
+def _chunked_losses(states, o, d, lengths, col, sil, u_pdf, render_cfg, train_cfg, ray_chunk: int,
+                    use_kernel: bool):
+    """The reference's chunked ``loss_fn`` for every half: the rays in
+    groups of ``ray_chunk`` (the last one ragged, where the reference pads
+    with rows of weight 0), each group's coarse pass, resampling from its
+    detached weights, fine pass and huber losses, and its share s * sum / n
+    backpropagated into ``.grad`` at once, so one chunk's activations are
+    alive at a time (the reference recomputes them in the backward
+    instead).  The field runs through K5/K6 where ``use_kernel``, else its
+    own colour path.  Returns (colour error, silhouette error), (H,) each."""
     s, hs, Pf = train_cfg.loss_scale, train_cfg.huber_scaling, render_cfg.n_pts_fine
-    col_errs, sil_errs = [], []
-    for h, st in enumerate(states):
+    H, n = o.shape[:2]
+    cfg = states[0].coarse.cfg
+    for st in states:
         for p in train_params(st):
             p.grad = None
+
+    def color(fields, pts, dirs):
+        if use_kernel:
+            return field_kernel.field_color(fields, pts, dirs, cfg)
+        outs = [f(pts[h], dirs[h], "color") for h, f in enumerate(fields)]
+        return torch.stack([x[0] for x in outs]), torch.stack([x[1] for x in outs])
+
+    coarse, fine = [st.coarse for st in states], [st.fine for st in states]
+    ce_tot = torch.zeros(H, device=o.device)
+    se_tot = torch.zeros(H, device=o.device)
+    for i0 in range(0, n, ray_chunk):
+        c = slice(i0, i0 + ray_chunk)
+        oc, dc, lc = o[:, c], d[:, c], lengths[:, c]
         with torch.enable_grad():
-            pts = o[h][:, None] + d[h][:, None] * lengths[h][..., None]
-            dens_c, rgb_c = st.coarse(pts, d[h], "color")
+            dens_c, rgb_c = color(coarse, oc[:, :, None] + dc[:, :, None] * lc[..., None], dc)
             img_c, w_c = raymarch.composite(dens_c[..., 0], rgb_c)
-            z_f = raymarch.importance_resample(lengths[h], w_c.detach(), Pf, u=u_pdf[h],
+            z_f = raymarch.importance_resample(lc, w_c.detach(), Pf, u=u_pdf[:, c],
                                                add_input_samples=render_cfg.add_input_samples)
-            dens_f, rgb_f = st.fine(o[h][:, None] + d[h][:, None] * z_f[..., None], d[h], "color")
+            dens_f, rgb_f = color(fine, oc[:, :, None] + dc[:, :, None] * z_f[..., None], dc)
             img_f, _ = raymarch.composite(dens_f[..., 0], rgb_f)
-            ce = sum(raymarch.huber(img[..., :-1], col[h], hs).mean(-1) for img in (img_c, img_f))
-            se = sum(raymarch.huber(img[..., -1:], sil[h], hs).mean(-1) for img in (img_c, img_f))
-            col_err = s * ce.sum() / ce.shape[0]
-            sil_err = s * se.sum() / se.shape[0]
-            (col_err + sil_err).backward()
-        col_errs.append(col_err.detach())
-        sil_errs.append(sil_err.detach())
-    return torch.stack(col_errs), torch.stack(sil_errs)
+            ce = sum(raymarch.huber(img[..., :-1], col[:, c], hs).mean(-1) for img in (img_c, img_f)).sum(-1)
+            se = sum(raymarch.huber(img[..., -1:], sil[:, c], hs).mean(-1) for img in (img_c, img_f)).sum(-1)
+            (s * (ce + se).sum() / n).backward()
+        ce_tot += ce.detach()
+        se_tot += se.detach()
+    return s * ce_tot / n, s * se_tot / n
 
 
 @torch.no_grad()
 def train_step(states, cam: cam_lib.Camera, images, sils, opt: Adam, render_cfg: RenderConfig,
-               train_cfg: NerfTrainConfig, min_depth: float, max_depth: float, draws=None, generators=None):
+               train_cfg: NerfTrainConfig, min_depth: float, max_depth: float, draws=None, generators=None,
+               ray_chunk: int = RAY_CHUNK):
     """One optimization step of every half.
 
     states: one NerfTrainState per half; cam: cameras with leading (H, B);
     images (H, B, S, S, 3); sils (H, B, S, S); ``draws`` (see ``draw``) or
-    one generator per half.  Returns (new states, loss (H,), {"color",
-    "sil"} (H,) each), all on the device."""
+    one generator per half.  At most ``ray_chunk`` rays per half take K4;
+    more take the chunked step, whose chunk i resamples with rows
+    [i * ray_chunk, (i + 1) * ray_chunk) of the draws' u_pdf.  Returns
+    (new states, loss (H,), {"color", "sil"} (H,) each), all on the
+    device."""
     H, B, S = images.shape[0], images.shape[1], images.shape[2]
     n_rays, Pc, Pf = render_cfg.n_rays_per_image, render_cfg.n_pts_coarse, render_cfg.n_pts_fine
     n = B * n_rays
     cfg = states[0].coarse.cfg
     dev = images.device
     use_kernel = field_kernel.enabled(cfg, dev)
-    if n > RAY_CHUNK:
-        if use_kernel:
-            raise NotImplementedError(
-                f"{n} rays per half exceed one {RAY_CHUNK}-ray chunk: the multi-chunk step runs the split "
-                "field kernels K5/K6 (_fwd_kernel/_bwd_kernel), not ported yet (ROADMAP B)")
-        raise NotImplementedError(f"{n} rays per half exceed one {RAY_CHUNK}-ray chunk: the chunked "
-                                  "autograd step is not ported yet (ROADMAP A.5)")
     xys, u, u_pdf = draws if draws is not None else draw(generators, B, render_cfg, dev)
     bundle = cam_lib.monte_carlo_rays(cam, n_rays, Pc, min_depth, max_depth, xys=xys, u=u)
     flat_xy = xys.reshape(H * B, n_rays, 2)
@@ -210,7 +235,7 @@ def train_step(states, cam: cam_lib.Camera, images, sils, opt: Adam, render_cfg:
     lengths = bundle.lengths.reshape(H, n, Pc)
     s, hs = train_cfg.loss_scale, train_cfg.huber_scaling
 
-    if use_kernel:
+    if use_kernel and n <= ray_chunk:
         valid = torch.ones_like(sil)
         kw = dict(cfg=cfg, huber_scaling=hs, scale=s / n)
         pts_c = o[:, :, None] + d[:, :, None] * lengths[..., None]
@@ -222,7 +247,8 @@ def train_step(states, cam: cam_lib.Camera, images, sils, opt: Adam, render_cfg:
         col_err = s * (ce_c + ce_f) / n
         sil_err = s * (se_c + se_f) / n
     else:
-        col_err, sil_err = _autograd_losses(states, o, d, lengths, col, sil, render_cfg, train_cfg, u_pdf)
+        col_err, sil_err = _chunked_losses(states, o, d, lengths, col, sil, u_pdf, render_cfg, train_cfg, ray_chunk,
+                                           use_kernel)
 
     # one Adam update over every half's trained parameters (the counts agree)
     count = states[0].opt.count
@@ -254,7 +280,7 @@ def half_schedule(n_views: int, batch: int, total: int, seed: int) -> np.ndarray
 def train_nerf_fused(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig,
                      render_cfg: RenderConfig = RenderConfig(), train_cfg: NerfTrainConfig = NerfTrainConfig(),
                      n_steps: Optional[int] = None, seed: int = 1, depth_margin: float = 2.0, device="cpu",
-                     init_states=None, draws: Callable | None = None):
+                     init_states=None, draws: Callable | None = None, ray_chunk: int = RAY_CHUNK):
     """Train H independent NeRFs (one per half-sequence) step by step, all
     halves in each launch.
 
@@ -286,7 +312,67 @@ def train_nerf_fused(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig,
         idx = idx_all[:, i]                                                   # (H, bs)
         cam = cam_lib.Camera(cams.R[hh, idx], cams.T[hh, idx], cams.focal[hh, idx], cams.principal[hh, idx], S)
         states, loss, _ = train_step(states, cam, images[hh, idx], sils[hh, idx], opt, render_cfg, train_cfg,
-                                     min_d, max_d, draws=None if draws is None else draws(i), generators=gens)
+                                     min_d, max_d, draws=None if draws is None else draws(i), generators=gens,
+                                     ray_chunk=ray_chunk)
         losses.append(loss)
     loss_mat = torch.stack(losses, 1).cpu().numpy() if losses else np.zeros((H, 0), np.float32)
     return states, loss_mat
+
+
+def train_nerf(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig, render_cfg: RenderConfig = RenderConfig(),
+               train_cfg: NerfTrainConfig = NerfTrainConfig(), n_steps: Optional[int] = None, seed: int = 1,
+               depth_margin: float = 2.0, log_every: int = 0, on_checkpoint: Callable | None = None,
+               init_params=None, resume_state: NerfTrainState | None = None, device="cpu",
+               draws: Callable | None = None, ray_chunk: int = RAY_CHUNK):
+    """Train one NeRF (coarse + fine) on one sequence: images (N, S, S, 3),
+    sils (N, S, S), R_bop (N, 3, 3), t_bop (N, 3) already divided by
+    diameter / 1.8, K (N, 3, 3), as numpy arrays or tensors.
+
+    The state starts from ``resume_state``, else from ``init_params`` =
+    (coarse, fine) state dicts, else fresh from ``seed``.  ``n_steps`` is
+    the TOTAL step target: a resumed run continues from its state's step
+    with the schedule and draws the uninterrupted run would have used,
+    exactly (params, Adam moments, count and step all resume).  Batches
+    follow ``np.random.default_rng(seed)`` (``half_schedule``); a step's
+    rays come from a generator seeded with (seed, step), unless
+    ``draws(step)`` supplies them with a leading axis of 1.
+    ``on_checkpoint(state, step)`` runs after every ``ckpt_every``-th step
+    and after the last (the reference runs ``steps_per_call`` steps per
+    program and snaps the hook to those boundaries; here every step is its
+    own call).  Returns (state, per-step losses of this run as floats)."""
+    dev = torch.device(device)
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    images, sils = as_t(images), as_t(sils)
+    n, S = images.shape[0], images.shape[1]
+    min_d, max_d = depth_bounds(as_t(t_bop).cpu().numpy(), depth_margin)
+    cams = cam_lib.camera_from_bop(as_t(R_bop), as_t(t_bop), as_t(K), S)
+    opt = make_optimizer(train_cfg)
+    state = resume_state if resume_state is not None else init_state(
+        field_cfg, train_cfg, torch.Generator().manual_seed(seed), init_params=init_params, device=dev)
+    bs = min(train_cfg.batch_size, n)
+    total = n_steps if n_steps is not None else train_cfg.n_epochs * max(n // bs, 1)
+    schedule = half_schedule(n, bs, total, seed)
+    losses = []
+    for i in range(state.step, total):
+        idx = torch.as_tensor(schedule[i], device=dev)
+        cam = cam_lib.Camera(cams.R[idx][None], cams.T[idx][None], cams.focal[idx][None],
+                             cams.principal[idx][None], S)
+        step_draws = draws(i) if draws is not None else draw([step_generator(seed, i, dev)], bs, render_cfg, dev)
+        (state,), loss, _ = train_step([state], cam, images[idx][None], sils[idx][None], opt, render_cfg, train_cfg,
+                                       min_d, max_d, draws=step_draws, ray_chunk=ray_chunk)
+        losses.append(loss[0])
+        done = i + 1
+        if log_every and done % log_every == 0:
+            print(f"step {done}: loss={float(loss[0]):.4f}")
+        if on_checkpoint is not None and (done % train_cfg.ckpt_every == 0 or done == total):
+            on_checkpoint(state, done)
+    return state, torch.stack(losses).tolist() if losses else []
+
+
+def extract_point_cloud(field: fields.NerfField, threshold: float = 0.03, grid_res: int = 128):
+    """World-space vertices and triangles of the density level set
+    ``threshold``: the density on a grid_res^3 grid over [-1, 1]^3 (K1 where
+    enabled), then the reference's marching tetrahedra on the host."""
+    grid = renderer.density_grid_cached(field, grid_res=grid_res)
+    verts_idx, tris = mcubes.marching_tetrahedra(grid.cpu().numpy(), threshold)
+    return mcubes.index_to_world(verts_idx, grid_res, exact=True), tris

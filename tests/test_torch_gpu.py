@@ -1,5 +1,5 @@
-"""Kernels K1-K4 on the card against their plain PyTorch versions, at the
-shapes the serving path and the NeRF train step give them.  Marked ``gpu``:
+"""Kernels K1-K6 on the card against their plain PyTorch versions, at the
+shapes the serving path and the NeRF train steps give them.  Marked ``gpu``:
 they skip where torch.cuda is unavailable, and build the kernels on first
 use.
 
@@ -138,3 +138,83 @@ def test_bundle_loss_kernel_matches_plain(cuda, cfg, n_halves, R, P):
     tgt2[:, ::7, :4] = torch.rand_like(tgt2[:, ::7, :4])
     gk3, lk3, _ = field_kernel.bundle_loss_cuda(pts, dn, tgt2, *args[3:])
     assert all(torch.equal(a, b) for a, b in zip(gk, gk3)) and torch.equal(lk, lk3)
+
+
+FIELD_COLOR_CASES = [  # cfg, halves, rays, points: a chunk's shapes, ragged R, both embeddings
+    (FieldConfig(act_dtype="bfloat16"), 1, 4096, 64),
+    (FieldConfig(act_dtype="bfloat16"), 2, 704, 320),
+    (FieldConfig(act_dtype="bfloat16", embed_method="grouped"), 1, 1001, 320),
+    (FieldConfig(act_dtype="bfloat16", embed_method="grouped"), 2, 257, 64),
+    (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16"), 2, 37, 12),
+]
+
+
+@pytest.mark.parametrize("cfg,n_halves,R,P", FIELD_COLOR_CASES)
+def test_field_color_kernels_match_plain(cuda, cfg, n_halves, R, P):
+    pts, dn, _, fm, weights, ladder = _bundle_inputs(cfg, n_halves, R, P, cuda, R + P)
+    beta = cfg.softplus_beta
+    dk, rk, res_k = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta)
+    dp, rp, res_p = field_kernel.field_color_fwd_plain(pts, dn, fm, weights, ladder, beta)
+    torch.cuda.synchronize()
+    # K5: the same rounding points, f32 sums in another order; a flipped
+    # bf16 rounding of a hidden value moves its point's outputs slightly
+    assert float(dp.std()) > 1e-3
+    for got, want in ((dk, dp), (rk, rp)):
+        err = (got - want).abs()
+        assert float(err.max()) < 2e-2 and float((err > 1e-4).float().mean()) < 1e-3
+    for k in field_kernel.RESIDUALS:
+        assert res_k[k].dtype == torch.bfloat16 and res_k[k].shape == res_p[k].shape, k
+        assert float((res_k[k] != res_p[k]).float().mean()) < 1e-2, k
+    # K6 on the kernel's own residuals and random cotangents: each block
+    # within 3e-2 of its max |g|, the reference's own bar for its kernels
+    g = torch.Generator(device=cuda).manual_seed(R)
+    gdens = torch.randn(dk.shape, generator=g, device=cuda)
+    grgb = torch.randn(rk.shape, generator=g, device=cuda)
+    args = (dn, fm, weights, res_k, dk, rk, gdens, grgb, ladder, beta)
+    gk = field_kernel.field_color_bwd_cuda(*args)
+    gp = field_kernel.field_color_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(field_kernel.LOSS_BLOCKS, gk, gp):
+        assert a.shape == b.shape, name
+        s = max(float(b.abs().max()), 1e-3)
+        assert float((a - b).abs().max()) / s < 3e-2, name
+    # no atomics, fixed-order sums: a second launch of each is bit-identical
+    dk2, rk2, res_k2 = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta)
+    gk2 = field_kernel.field_color_bwd_cuda(*args)
+    assert torch.equal(dk, dk2) and torch.equal(rk, rk2)
+    assert all(torch.equal(res_k[k], res_k2[k]) for k in field_kernel.RESIDUALS)
+    assert all(torch.equal(a, b) for a, b in zip(gk, gk2))
+
+
+@pytest.mark.parametrize("embed", ["direct", "grouped"])
+def test_field_color_autograd_on_card_matches_plain(cuda, embed, monkeypatch):
+    """FieldColor through K5/K6 against the same Function through the plain
+    versions on the card: the fields' parameter grads."""
+    cfg = FieldConfig(act_dtype="bfloat16", embed_method=embed)
+    R, P = 300, 64
+    pts, dn, _, _, _, _ = _bundle_inputs(cfg, 2, R, P, cuda, 7)
+    grads = []
+    for plain in (False, True):
+        fields = []
+        for h in range(2):
+            f = NerfField(cfg).reset_parameters(torch.Generator().manual_seed(7 + h))
+            torch.nn.init.zeros_(f.density_layer.bias)
+            fields.append(f.to(cuda))
+        if plain:
+            monkeypatch.setattr(field_kernel, "field_color_fwd_op", field_kernel.field_color_fwd_plain)
+            monkeypatch.setattr(field_kernel, "field_color_bwd_op", field_kernel.field_color_bwd_plain)
+        before = (field_kernel.field_color_fwd_cuda.launches, field_kernel.field_color_bwd_cuda.launches)
+        dens, rgb = field_kernel.field_color(fields, pts, dn, cfg)
+        ((dens * 0.7).sum() / R + (rgb * torch.cos(rgb)).sum() / R).backward()
+        launched = (field_kernel.field_color_fwd_cuda.launches - before[0],
+                    field_kernel.field_color_bwd_cuda.launches - before[1])
+        assert launched == ((0, 0) if plain else (1, 1))
+        grads.append({(h, n): p.grad for h, f in enumerate(fields) for n, p in f.named_parameters()})
+    torch.cuda.synchronize()
+    for key, a in grads[0].items():
+        b = grads[1][key]
+        if key[1].startswith("feature_layer"):
+            assert a is None and b is None
+            continue
+        s = max(float(b.abs().max()), 1e-3)
+        assert float((a - b).abs().max()) / s < 3e-2, key

@@ -2,11 +2,14 @@
 harmonics, 48 hidden, 2 halves x 2 cams x 24 rays, 8 coarse + 12 fine
 points): the plain K4 against the reference's Pallas loss kernel in
 interpret mode, its hand backward against autograd, the optimizer against
-optax, and whole train steps.  Every random draw is the reference's, made
-along its key path with ``jax.random`` here and handed to the port:
+optax, and whole train steps (single-chunk through K4, chunked through
+K5/K6 or autograd at a 16-ray chunk).  Every random draw is the
+reference's, made along its key path with ``jax.random`` here and handed
+to the port:
 
     fold_in(PRNGKey(seed + h), done) -> split per step -> (k_rays, k_pdf)
-    k_rays -> (k_xy, k_z): ray xys, depth jitter;  split(k_pdf, 1)[0]: resampling
+    k_rays -> (k_xy, k_z): ray xys, depth jitter
+    split(k_pdf, n_chunks)[i]: chunk i's resampling uniforms
 """
 
 import jax
@@ -47,25 +50,31 @@ def _np_tree(tree):
     return jax.tree.map(lambda x: np.array(x), tree)
 
 
-def step_draws(key, n_cams, render=RENDER):
-    """The reference train step's draws from its per-step key."""
+def step_draws(key, n_cams, render=RENDER, ray_chunk=tnt.RAY_CHUNK):
+    """The reference train step's draws from its per-step key: the rays
+    are cut into chunks of min(ray_chunk, rays), and chunk i resamples with
+    uniforms from split(k_pdf, n_chunks)[i] (the padded rows of a ragged
+    last chunk are drawn and unused)."""
     n, Pc, Pf = render.n_rays_per_image, render.n_pts_coarse, render.n_pts_fine
     k_rays, k_pdf = jax.random.split(key)
     k_xy, k_z = jax.random.split(k_rays)
     xys = jax.random.uniform(k_xy, (n_cams, n, 2), minval=-1.0, maxval=1.0)
     u = jax.random.uniform(k_z, (n_cams, n, Pc))
-    u_pdf = jax.random.uniform(jax.random.split(k_pdf, 1)[0], (n_cams * n, Pf), maxval=1.0 - 1e-6)
+    chunk = min(ray_chunk, n_cams * n)
+    keys = jax.random.split(k_pdf, -(-n_cams * n // chunk))
+    u_pdf = jnp.concatenate([jax.random.uniform(k, (chunk, Pf), maxval=1.0 - 1e-6) for k in keys])[:n_cams * n]
     return xys, u, u_pdf
 
 
-def stacked_draws(keys, n_cams):
-    per_half = [step_draws(k, n_cams) for k in keys]
+def stacked_draws(keys, n_cams, render=RENDER, ray_chunk=tnt.RAY_CHUNK):
+    per_half = [step_draws(k, n_cams, render, ray_chunk) for k in keys]
     return tuple(_t(np.stack([np.asarray(d[i]) for d in per_half])) for i in range(3))
 
 
-def fused_schedule_draws(seed, n_halves, total, spc, n_cams):
-    """Per-step draws of the reference's train_nerf_fused: each call of
-    ``spc`` steps folds ``done`` into PRNGKey(seed + h), then splits per step."""
+def fused_schedule_draws(seed, n_halves, total, spc, n_cams, render=RENDER, ray_chunk=tnt.RAY_CHUNK):
+    """Per-step draws of the reference's train_nerf_fused (and, for one
+    half, of its train_nerf): each call of ``spc`` steps folds ``done``
+    into PRNGKey(seed + h), then splits per step."""
     steps = [[] for _ in range(total)]
     for h in range(n_halves):
         for done in range(0, total, spc):
@@ -73,7 +82,7 @@ def fused_schedule_draws(seed, n_halves, total, spc, n_cams):
             for i in range(done, min(done + spc, total)):
                 k, sub = jax.random.split(k)
                 steps[i].append(sub)
-    return [stacked_draws(ks, n_cams) for ks in steps]
+    return [stacked_draws(ks, n_cams, render, ray_chunk) for ks in steps]
 
 
 @pytest.fixture(scope="module")
@@ -231,13 +240,13 @@ def _optax_rate(train):
 # ---------------------------------------------------------------- train steps
 
 
-def _one_step(scene, fused_kernel):
+def _one_step(scene, fused_kernel, render=RENDER, ray_chunk=tnt.RAY_CHUNK):
     """One step of both halves in each package from the same reference
     init, batch and draws."""
     cfg = _cfg(fused_kernel)
     jf = jfields.NerfField(cfg)
     tx = jnt.make_optimizer(TRAIN)
-    step = jnt.make_train_step(jf, tx, RENDER, TRAIN, scene["min_d"], scene["max_d"])
+    step = jnt.make_train_step(jf, tx, render, TRAIN, scene["min_d"], scene["max_d"], ray_chunk)
     states = [jnt.init_state(jf, TRAIN, jax.random.PRNGKey(SEED + h))[0] for h in range(2)]
     idx = np.array([[0, 2], [3, 1]])
     hh = np.arange(2)[:, None]
@@ -250,8 +259,8 @@ def _one_step(scene, fused_kernel):
                               jnp.asarray(sils), jnp.stack(keys))
     tstates = [convert.train_state_from_jax(_np_tree(s), cfg) for s in states]
     tnew, tloss, taux = tnt.train_step(tstates, tcam.camera_from_bop(_t(R), _t(t), _t(K), 24), _t(images), _t(sils),
-                                       tnt.make_optimizer(TRAIN), RENDER, TRAIN, scene["min_d"], scene["max_d"],
-                                       draws=stacked_draws(keys, 2))
+                                       tnt.make_optimizer(TRAIN), render, TRAIN, scene["min_d"], scene["max_d"],
+                                       draws=stacked_draws(keys, 2, render, ray_chunk), ray_chunk=ray_chunk)
     return jnew, jloss, jaux, tnew, tloss, taux
 
 
@@ -295,18 +304,42 @@ def test_autograd_step_matches_reference_flax_step(scene):
     _compare_step(jnew, jloss, tnew, tloss, loss_rtol=1e-4, grad_atol=3e-2)
 
 
-def test_multi_chunk_step_raises(scene):
-    cfg = _cfg(True)
-    st = [tnt.init_state(cfg, TRAIN, torch.Generator().manual_seed(0))]
-    big = RenderConfig(n_rays_per_image=2049, n_pts_coarse=8, n_pts_fine=12)
-    cam = tcam.camera_from_bop(_t(scene["R_bop"][:1, :2]), _t(scene["t_bop"][:1, :2]), _t(scene["K"][:1, :2]), 24)
-    args = (cam, _t(scene["images"][:1, :2]), _t(scene["sils"][:1, :2]), tnt.make_optimizer(TRAIN), big, TRAIN,
-            2.0, 6.0)
-    with pytest.raises(NotImplementedError, match="K5/K6"):
-        tnt.train_step(st, *args, generators=[torch.Generator()])
-    st = [tnt.init_state(_cfg(None), TRAIN, torch.Generator().manual_seed(0))]
-    with pytest.raises(NotImplementedError, match="chunk"):
-        tnt.train_step(st, *args, generators=[torch.Generator()])
+CHUNK = 16
+
+
+@pytest.mark.parametrize("n_rays", [24, 20])
+def test_chunked_kernel_step_matches_reference(scene, n_rays, monkeypatch):
+    """2 cams x 24 rays = 3 chunks of 16; x 20 = 2 chunks and a ragged 8,
+    which the reference pads with rows of weight 0.  The reference runs its
+    split kernels K5/K6 interpreted, the port their plain versions, one
+    forward per pass and chunk (no K4)."""
+    render = RenderConfig(n_rays_per_image=n_rays, n_pts_coarse=8, n_pts_fine=12)
+    calls = []
+    fwd = tfk.field_color_fwd_op
+
+    def counted(pts, *args):
+        calls.append(pts.shape[:3])
+        return fwd(pts, *args)
+
+    monkeypatch.setattr(tfk, "field_color_fwd_op", counted)
+    monkeypatch.setattr(tfk, "bundle_loss_op", None)     # a K4 call would raise
+    jnew, jloss, jaux, tnew, tloss, taux = _one_step(scene, True, render, ray_chunk=CHUNK)
+    n = 2 * n_rays
+    sizes = [min(CHUNK, n - i) for i in range(0, n, CHUNK)]
+    assert calls == [(2, c, P) for c in sizes for P in (8, 20)]
+    # the same kernel numerics; the composite and its backward are autograd's
+    # against JAX's, so the cotangents reaching K6 differ by f32 rounding
+    _compare_step(jnew, jloss, tnew, tloss, loss_rtol=1e-4, grad_atol=1e-2)
+    np.testing.assert_allclose(taux["color"].numpy(), np.asarray(jaux["color"]), rtol=1e-4)
+    np.testing.assert_allclose(taux["sil"].numpy(), np.asarray(jaux["sil"]), rtol=1e-4)
+
+
+def test_chunked_autograd_step_matches_reference_flax_step(scene):
+    # 3 chunks of 16 through the fields' own colour paths: flax's remat scan
+    # against the port's backward per chunk
+    render = RenderConfig(n_rays_per_image=24, n_pts_coarse=8, n_pts_fine=12)
+    jnew, jloss, _, tnew, tloss, _ = _one_step(scene, None, render, ray_chunk=CHUNK)
+    _compare_step(jnew, jloss, tnew, tloss, loss_rtol=1e-4, grad_atol=3e-2)
 
 
 # ------------------------------------------------------------ fused training
