@@ -2,14 +2,16 @@
 
 The JAX package ``imagesequenceregistrationfor6dposeestimationlabeling_tpu``
 is the reference; this package mirrors its layout module by module.  Plain
-tensor code is PyTorch; the Pallas TPU kernels on the serving path are
-hand-written CUDA C++ kernels for Hopper (``ops/csrc``), each beside a
-plain PyTorch version that the CPU path and the tests use.
+tensor code is PyTorch; the Pallas TPU kernels are hand-written CUDA C++
+kernels for Hopper (``ops/csrc``), each beside a plain PyTorch version that
+the CPU path and the tests use.
 
-Config defaults and the on-disk artifact format are shared with the
-reference: ``config``, ``pipeline.artifacts`` and ``ops.mcubes`` (with its
-native marching-tetrahedra library) are imported from the JAX package,
-whose modules load no JAX.
+The package imports no module of the reference: it keeps its own copies of
+the config dataclasses (``config``), the artifact reader and writer
+(``pipeline.artifacts``) and marching tetrahedra (``ops.mcubes`` with its
+C++ library in ``native``), which the tests hold equal to the reference's.
+Entry points run on the card unless the caller passes a device
+(``device.resolve``).
 """
 
 __version__ = "0.1.0"

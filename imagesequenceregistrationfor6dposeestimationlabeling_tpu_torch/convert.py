@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
 
 
 def _t(a) -> torch.Tensor:
@@ -92,14 +93,16 @@ def params_from_jax(tree) -> dict:
     raise ValueError(f"unrecognized parameter tree with keys {sorted(p)[:8]}")
 
 
-def train_state_from_jax(state, cfg: FieldConfig, device="cpu"):
+def train_state_from_jax(state, cfg: FieldConfig, device=None):
     """The port's per-half ``NerfTrainState`` from the reference's (its
-    leaves as numpy): coarse and fine params, the Adam moments of the
-    trained parameters (the frozen feature head has none), the optimizer
-    count and the step, so a resumed run computes what the reference's
-    would.  ``state.opt_state`` is optax's ``multi_transform`` state, read
-    by attribute: ``inner_states["train"].inner_state`` = (ScaleByAdamState,
+    leaves as numpy), on ``device`` (the card unless named): coarse and
+    fine params, the Adam moments of the trained parameters (the frozen
+    feature head has none), the optimizer count and the step, so a resumed
+    run computes what the reference's would.  ``state.opt_state`` is
+    optax's ``multi_transform`` state, read by attribute:
+    ``inner_states["train"].inner_state`` = (ScaleByAdamState,
     ScaleByScheduleState)."""
+    device = resolve_device(device)
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import (
         NON_FEATURE_MODULES,
         NerfField,

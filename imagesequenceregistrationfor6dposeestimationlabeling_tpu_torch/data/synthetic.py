@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import raymarch
 
@@ -46,11 +47,13 @@ def analytic_color(pts: torch.Tensor) -> torch.Tensor:
 
 
 def analytic_surface_points(n: int, generator: torch.Generator | None = None, which=None, dirs=None,
-                            device="cpu"):
-    """Points on the blob spheres, and a mask of those on the outer surface.
+                            device=None):
+    """Points on the blob spheres, and a mask of those on the outer surface,
+    on ``device`` (the card unless named).
 
     ``which`` (n,) blob ids and ``dirs`` (n, 3) normal draws may be passed
     in; otherwise they are drawn from ``generator``."""
+    device = resolve_device(device)
     if which is None:
         which = torch.randint(0, len(_RADII), (n,), generator=generator, device=device)
     if dirs is None:
@@ -73,11 +76,13 @@ class SyntheticScene(NamedTuple):
 
 
 def random_bop_poses(n_views: int, generator: torch.Generator | None = None, dist: float = 4.0,
-                     uniforms=None, device="cpu"):
-    """Cameras on a sphere of radius ``dist`` looking at the origin.
+                     uniforms=None, device=None):
+    """Cameras on a sphere of radius ``dist`` looking at the origin, on
+    ``device`` (the card unless named).
 
     ``uniforms`` (3, n_views) in [0, 1) may be passed in (z, phi, roll draws
     before scaling); otherwise they come from ``generator``."""
+    device = resolve_device(device)
     if uniforms is None:
         uniforms = torch.rand((3, n_views), generator=generator, device=device)
     u = torch.as_tensor(uniforms, dtype=torch.float32, device=device)
@@ -110,10 +115,12 @@ def make_scene(
     n_pts_per_ray: int = 96,
     dist: float = 4.0,
     poses=None,
-    device="cpu",
+    device=None,
 ) -> SyntheticScene:
     """Render the analytic object from ``n_views`` random cameras (or from
-    ``poses`` = (R_bop, t_bop) when given)."""
+    ``poses`` = (R_bop, t_bop) when given) on ``device`` (the card unless
+    named)."""
+    device = resolve_device(device)
     if poses is None:
         R_bop, t_bop = random_bop_poses(n_views, generator, dist, device=device)
     else:

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
+
 _ROT180_Z = ((-1.0, 0.0, 0.0), (0.0, -1.0, 0.0), (0.0, 0.0, 1.0))
 
 
@@ -87,11 +89,13 @@ def grid_rays(cam: Camera, image_size: int, n_pts: int, min_depth, max_depth) ->
     return RayBundle(origins=origins, directions=dirs, lengths=lengths, xys=xys)
 
 
-def depth_edges(min_depth: float, max_depth: float, n_pts: int, device="cpu") -> torch.Tensor:
+def depth_edges(min_depth: float, max_depth: float, n_pts: int, device=None) -> torch.Tensor:
     """The n_pts + 1 stratification edges of [min_depth, max_depth] in f32,
     by the reference's own ``linspace`` formula: ``start * (1 - i/n) +
-    stop * (i/n)``, then ``stop`` itself.  ``torch.linspace`` steps from
-    both ends instead and lands up to an ulp away on most edges."""
+    stop * (i/n)``, then ``stop`` itself, on ``device`` (the card unless
+    named).  ``torch.linspace`` steps from both ends instead and lands up to
+    an ulp away on most edges."""
+    device = resolve_device(device)
     step = torch.arange(n_pts, dtype=torch.float32, device=device) / n_pts
     start = torch.tensor(min_depth, dtype=torch.float32, device=device)
     stop = torch.tensor(max_depth, dtype=torch.float32, device=device)

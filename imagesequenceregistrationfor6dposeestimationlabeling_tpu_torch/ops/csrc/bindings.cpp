@@ -12,13 +12,12 @@ T* ptr(uintptr_t p) {
   return reinterpret_cast<T*>(p);
 }
 
-void density(uintptr_t pts, int64_t n, uintptr_t fmat, int n_base, int ladder, uintptr_t w1s,
-             uintptr_t w1c, uintptr_t b1, uintptr_t w2, uintptr_t b2, uintptr_t wd, uintptr_t bd,
-             int n_hidden, float beta, uintptr_t out, uintptr_t stream) {
-  launch_density(ptr<const float>(pts), n, ptr<const float>(fmat), n_base, ladder,
-                 ptr<const float>(w1s), ptr<const float>(w1c), ptr<const float>(b1),
-                 ptr<const float>(w2), ptr<const float>(b2), ptr<const float>(wd),
-                 ptr<const float>(bd), n_hidden, beta, ptr<float>(out), ptr<void>(stream));
+void density(uintptr_t pts, int64_t n, uintptr_t fmat, int n_base, int ladder, int ep, uintptr_t w1, uintptr_t w2,
+             uintptr_t b1, uintptr_t b2, uintptr_t wd, uintptr_t bd, int n_hidden, float beta, int embed_only,
+             uintptr_t out, uintptr_t stream) {
+  launch_density(ptr<const float>(pts), n, ptr<const float>(fmat), n_base, ladder, ep, ptr<const void>(w1),
+                 ptr<const void>(w2), ptr<const float>(b1), ptr<const float>(b2), ptr<const float>(wd),
+                 ptr<const float>(bd), n_hidden, beta, embed_only, ptr<float>(out), ptr<void>(stream));
 }
 
 void nn_min(uintptr_t query, int64_t n, uintptr_t ref, uintptr_t mask, int64_t m, uintptr_t dist,
@@ -34,20 +33,21 @@ void corr_argmax(uintptr_t queries, int64_t n, uintptr_t keys, int64_t m, int e,
 }
 
 void bundle_loss(uintptr_t pts, uintptr_t dirs, uintptr_t tgt, int n_halves, int n_rays, int n_pts,
-                 uintptr_t fmat, int n_base, int ladder, uintptr_t w1s, uintptr_t w1c, uintptr_t b1,
-                 uintptr_t w2, uintptr_t b2, uintptr_t wd, uintptr_t bd, uintptr_t wc1h, uintptr_t wc1ds,
-                 uintptr_t wc1dc, uintptr_t bc1, uintptr_t wc2, uintptr_t bc2, uintptr_t w2t, uintptr_t wc1ht,
-                 int n_hidden, float beta, float hs, float hs2, float scale, float scale3, uintptr_t work,
-                 int n_blocks, uintptr_t out, uintptr_t w_out, uintptr_t stream) {
-  const float* weights[13] = {ptr<const float>(w1s),  ptr<const float>(w1c),   ptr<const float>(b1),
-                              ptr<const float>(w2),   ptr<const float>(b2),    ptr<const float>(wd),
-                              ptr<const float>(bd),   ptr<const float>(wc1h),  ptr<const float>(wc1ds),
-                              ptr<const float>(wc1dc), ptr<const float>(bc1),  ptr<const float>(wc2),
-                              ptr<const float>(bc2)};
-  launch_bundle_loss(ptr<const float>(pts), ptr<const float>(dirs), ptr<const float>(tgt), n_halves, n_rays,
-                     n_pts, ptr<const float>(fmat), n_base, ladder, weights, ptr<const float>(w2t),
-                     ptr<const float>(wc1ht), n_hidden, beta, hs, hs2, scale, scale3, ptr<float>(work), n_blocks,
-                     ptr<float>(out), ptr<float>(w_out), ptr<void>(stream));
+                 uintptr_t fmat, int n_base, int ladder, int ep, uintptr_t w1, uintptr_t w2, uintptr_t wc1h,
+                 uintptr_t wc1ht, uintptr_t w2t, uintptr_t b1, uintptr_t b2, uintptr_t wd, uintptr_t bd,
+                 uintptr_t wc1ds, uintptr_t wc1dc, uintptr_t bc1, uintptr_t wc2, uintptr_t bc2, int n_hidden,
+                 float beta, float hs, float hs2, float scale, float scale3, uintptr_t vwork, int n_blocks,
+                 uintptr_t rec, uintptr_t rrec, uintptr_t part, int n_splits, uintptr_t vec_out, uintptr_t mat_out,
+                 uintptr_t w_out, uintptr_t stream) {
+  const void* mats[5] = {ptr<const void>(w1), ptr<const void>(w2), ptr<const void>(wc1h), ptr<const void>(wc1ht),
+                         ptr<const void>(w2t)};
+  const float* vecs[9] = {ptr<const float>(b1),    ptr<const float>(b2),    ptr<const float>(wd),
+                          ptr<const float>(bd),    ptr<const float>(wc1ds), ptr<const float>(wc1dc),
+                          ptr<const float>(bc1),   ptr<const float>(wc2),   ptr<const float>(bc2)};
+  launch_bundle_loss(ptr<const float>(pts), ptr<const float>(dirs), ptr<const float>(tgt), n_halves, n_rays, n_pts,
+                     ptr<const float>(fmat), n_base, ladder, ep, mats, vecs, n_hidden, beta, hs, hs2, scale, scale3,
+                     ptr<float>(vwork), n_blocks, ptr<void>(rec), ptr<void>(rrec), ptr<float>(part), n_splits,
+                     ptr<float>(vec_out), ptr<float>(mat_out), ptr<float>(w_out), ptr<void>(stream));
 }
 
 void field_color_fwd(uintptr_t pts, uintptr_t dirs, int n_halves, int n_rays, int n_pts, uintptr_t fmat, int n_base,
@@ -86,6 +86,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("nn_min", &nn_min);
   mod.def("corr_argmax", &corr_argmax);
   mod.def("bundle_loss", &bundle_loss);
+  mod.def("bundle_loss_rec_width", &bundle_loss_rec_width);
+  mod.def("bundle_loss_ray_rec_width", &bundle_loss_ray_rec_width);
+  mod.def("bundle_loss_vec_width", &bundle_loss_vec_width);
+  mod.def("bundle_loss_dw_tiles", &bundle_loss_dw_tiles);
   mod.def("field_color_fwd", &field_color_fwd);
   mod.def("field_color_bwd", &field_color_bwd);
 }

@@ -68,12 +68,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Harmonic embedding of `rows` points (x, rows of 3; rows >= n_valid read
 // as 0) into sin / cos blocks of width E = n_base * max(ladder, 1), rung-
-// major for the grouped ladder (column l * n_base + cb), rounded to bf16.
-template <typename T>
+// major for the grouped ladder (column l * n_base + cb), rounded to bf16;
+// E is the row stride of es and ec.  The block's NTH threads share the work.
+template <typename T, int NTH = NT>
 __device__ __forceinline__ void embed(const float* __restrict__ x, int n_valid, int rows,
                                       const float* __restrict__ fmat, int n_base, int ladder, int E, T* es,
                                       T* ec) {
-  for (int i = threadIdx.x; i < rows * n_base; i += NT) {
+  for (int i = threadIdx.x; i < rows * n_base; i += NTH) {
     const int p = i / n_base;
     const int cb = i % n_base;
     float x0 = 0.f, x1 = 0.f, x2 = 0.f;

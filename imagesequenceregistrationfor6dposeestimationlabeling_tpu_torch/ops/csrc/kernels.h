@@ -8,11 +8,13 @@
 #include <cstdint>
 
 // K1: density field (density.cu).  out[n] = 1 - exp(-softplus(h2 . wd + bd))
-// for points pts[n] (N, 3); see density.cu for the weight layouts.
-void launch_density(const float* pts, int64_t n, const float* fmat, int n_base, int ladder,
-                    const float* w1s, const float* w1c, const float* b1, const float* w2,
-                    const float* b2, const float* wd, const float* bd, int n_hidden, float beta,
-                    float* out, void* stream);
+// for points pts[n] (N, 3).  w1 (2 ep, 256) = [W1s; W1c] and w2 (256, 256)
+// are bf16, zero-padded (each embedding half to ep rows, a multiple of 16);
+// b1, b2, wd (n_hidden,), bd (1,) f32.  embed_only: the embedding alone,
+// for timing it (out then holds one embedding value a point).
+void launch_density(const float* pts, int64_t n, const float* fmat, int n_base, int ladder, int ep, const void* w1,
+                    const void* w2, const float* b1, const float* b2, const float* wd, const float* bd, int n_hidden,
+                    float beta, int embed_only, float* out, void* stream);
 
 // K2: nearest neighbour (nn_min.cu).  For query (N, 3): dist (N,) and the
 // lowest index (N,) of the closest ref (M, 3) point with mask > 0.
@@ -25,16 +27,23 @@ void launch_corr_argmax(const float* queries, int64_t n, const float* keys, int6
                         int32_t* idx, float* conf, void* stream);
 
 // K4: NeRF bundle loss and backward for n_halves fields (bundle_loss.cu).
-// pts (H, R, P, 3), unit dirs (H, R, 3), tgt (H, R, 8); weights[13] are the
-// per-half blocks in the order w1s w1c b1 w2 b2 wd bd wc1h wc1ds wc1dc bc1
-// wc2 bc2, each with a leading half axis; w2t / wc1ht the transposes.
-// work is (H, n_blocks, G + 2) scratch; out (H, G + 2) receives the grads
-// (same order, flat) then (ce_sum, se_sum); w_out (H, R, P) may be null.
-void launch_bundle_loss(const float* pts, const float* dirs, const float* tgt, int n_halves, int n_rays,
-                        int n_pts, const float* fmat, int n_base, int ladder, const float* const* weights,
-                        const float* w2t, const float* wc1ht, int n_hidden, float beta, float hs, float hs2,
-                        float scale, float scale3, float* work, int n_blocks, float* out, float* w_out,
-                        void* stream);
+// pts (H, R, P, 3), unit dirs (H, R, 3), tgt (H, R, 8).  mats[5] are bf16,
+// zero-padded to 256 columns, with a leading half axis: w1 = [W1s; W1c]
+// (2 ep rows), w2, wc1h, wc1h^T, w2^T (256 rows).  vecs[9] are f32 with a
+// leading half axis: b1, b2, wd, bd, wc1ds, wc1dc, bc1, wc2, bc2.  Scratch:
+// vwork (H, n_blocks, vec width), rec (H, R, P, rec width) and rrec (H, R,
+// ray rec width) bf16, part (H, n_splits, G), G = 4 E nh + 2 nh^2.  Out:
+// vec_out (H, vec width) = b1 b2 wd bd bc1 wc2 bc2 ce_sum se_sum, mat_out
+// (H, G) = w1s w1c w2 wc1h wc1ds wc1dc, flat; w_out (H, R, P) may be null.
+int64_t bundle_loss_rec_width(int ep);
+int64_t bundle_loss_ray_rec_width(int ep);
+int64_t bundle_loss_vec_width(int n_hidden);
+int bundle_loss_dw_tiles(int e, int n_hidden);
+void launch_bundle_loss(const float* pts, const float* dirs, const float* tgt, int n_halves, int n_rays, int n_pts,
+                        const float* fmat, int n_base, int ladder, int ep, const void* const* mats,
+                        const float* const* vecs, int n_hidden, float beta, float hs, float hs2, float scale,
+                        float scale3, float* vwork, int n_blocks, void* rec, void* rrec, float* part, int n_splits,
+                        float* vec_out, float* mat_out, float* w_out, void* stream);
 
 // K5: NeRF field colour forward for n_halves fields, residuals stored
 // (field_color.cu).  pts (H, R, P, 3), unit dirs (H, R, 3); weights[13] as

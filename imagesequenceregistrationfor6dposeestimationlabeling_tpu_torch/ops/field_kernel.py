@@ -128,8 +128,28 @@ def density_plain(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch
     return 1.0 - torch.exp(-raw)
 
 
-def density_cuda(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch.Tensor:
-    """K1 on the card: (N, 3) f32 -> (N, 1) f32 densities."""
+# The tensor-core kernels (K1, K4) take their product weights as bf16,
+# zero-padded: every product to 256 columns (the widest hidden layer a tile
+# covers), each embedding half's rows to a multiple of 16 (the mma's k).
+_TILE_N = 256
+
+
+def _pad_rows(E: int) -> int:
+    """The embedding width padded to the tensor cores' k of 16."""
+    return -(-E // 16) * 16
+
+
+def _padded(blocks, row_offsets, rows: int) -> torch.Tensor:
+    """bf16 (..., rows, 256) of zeros with each f32 block (..., r, c) put,
+    rounded to nearest-even, at its row offset and column 0."""
+    lead = blocks[0].shape[:-2]
+    out = torch.zeros(lead + (rows, _TILE_N), dtype=torch.bfloat16, device=blocks[0].device)
+    for b, r0 in zip(blocks, row_offsets):
+        out[..., r0:r0 + b.shape[-2], :b.shape[-1]] = b
+    return out
+
+
+def _density_launch(pts, weights, ladder: int, beta: float, embed_only: bool) -> torch.Tensor:
     fm, w1s, w1c, b1, w2, b2, wd, bd = weights
     dev = pts.device
     n = pts.shape[0]
@@ -142,19 +162,35 @@ def density_cuda(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch.
     for name, t, shape in (("w1s", w1s, (emb, nh)), ("w1c", w1c, (emb, nh)), ("b1", b1, (nh,)),
                            ("w2", w2, (nh, nh)), ("b2", b2, (nh,)), ("wd", wd, (nh,)), ("bd", bd, (1,))):
         cuda_build.check(t, name, f32, shape, dev)
-    if nh > 256:
-        raise ValueError(f"density kernel covers at most 256 hidden units, got {nh}")
+    if nh > _TILE_N:
+        raise ValueError(f"density kernel covers at most {_TILE_N} hidden units, got {nh}")
     # W1 and W2 enter the products as bf16 values, as in the TPU kernel
-    w1s, w1c, w2 = _bf16(w1s), _bf16(w1c), _bf16(w2)
+    ep = _pad_rows(emb)
+    w1 = _padded((w1s, w1c), (0, ep), 2 * ep)
+    w2p = _padded((w2,), (0,), _TILE_N)
     out = torch.empty((n, 1), dtype=f32, device=dev)
     if n:
         cuda_build.kernels().density(
-            pts.data_ptr(), n, fm.data_ptr(), n_base, ladder, w1s.data_ptr(), w1c.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), wd.data_ptr(), bd.data_ptr(), nh,
-            float(beta), out.data_ptr(), cuda_build.stream_ptr(dev),
+            pts.data_ptr(), n, fm.data_ptr(), n_base, ladder, ep, w1.data_ptr(), w2p.data_ptr(), b1.data_ptr(),
+            b2.data_ptr(), wd.data_ptr(), bd.data_ptr(), nh, float(beta), int(embed_only), out.data_ptr(),
+            cuda_build.stream_ptr(dev),
         )
+    return out
+
+
+def density_cuda(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch.Tensor:
+    """K1 on the card: (N, 3) f32 -> (N, 1) f32 densities."""
+    out = _density_launch(pts, weights, ladder, beta, embed_only=False)
+    if pts.shape[0]:
         density_cuda.launches += 1
     return out
+
+
+def density_embed_cuda(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch.Tensor:
+    """K1's sin / cos embedding stage alone on the card (the kernel with its
+    products skipped), to time what the full-range ``sincosf`` costs; its
+    output is one embedding value a point, not a density."""
+    return _density_launch(pts, weights, ladder, beta, embed_only=True)
 
 
 density_cuda.launches = 0
@@ -383,23 +419,39 @@ def _resident_blocks(dev, R: int, nH: int) -> int:
     return max(1, min(R, n_sm // nH))
 
 
-def _split_grads(flat, shapes: dict) -> tuple:
-    """The 13 grads (leading nH) from a kernel's flat (nH, >= G) output."""
-    grads, off = [], 0
-    for name in LOSS_BLOCKS:
+def _dw_splits(dev, nH: int, n_tiles: int, n_rows: int) -> int:
+    """Slices of the points per weight-grad tile in K4's contraction
+    kernel: one resident wave of its two blocks per SM, at least 64 rows a
+    slice."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(2 * n_sm // (nH * n_tiles), -(-n_rows // 64)))
+
+
+def _named_views(flat, names, shapes: dict) -> dict:
+    """Views (leading nH) of the blocks ``names``, in that order, of a
+    kernel's flat (nH, >= G) output."""
+    out, off = {}, 0
+    for name in names:
         n = math.prod(shapes[name])
-        grads.append(flat[:, off:off + n].reshape(flat.shape[:1] + shapes[name]))
+        out[name] = flat[:, off:off + n].reshape(flat.shape[:1] + shapes[name])
         off += n
-    return tuple(grads)
+    return out
+
+
+# K4's outputs: the matrix grads (from its contraction kernel) and the
+# vector grads then (ce_sum, se_sum) (from per-block slices), each flat
+_K4_MATS = ("w1s", "w1c", "w2", "wc1h", "wc1ds", "wc1dc")
+_K4_VECS = ("b1", "b2", "wd", "bd", "bc1", "wc2", "bc2")
 
 
 def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float, scale: float,
                      want_weights: bool):
     """K4 on the card (``csrc/bundle_loss.cu``): the same contract as
-    ``bundle_loss_plain``.  A persistent grid walks the rays; each block
-    accumulates into its own f32 slice of a workspace, and a second small
-    kernel sums the slices in a fixed order, so two launches give
-    bit-identical grads."""
+    ``bundle_loss_plain``.  A persistent grid walks the rays and writes
+    each point's activations and cotangents to a bf16 workspace; a second
+    kernel contracts them into the weight grads over fixed slices of the
+    points, and small kernels sum the slices in a fixed order, so two
+    launches give bit-identical grads."""
     dev = pts.device
     f32 = torch.float32
     nH, R, P, _ = pts.shape
@@ -412,25 +464,39 @@ def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs
     cuda_build.check(fmat, "fmat", f32, (3, n_base), dev)
     shapes = _block_shapes(E, nh)
     wts = _kernel_weights(weights, shapes, nH, dev)
-    # the backward's products read W2 and Wc1h transposed
-    w2t = _t(wts["w2"]).contiguous()
-    wc1ht = _t(wts["wc1h"]).contiguous()
-    n_grad = sum(math.prod(s) for s in shapes.values())
-    n_blocks = _resident_blocks(dev, R, nH)
-    work = torch.empty((nH, n_blocks, n_grad + 2), dtype=f32, device=dev)
-    flat = torch.empty((nH, n_grad + 2), dtype=f32, device=dev)
     w_out = torch.empty((nH, R, P), dtype=f32, device=dev) if want_weights else None
-    if R and P:
-        cuda_build.kernels().bundle_loss(
-            pts.data_ptr(), dirs.data_ptr(), tgt.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder,
-            *(wts[k].data_ptr() for k in LOSS_BLOCKS), w2t.data_ptr(), wc1ht.data_ptr(), nh, float(beta),
-            float(hs), float(hs * hs), float(scale), float(scale / 3.0), work.data_ptr(), n_blocks,
-            flat.data_ptr(), 0 if w_out is None else w_out.data_ptr(), cuda_build.stream_ptr(dev),
+    G = 4 * E * nh + 2 * nh * nh
+    if not (R and P):
+        mats = torch.zeros((nH, G), dtype=f32, device=dev)
+        vec = torch.zeros((nH, 7 * nh + 6), dtype=f32, device=dev)
+    else:
+        # the products' operands as bf16, zero-padded; the backward's products
+        # read W2 and Wc1h transposed
+        ep = _pad_rows(E)
+        sq = lambda t: _padded((t,), (0,), _TILE_N)  # noqa: E731
+        w1 = _padded((wts["w1s"], wts["w1c"]), (0, ep), 2 * ep)
+        mats_in = (w1, sq(wts["w2"]), sq(wts["wc1h"]), sq(_t(wts["wc1h"])), sq(_t(wts["w2"])))
+        ext = cuda_build.kernels()
+        n_blocks = _resident_blocks(dev, R, nH)
+        n_splits = _dw_splits(dev, nH, ext.bundle_loss_dw_tiles(E, nh), R * P)
+        V = ext.bundle_loss_vec_width(nh)
+        vwork = torch.empty((nH, n_blocks, V), dtype=f32, device=dev)
+        rec = torch.empty((nH, R * P, ext.bundle_loss_rec_width(ep)), dtype=torch.bfloat16, device=dev)
+        rrec = torch.empty((nH, R, ext.bundle_loss_ray_rec_width(ep)), dtype=torch.bfloat16, device=dev)
+        part = torch.empty((nH, n_splits, G), dtype=f32, device=dev)
+        vec = torch.empty((nH, V), dtype=f32, device=dev)
+        mats = torch.empty((nH, G), dtype=f32, device=dev)
+        ext.bundle_loss(
+            pts.data_ptr(), dirs.data_ptr(), tgt.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
+            *(m.data_ptr() for m in mats_in), *(wts[k].data_ptr() for k in ("b1", "b2", "wd", "bd", "wc1ds", "wc1dc",
+                                                                             "bc1", "wc2", "bc2")),
+            nh, float(beta), float(hs), float(hs * hs), float(scale), float(scale / 3.0), vwork.data_ptr(), n_blocks,
+            rec.data_ptr(), rrec.data_ptr(), part.data_ptr(), n_splits, vec.data_ptr(), mats.data_ptr(),
+            0 if w_out is None else w_out.data_ptr(), cuda_build.stream_ptr(dev),
         )
         bundle_loss_cuda.launches += 1
-    else:
-        flat.zero_()
-    return _split_grads(flat, shapes), flat[:, n_grad:], w_out
+    g = {**_named_views(mats, _K4_MATS, shapes), **_named_views(vec, _K4_VECS, shapes)}
+    return tuple(g[k] for k in LOSS_BLOCKS), vec[:, -2:], w_out
 
 
 bundle_loss_cuda.launches = 0
@@ -598,7 +664,7 @@ def field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladde
             flat.data_ptr(), cuda_build.stream_ptr(dev),
         )
         field_color_bwd_cuda.launches += 1
-    return _split_grads(flat, shapes)
+    return tuple(_named_views(flat, LOSS_BLOCKS, shapes).values())
 
 
 field_color_bwd_cuda.launches = 0

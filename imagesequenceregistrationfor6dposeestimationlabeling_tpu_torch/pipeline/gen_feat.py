@@ -18,7 +18,7 @@ import os
 import numpy as np
 import torch
 
-from imagesequenceregistrationfor6dposeestimationlabeling_tpu.ops import mcubes
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import mcubes
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FeatConfig
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import eval_features
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pointcloud as pc

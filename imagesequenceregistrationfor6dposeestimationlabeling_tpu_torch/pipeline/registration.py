@@ -9,6 +9,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import rotations
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pointcloud as pc
 
@@ -49,10 +50,12 @@ def _f32(x, device) -> torch.Tensor:
 
 @torch.no_grad()
 def register_halves(upper, lower, R_gt_chosen, t_gt_chosen, R_pred_chosen, t_pred_chosen, cad_points,
-                    diameter: float, icp_threshold: float = 20.0, icp_iters: int = 30, device="cpu"):
+                    diameter: float, icp_threshold: float = 20.0, icp_iters: int = 30, device=None):
     """Bring the upper half into the lower/CAD frame: pose it with the chosen
     image's GT pose, start ICP from the inverse of its predicted pose, merge
-    with the lower half and take the Chamfer distance to the CAD cloud."""
+    with the lower half and take the Chamfer distance to the CAD cloud, on
+    ``device`` (the card unless named)."""
+    device = resolve_device(device)
     upper, lower, Rg, tg, Rp, tp, cad = (
         _f32(x, device) for x in (upper, lower, R_gt_chosen, t_gt_chosen, R_pred_chosen, t_pred_chosen,
                                   cad_points)
@@ -75,10 +78,12 @@ def register_halves(upper, lower, R_gt_chosen, t_gt_chosen, R_pred_chosen, t_pre
 
 
 @torch.no_grad()
-def verify_consecutive(cloud, R_gt, t_gt, R_pred, t_pred, device="cpu"):
+def verify_consecutive(cloud, R_gt, t_gt, R_pred, t_pred, device=None):
     """Per consecutive image pair, the Chamfer distance between the cloud
     rotated by the GT relative pose and by the predicted next pose
-    (rotation only).  Returns (best index, chamfer list)."""
+    (rotation only), on ``device`` (the card unless named).  Returns (best
+    index, chamfer list)."""
+    device = resolve_device(device)
     cloud, R_gt, t_gt, R_pred = (_f32(x, device) for x in (cloud, R_gt, t_gt, R_pred))
     rel_R, _ = rotations.relative_pose_se3(R_gt[:-1], t_gt[:-1], R_gt[1:], t_gt[1:])
     out = []

@@ -8,6 +8,7 @@ from typing import Callable
 
 import torch
 
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.cameras import (
     Camera,
     RayBundle,
@@ -20,9 +21,11 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render impor
 
 @torch.no_grad()
 def density_grid(field_density_fn: Callable, grid_res: int = 128, chunk: int = 262144,
-                 device="cpu") -> torch.Tensor:
+                 device=None) -> torch.Tensor:
     """D[i, j, k] = density at (x=t[i], y=t[j], z=t[k]), t = linspace(-1, 1, R),
-    evaluated ``chunk`` points at a time."""
+    evaluated ``chunk`` points at a time on ``device`` (the card unless
+    named)."""
+    device = resolve_device(device)
     t = torch.linspace(-1.0, 1.0, grid_res, dtype=torch.float32, device=device)
     xx, yy, zz = torch.meshgrid(t, t, t, indexing="ij")
     pts = torch.stack([xx, yy, zz], dim=-1).reshape(-1, 3)

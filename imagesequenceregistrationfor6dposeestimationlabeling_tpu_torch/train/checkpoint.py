@@ -18,6 +18,7 @@ import os
 import torch
 
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import NerfField
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train.nerf_trainer import (
     AdamState,
@@ -49,9 +50,10 @@ def save(path: str, tree: dict, step: int = 0):
     _write(path, {"tree": dict(zip(tree, _cpu(tree.values()))), "step": int(step)})
 
 
-def load(path: str, device="cpu"):
-    """(state dict, step) as ``save`` wrote them."""
-    obj = torch.load(path, map_location=device, weights_only=True)
+def load(path: str, device=None):
+    """(state dict, step) as ``save`` wrote them, on ``device`` (the card
+    unless named)."""
+    obj = torch.load(path, map_location=resolve_device(device), weights_only=True)
     return obj["tree"], int(obj["step"])
 
 
@@ -66,9 +68,10 @@ def save_state(path: str, state):
                   "nu": _cpu(state.opt.nu), "count": int(state.opt.count), "step": int(state.step)})
 
 
-def load_state(path: str, cfg: FieldConfig, device="cpu"):
+def load_state(path: str, cfg: FieldConfig, device=None):
     """The ``NerfTrainState`` that ``save_state`` wrote, its fields of
-    config ``cfg``, on ``device``."""
+    config ``cfg``, on ``device`` (the card unless named)."""
+    device = resolve_device(device)
     obj = torch.load(path, map_location="cpu", weights_only=True)
     pair = []
     for which in ("coarse", "fine"):

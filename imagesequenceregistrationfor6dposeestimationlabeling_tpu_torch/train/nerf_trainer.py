@@ -29,12 +29,13 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from imagesequenceregistrationfor6dposeestimationlabeling_tpu.ops import mcubes
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import mcubes
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
     FieldConfig,
     NerfTrainConfig,
     RenderConfig,
 )
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models import fields
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel
@@ -121,9 +122,11 @@ def make_optimizer(cfg: NerfTrainConfig) -> Adam:
 
 
 def init_state(field_cfg: FieldConfig, train_cfg: NerfTrainConfig, generator: torch.Generator | None = None,
-               init_params=None, device="cpu") -> NerfTrainState:
+               init_params=None, device=None) -> NerfTrainState:
     """Fresh coarse and fine fields from ``generator`` (coarse drawn
-    first), or from ``init_params`` = (coarse, fine) state dicts."""
+    first), or from ``init_params`` = (coarse, fine) state dicts, on
+    ``device`` (the card unless named)."""
+    device = resolve_device(device)
     pair = []
     for i in range(2):
         f = fields.NerfField(field_cfg)
@@ -279,7 +282,7 @@ def half_schedule(n_views: int, batch: int, total: int, seed: int) -> np.ndarray
 
 def train_nerf_fused(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig,
                      render_cfg: RenderConfig = RenderConfig(), train_cfg: NerfTrainConfig = NerfTrainConfig(),
-                     n_steps: Optional[int] = None, seed: int = 1, depth_margin: float = 2.0, device="cpu",
+                     n_steps: Optional[int] = None, seed: int = 1, depth_margin: float = 2.0, device=None,
                      init_states=None, draws: Callable | None = None, ray_chunk: int = RAY_CHUNK):
     """Train H independent NeRFs (one per half-sequence) step by step, all
     halves in each launch.
@@ -290,8 +293,9 @@ def train_nerf_fused(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig,
     ``np.random.default_rng(seed + h)`` (the reference's schedule) and its
     rays from a generator seeded seed + h, unless ``draws(step)`` supplies
     them.  Losses stay on the device until the end.  Returns (list of
-    per-half NerfTrainState, (H, n_steps) numpy losses)."""
-    dev = torch.device(device)
+    per-half NerfTrainState, (H, n_steps) numpy losses).  Runs on ``device``,
+    the card unless named."""
+    dev = resolve_device(device)
     f32 = torch.float32
     H, n, S = images.shape[0], images.shape[1], images.shape[2]
     t_np = t_bop.detach().cpu().numpy() if torch.is_tensor(t_bop) else np.asarray(t_bop)
@@ -322,7 +326,7 @@ def train_nerf_fused(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig,
 def train_nerf(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig, render_cfg: RenderConfig = RenderConfig(),
                train_cfg: NerfTrainConfig = NerfTrainConfig(), n_steps: Optional[int] = None, seed: int = 1,
                depth_margin: float = 2.0, log_every: int = 0, on_checkpoint: Callable | None = None,
-               init_params=None, resume_state: NerfTrainState | None = None, device="cpu",
+               init_params=None, resume_state: NerfTrainState | None = None, device=None,
                draws: Callable | None = None, ray_chunk: int = RAY_CHUNK):
     """Train one NeRF (coarse + fine) on one sequence: images (N, S, S, 3),
     sils (N, S, S), R_bop (N, 3, 3), t_bop (N, 3) already divided by
@@ -339,8 +343,9 @@ def train_nerf(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig, render_cfg
     ``on_checkpoint(state, step)`` runs after every ``ckpt_every``-th step
     and after the last (the reference runs ``steps_per_call`` steps per
     program and snaps the hook to those boundaries; here every step is its
-    own call).  Returns (state, per-step losses of this run as floats)."""
-    dev = torch.device(device)
+    own call).  Runs on ``device``, the card unless named.  Returns (state,
+    per-step losses of this run as floats)."""
+    dev = resolve_device(device)
     as_t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
     images, sils = as_t(images), as_t(sils)
     n, S = images.shape[0], images.shape[1]
@@ -372,7 +377,7 @@ def train_nerf(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig, render_cfg
 def extract_point_cloud(field: fields.NerfField, threshold: float = 0.03, grid_res: int = 128):
     """World-space vertices and triangles of the density level set
     ``threshold``: the density on a grid_res^3 grid over [-1, 1]^3 (K1 where
-    enabled), then the reference's marching tetrahedra on the host."""
+    enabled), then marching tetrahedra (ops.mcubes) on the host."""
     grid = renderer.density_grid_cached(field, grid_res=grid_res)
     verts_idx, tris = mcubes.marching_tetrahedra(grid.cpu().numpy(), threshold)
     return mcubes.index_to_world(verts_idx, grid_res, exact=True), tris

@@ -109,7 +109,7 @@ def test_synthetic_scene_match():
     ks = jax.random.split(key, 3)
     u = np.stack([np.asarray(jax.random.uniform(k, (4,))) for k in ks])
     Rj, tj = jsyn.random_bop_poses(4, key)
-    Rt, tt = tsyn.random_bop_poses(4, uniforms=u)
+    Rt, tt = tsyn.random_bop_poses(4, uniforms=u, device="cpu")
     close(Rt, Rj, 2e-6)   # minval/maxval scaling rounds once in either order
     close(tt, tj, 1e-5)
     # analytic_surface_points with the reference's draws passed in
@@ -117,12 +117,12 @@ def test_synthetic_scene_match():
     which = np.asarray(jax.random.randint(k1, (300,), 0, 4))
     dirs = np.asarray(jax.random.normal(k2, (300, 3)))
     pj, okj = jsyn.analytic_surface_points(300, jax.random.PRNGKey(9))
-    pt, okt = tsyn.analytic_surface_points(300, which=which, dirs=dirs)
+    pt, okt = tsyn.analytic_surface_points(300, which=which, dirs=dirs, device="cpu")
     close(pt, pj, 1e-6)
     np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
     # the rendered scene from the same poses
     sj = jsyn.make_scene(n_views=3, image_size=24, key=jax.random.PRNGKey(2))
-    st = tsyn.make_scene(image_size=24, poses=(np.asarray(sj.R_bop), np.asarray(sj.t_bop)))
+    st = tsyn.make_scene(image_size=24, poses=(np.asarray(sj.R_bop), np.asarray(sj.t_bop)), device="cpu")
     close(st.K, sj.K, 0.0)
     close(st.images, sj.images, 1e-4)   # 96-sample cumprod composite, f32 order
     assert (st.sils.numpy() != np.asarray(sj.sils)).mean() < 1e-3

@@ -28,6 +28,10 @@ def cuda():
     (FieldConfig(act_dtype="bfloat16"), 128 ** 3),
     (FieldConfig(act_dtype="bfloat16", embed_method="grouped"), 100_003),
     (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16"), 4_097),
+    # tiles the kernel must mask: a ragged last tile, E = 24 padded to 32 and
+    # 48 of 256 units, both embeddings
+    (FieldConfig(act_dtype="bfloat16"), 77),
+    (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16", embed_method="grouped"), 77),
 ])
 def test_density_kernel_matches_plain(cuda, cfg, n):
     # random weights: every trunk unit and both embedding halves reach the
@@ -50,6 +54,8 @@ def test_density_kernel_matches_plain(cuda, cfg, n):
     assert float(want.std()) > 1e-3
     assert float(err.max()) < 2e-2
     assert float((err > 1e-4).float().mean()) < 1e-3
+    # every point's sums run in a fixed order: a second launch is bit-identical
+    assert torch.equal(got, field_kernel.density_cuda(pts, w, ladder, cfg.softplus_beta))
 
 
 @pytest.mark.parametrize("n,m", [(50_000, 50_000), (20_000, 9_000), (1, 1)])
@@ -116,6 +122,12 @@ def _bundle_inputs(cfg, n_halves, R, P, dev, seed):
     (FieldConfig(act_dtype="bfloat16", embed_method="grouped"), 1, 1201, 64),
     (FieldConfig(act_dtype="bfloat16", embed_method="grouped"), 2, 257, 320),
     (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16"), 2, 37, 12),
+    # the train step's fine shape, and tiles the kernel must mask: P not a
+    # multiple of 64, E = 24 padded to 32 with 48 of 256 units, both embeddings
+    (FieldConfig(act_dtype="bfloat16"), 2, 1200, 320),
+    (FieldConfig(act_dtype="bfloat16"), 2, 5, 77),
+    (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16"), 2, 5, 77),
+    (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16", embed_method="grouped"), 1, 9, 77),
 ])
 def test_bundle_loss_kernel_matches_plain(cuda, cfg, n_halves, R, P):
     pts, dn, tgt, fm, weights, ladder = _bundle_inputs(cfg, n_halves, R, P, cuda, R + P)

@@ -130,12 +130,12 @@ def test_register_and_verify_match(rng):
                    @ r for r in Rg])
     tp = tg + 0.01
     bj, cj = jreg.verify_consecutive(upper, Rg, tg, Rp, tp, mesh=None)
-    bt, ct = treg.verify_consecutive(upper, Rg, tg, Rp, tp)
+    bt, ct = treg.verify_consecutive(upper, Rg, tg, Rp, tp, device="cpu")
     assert bt == bj
     np.testing.assert_allclose(ct, cj, rtol=1e-5)
     kw = dict(diameter=1.5, icp_threshold=0.2, icp_iters=10)
     oj = jreg.register_halves(upper, lower, Rg[1], tg[1], Rp[1], tp[1], cad, mesh=None, **kw)
-    ot = treg.register_halves(upper, lower, Rg[1], tg[1], Rp[1], tp[1], cad, **kw)
+    ot = treg.register_halves(upper, lower, Rg[1], tg[1], Rp[1], tp[1], cad, device="cpu", **kw)
     np.testing.assert_allclose(ot["R"], oj["R"], atol=1e-5)
     np.testing.assert_allclose(ot["t"], oj["t"], atol=1e-5)
     # the reference NN on CPU expands |a|^2 + |b|^2 - 2ab: ~1e-7 absolute

@@ -39,7 +39,7 @@ def scene():
 
 @pytest.mark.parametrize("lo,hi,n", [(2.0, 6.0, 8), (1.7, 6.3, 8), (0.8123, 7.91, 64), (2.0141, 6.0141, 64)])
 def test_depth_edges_match_reference_linspace(lo, hi, n):
-    ours = tcam.depth_edges(lo, hi, n).numpy()
+    ours = tcam.depth_edges(lo, hi, n, device="cpu").numpy()
     # inside the jitted train step the edges are constants that XLA folds
     # with the formula start * (1 - i/n) + stop * i/n: bit-identical
     folded = np.asarray(jax.jit(lambda: jnp.linspace(lo, hi, n + 1).astype(jnp.float32))())
@@ -68,7 +68,7 @@ def test_monte_carlo_rays_with_reference_draws(scene):
     np.testing.assert_allclose(tb.lengths.numpy(), np.asarray(jb.lengths), rtol=1e-6)
     assert tb.lengths.shape == (3, n_rays, n_pts)
     # strata: each depth inside its own bin
-    edges = tcam.depth_edges(lo, hi, n_pts)
+    edges = tcam.depth_edges(lo, hi, n_pts, device="cpu")
     assert bool(((tb.lengths >= edges[:-1]) & (tb.lengths <= edges[1:])).all())
 
 

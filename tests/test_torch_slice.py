@@ -253,7 +253,7 @@ def test_registration_from_those_poses(inference_state, slice_state):
     R_gt, t_gt = np.asarray(s1.R_bop[:N_INF]), np.asarray(s1.t_bop[:N_INF]) * scale
     sub = verts_real[:: max(n_real // 4000, 1)]
     bj, cj = jreg.verify_consecutive(sub, R_gt, t_gt, inf["Rj"], inf["tj"], mesh=None)
-    bt, ct = treg.verify_consecutive(sub, R_gt, t_gt, inf["Rt"], inf["tt"])
+    bt, ct = treg.verify_consecutive(sub, R_gt, t_gt, inf["Rt"], inf["tt"], device="cpu")
     assert bt == bj
     np.testing.assert_allclose(ct, cj, rtol=1e-2, atol=1e-4)
     cad_pts, ok = jsyn.analytic_surface_points(4000, jax.random.PRNGKey(9))
@@ -262,7 +262,8 @@ def test_registration_from_those_poses(inference_state, slice_state):
     kw = dict(diameter=st["diam"] * scale, icp_threshold=0.2 * scale, icp_iters=20)
     oj = jreg.register_halves(verts_real, lower, R_gt[bj], t_gt[bj], inf["Rj"][bj], inf["tj"][bj], cad,
                               mesh=None, **kw)
-    ot = treg.register_halves(verts_real, lower, R_gt[bt], t_gt[bt], inf["Rt"][bt], inf["tt"][bt], cad, **kw)
+    ot = treg.register_halves(verts_real, lower, R_gt[bt], t_gt[bt], inf["Rt"][bt], inf["tt"][bt], cad, device="cpu",
+                              **kw)
     np.testing.assert_allclose(ot["chamfer"], oj["chamfer"], rtol=1e-2)
     assert ot["correct"] == oj["correct"]
 

@@ -132,15 +132,46 @@ def test_bundle_loss_plain_matches_pallas_kernel(embed, R, P):
     assert w.shape == (1, R, P)
     np.testing.assert_allclose(w[0].numpy(), np.asarray(w_k), atol=1e-6)
     ref = convert.params_from_jax(_np_tree(gk))
+    du_bar = _du_rounding_bar(cfg, tf, pts, dirs, col, sil, valid, hs, scale)
     checked = 0
     for name, p in tf.named_parameters():
         if name.startswith("feature_layer"):
             assert p.grad is None and float(np.abs(ref[name].numpy()).max()) == 0.0
             continue
         s = max(float(np.abs(ref[name].numpy()).max()), 1e-3)
-        np.testing.assert_allclose(p.grad.numpy() / s, ref[name].numpy() / s, atol=1e-4, err_msg=name)
+        err = np.abs(p.grad.numpy() - ref[name].numpy())
+        bar = 1e-4 * s + 4.0 * du_bar.get(name, 0.0)
+        assert (err <= bar).all(), (name, float((err / bar).max()))
         checked += 1
     assert checked == 10
+
+
+def _du_rounding_bar(cfg, tf, pts, dirs, col, sil, valid, hs, scale):
+    """How far the f32 rounding of the composite's reverse prefix sum may
+    move the two grads that contract the unrounded f32 du over a ray's
+    points (density_layer weight and bias).  Both versions take
+    sum_{j>p} T_j as the ray's total minus an inclusive prefix (the
+    reference by a triangular product, the port by cumsum): past the ray's
+    opaque front the exact tail is ~0 and the difference keeps an absolute
+    error of a few f32 ulps of sum |T| (the port's own, against f64: up to
+    2.6), scaled by sigmoid'.  Returned: one such ulp a point, contracted
+    with |h2b| (weight) or summed (bias); the test allows 4.  At P = 512
+    the wd error follows the port's own rounding pattern (correlation
+    0.999) and reaches 1.5e-4 of its max, 0.38 of the bar; every other
+    block rounds its cotangents to bf16 first and keeps the flat 1e-4."""
+    R, P = pts.shape[:2]
+    fm = torch.from_numpy(tfk.fmat_of(cfg))
+    weights = tuple(b[None] for b in tfk.loss_weights(tf))
+    dn = _t(dirs)[None]
+    dn = dn / dn.norm(dim=-1, keepdim=True)
+    tgt = torch.cat([_t(col), _t(sil), _t(valid), torch.zeros(R, 3)], -1)[None]
+    b = tfk._bundle_forward(_t(pts)[None], dn, tgt, fm, weights, tfk.ladder_of(cfg), cfg.softplus_beta, hs)
+    gf = (scale / 3.0) * b.v * b.dcol / (hs * b.rc)
+    gw = (gf[:, :, None, :] * b.field.rgb.reshape(1, R, P, 3)).sum(-1)
+    ulp = 2.0 ** -24 * (gw * b.w).abs().sum(-1, keepdim=True).expand(1, R, P).reshape(R * P).double()
+    delta = ulp * tfk._sig_from_act(b.field.raw[0, :, 0], cfg.softplus_beta).double()
+    return {"density_layer.weight": (b.field.h2b[0].double().abs().T @ delta)[None].numpy(),
+            "density_layer.bias": float(delta.sum())}
 
 
 def test_bundle_loss_hand_backward_matches_autograd(monkeypatch):
@@ -200,7 +231,7 @@ def test_optimizer_matches_optax_over_warmup():
     jstate, tx = jnt.init_state(jf, train, jax.random.PRNGKey(3))
     pair = (jstate.params_coarse, jstate.params_fine)
     opt_state = jstate.opt_state
-    tstate = convert.train_state_from_jax(_np_tree(jstate), cfg)
+    tstate = convert.train_state_from_jax(_np_tree(jstate), cfg, device="cpu")
     opt = tnt.make_optimizer(train)
     rng = np.random.default_rng(4)
     count = 0
@@ -257,7 +288,7 @@ def _one_step(scene, fused_kernel, render=RENDER, ray_chunk=tnt.RAY_CHUNK):
     vstep = jax.vmap(step, in_axes=(0, jcam.Camera(0, 0, 0, 0, None), 0, 0, 0))
     jnew, jloss, jaux = vstep(jax.tree.map(lambda *x: jnp.stack(x), *states), jcam_b, jnp.asarray(images),
                               jnp.asarray(sils), jnp.stack(keys))
-    tstates = [convert.train_state_from_jax(_np_tree(s), cfg) for s in states]
+    tstates = [convert.train_state_from_jax(_np_tree(s), cfg, device="cpu") for s in states]
     tnew, tloss, taux = tnt.train_step(tstates, tcam.camera_from_bop(_t(R), _t(t), _t(K), 24), _t(images), _t(sils),
                                        tnt.make_optimizer(TRAIN), render, TRAIN, scene["min_d"], scene["max_d"],
                                        draws=stacked_draws(keys, 2, render, ray_chunk), ray_chunk=ray_chunk)
@@ -370,12 +401,13 @@ def fused_runs(scene):
             scene["images"], scene["sils"], scene["R_bop"], scene["t_bop"], scene["K"], jf, render_cfg=RENDER,
             train_cfg=TRAIN, n_steps=N_STEPS, seed=SEED, steps_per_call=SPC, mesh=None)
     # the port from the reference's init (train_state_from_jax of fresh states)
-    inits = [convert.train_state_from_jax(_np_tree(jnt.init_state(jf, TRAIN, jax.random.PRNGKey(SEED + h))[0]), cfg)
+    inits = [convert.train_state_from_jax(_np_tree(jnt.init_state(jf, TRAIN, jax.random.PRNGKey(SEED + h))[0]), cfg,
+                                             device="cpu")
              for h in range(2)]
     draws = fused_schedule_draws(SEED, 2, N_STEPS, SPC, TRAIN.batch_size)
     tstates, tlosses = tnt.train_nerf_fused(
         scene["images"], scene["sils"], scene["R_bop"], scene["t_bop"], scene["K"], cfg, RENDER, TRAIN,
-        n_steps=N_STEPS, seed=SEED, init_states=inits, draws=lambda i: draws[i])
+        n_steps=N_STEPS, seed=SEED, init_states=inits, draws=lambda i: draws[i], device="cpu")
     return dict(jstates=jstates, jlosses=np.asarray(jlosses), captured=np.concatenate(captured, 1),
                 tstates=tstates, tlosses=tlosses, cfg=cfg)
 
@@ -400,7 +432,7 @@ def test_train_state_from_jax_round_trip(fused_runs):
     mapped back to the flax layout it is bit-identical."""
     r = fused_runs
     jst = _np_tree(r["jstates"][1])
-    st = convert.train_state_from_jax(jst, r["cfg"])
+    st = convert.train_state_from_jax(jst, r["cfg"], device="cpu")
     adam, sched = jst.opt_state.inner_states["train"].inner_state
     assert st.step == int(jst.step) == N_STEPS and st.opt.count == int(adam.count) == int(sched.count) == N_STEPS
     names = [n for n, _ in tnt.trainable(st.coarse)]

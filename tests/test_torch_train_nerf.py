@@ -52,7 +52,8 @@ def half_runs(half):
     init_params = tuple(convert.params_from_jax(_np_tree(p)) for p in (init.params_coarse, init.params_fine))
     draws = fused_schedule_draws(SEED, 1, HALF_STEPS, HALF_SPC, TRAIN.batch_size, HALF_RENDER, CHUNK)
     tstate, tlosses = tnt.train_nerf(*half, cfg, HALF_RENDER, TRAIN, n_steps=HALF_STEPS, seed=SEED,
-                                     init_params=init_params, draws=lambda i: draws[i], ray_chunk=CHUNK)
+                                     init_params=init_params, draws=lambda i: draws[i], ray_chunk=CHUNK,
+                                     device="cpu")
     return dict(jstate=_np_tree(jstate), jlosses=np.asarray(jlosses), tstate=tstate, tlosses=tlosses, cfg=cfg)
 
 
@@ -73,7 +74,7 @@ def test_train_nerf_matches_reference(half_runs):
         for n, p in f.named_parameters():
             np.testing.assert_allclose(p.detach().numpy(), ref[n].numpy(), atol=bound, rtol=0, err_msg=n)
     # the reference's single-half state crosses over whole
-    back = convert.train_state_from_jax(jst, r["cfg"])
+    back = convert.train_state_from_jax(jst, r["cfg"], device="cpu")
     assert back.step == HALF_STEPS and back.opt.count == HALF_STEPS
     assert [m.shape for m in back.opt.mu] == [p.shape for p in tnt.train_params(back)]
 
@@ -83,13 +84,14 @@ def test_train_nerf_resume_is_exact(half, tmp_path):
     Adam moments and the losses of steps 4-5 are bit-identical; the hook
     fires every ckpt_every steps and at the end."""
     cfg = _cfg(True)
-    kw = dict(render_cfg=HALF_RENDER, train_cfg=replace(TRAIN, ckpt_every=2), seed=SEED, ray_chunk=CHUNK)
+    kw = dict(render_cfg=HALF_RENDER, train_cfg=replace(TRAIN, ckpt_every=2), seed=SEED, ray_chunk=CHUNK,
+              device="cpu")
     hooked = []
     full, losses = tnt.train_nerf(*half, cfg, n_steps=5, on_checkpoint=lambda st, i: hooked.append(i), **kw)
     assert hooked == [2, 4, 5] and len(losses) == 5
     _, first = tnt.train_nerf(*half, cfg, n_steps=3,
                               on_checkpoint=lambda st, i: checkpoint.save_latest(str(tmp_path), st), **kw)
-    resumed = checkpoint.load_state(str(tmp_path / checkpoint.STATE), cfg)
+    resumed = checkpoint.load_state(str(tmp_path / checkpoint.STATE), cfg, device="cpu")
     assert resumed.step == resumed.opt.count == 3
     end, rest = tnt.train_nerf(*half, cfg, n_steps=5, resume_state=resumed, **kw)
     assert first + rest == losses
@@ -100,7 +102,7 @@ def test_train_nerf_resume_is_exact(half, tmp_path):
 
 def test_checkpoint_round_trips_and_overwrites_latest(tmp_path):
     cfg = _cfg(True)
-    st = tnt.init_state(cfg, TRAIN, torch.Generator().manual_seed(0))
+    st = tnt.init_state(cfg, TRAIN, torch.Generator().manual_seed(0), device="cpu")
     for i, (m, v) in enumerate(zip(st.opt.mu, st.opt.nu)):
         m.fill_(0.5 + i)
         v.fill_(0.25 * i)
@@ -113,9 +115,9 @@ def test_checkpoint_round_trips_and_overwrites_latest(tmp_path):
     assert sorted(os.listdir(d)) == sorted([checkpoint.LATEST, checkpoint.LATEST_FINE, checkpoint.STATE])
     assert all(checkpoint.exists(os.path.join(d, name)) for name in os.listdir(d))
     assert not checkpoint.exists(os.path.join(d, "missing"))
-    tree, step = checkpoint.load(os.path.join(d, checkpoint.LATEST_FINE))
+    tree, step = checkpoint.load(os.path.join(d, checkpoint.LATEST_FINE), device="cpu")
     assert step == 9 and all(torch.equal(tree[k], v) for k, v in st.fine.state_dict().items())
-    back = checkpoint.load_state(os.path.join(d, checkpoint.STATE), cfg)
+    back = checkpoint.load_state(os.path.join(d, checkpoint.STATE), cfg, device="cpu")
     assert back.step == 9 and back.opt.count == 7
     for a, b in zip(tnt.train_params(back) + back.opt.mu + back.opt.nu, tnt.train_params(st) + st.opt.mu + st.opt.nu):
         assert torch.equal(a, b)
@@ -124,7 +126,7 @@ def test_checkpoint_round_trips_and_overwrites_latest(tmp_path):
     obj["mu"].append(torch.zeros(1))
     torch.save(obj, os.path.join(d, "bad"))
     with pytest.raises(ValueError, match="Adam mu"):
-        checkpoint.load_state(os.path.join(d, "bad"), cfg)
+        checkpoint.load_state(os.path.join(d, "bad"), cfg, device="cpu")
 
 
 def test_extract_point_cloud_matches_reference():
