@@ -1,5 +1,5 @@
-// Tensor-core tile helpers of the NeRF field kernels K1 (density.cu) and K4
-// (bundle_loss.cu): bf16 x bf16 -> f32 products with mma.sync.m16n8k16,
+// Tensor-core tile helpers of the NeRF field kernels K1 (density.cu) and
+// K4-K6 (field_tc.cuh, field_tc.cu): bf16 x bf16 -> f32 products with mma.sync.m16n8k16,
 // operands read from shared memory with ldmatrix, weights streamed from
 // device memory (L2) through a double-buffered cp.async ring.
 //

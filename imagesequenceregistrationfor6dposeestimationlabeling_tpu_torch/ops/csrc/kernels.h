@@ -26,6 +26,14 @@ void launch_nn_min(const float* query, int64_t n, const float* ref, const float*
 void launch_corr_argmax(const float* queries, int64_t n, const float* keys, int64_t m, int e,
                         int32_t* idx, float* conf, void* stream);
 
+// The NeRF field kernels' workspace (field_tc.cuh): the bf16 record widths
+// a point and a ray for an embedding padded to ep, the f32 vector-grad
+// slice width, and the weight-grad contraction's tiles.
+int64_t field_rec_width(int ep);
+int64_t field_ray_rec_width(int ep);
+int64_t field_vec_width(int n_hidden);
+int field_dw_tiles(int e, int n_hidden);
+
 // K4: NeRF bundle loss and backward for n_halves fields (bundle_loss.cu).
 // pts (H, R, P, 3), unit dirs (H, R, 3), tgt (H, R, 8).  mats[5] are bf16,
 // zero-padded to 256 columns, with a leading half axis: w1 = [W1s; W1c]
@@ -35,10 +43,6 @@ void launch_corr_argmax(const float* queries, int64_t n, const float* keys, int6
 // ray rec width) bf16, part (H, n_splits, G), G = 4 E nh + 2 nh^2.  Out:
 // vec_out (H, vec width) = b1 b2 wd bd bc1 wc2 bc2 ce_sum se_sum, mat_out
 // (H, G) = w1s w1c w2 wc1h wc1ds wc1dc, flat; w_out (H, R, P) may be null.
-int64_t bundle_loss_rec_width(int ep);
-int64_t bundle_loss_ray_rec_width(int ep);
-int64_t bundle_loss_vec_width(int n_hidden);
-int bundle_loss_dw_tiles(int e, int n_hidden);
 void launch_bundle_loss(const float* pts, const float* dirs, const float* tgt, int n_halves, int n_rays, int n_pts,
                         const float* fmat, int n_base, int ladder, int ep, const void* const* mats,
                         const float* const* vecs, int n_hidden, float beta, float hs, float hs2, float scale,
@@ -46,20 +50,21 @@ void launch_bundle_loss(const float* pts, const float* dirs, const float* tgt, i
                         float* vec_out, float* mat_out, float* w_out, void* stream);
 
 // K5: NeRF field colour forward for n_halves fields, residuals stored
-// (field_color.cu).  pts (H, R, P, 3), unit dirs (H, R, 3); weights[13] as
-// for K4.  Writes dens (H, R, P, 1) and rgb (H, R, P, 3) in f32, and the
-// bf16 residuals h1, h2, c1 (H, R, P, n_hidden) and es, ec (H, R, P, E).
+// (field_color.cu).  pts (H, R, P, 3), unit dirs (H, R, 3); mats and vecs
+// as for K4 (K5 reads w1, w2, wc1h and every vec).  Writes dens (H, R, P,
+// 1) and rgb (H, R, P, 3) in f32, and each point's es | ec | h1 | h2 | c1
+// into rec (H, R, P, rec width).  n_blocks blocks per half walk the rays.
 void launch_field_color_fwd(const float* pts, const float* dirs, int n_halves, int n_rays, int n_pts,
-                            const float* fmat, int n_base, int ladder, const float* const* weights, int n_hidden,
-                            float beta, float* dens, float* rgb, void* h1, void* h2, void* c1, void* es, void* ec,
-                            void* stream);
+                            const float* fmat, int n_base, int ladder, int ep, const void* const* mats,
+                            const float* const* vecs, int n_hidden, float beta, void* rec, float* dens, float* rgb,
+                            int n_blocks, void* stream);
 
-// K6: its backward (field_color.cu).  From K5's residuals and outputs and
-// the cotangents gdens (H, R, P, 1), grgb (H, R, P, 3): the 13 grads, flat
-// per half in K4's order, into out (H, G).  wd, wc2, w2t (W2^T) and wc1ht
-// (Wc1h^T) carry the leading half axis; work is (H, n_blocks, G) scratch.
+// K6: its backward (field_color.cu).  From K5's record and outputs and the
+// cotangents gdens (H, R, P, 1), grgb (H, R, P, 3): K6 reads mats wc1ht,
+// w2t and vecs wd, wc2; fills the record's cotangent slots and rrec; out
+// vec_out and mat_out as K4's (ce_sum, se_sum zero).  Scratch as K4's.
 void launch_field_color_bwd(const float* dirs, int n_halves, int n_rays, int n_pts, const float* fmat, int n_base,
-                            int ladder, const float* wd, const float* wc2, const float* w2t, const float* wc1ht,
-                            int n_hidden, float beta, const void* h1, const void* h2, const void* c1, const void* es,
-                            const void* ec, const float* dens, const float* rgb, const float* gdens,
-                            const float* grgb, float* work, int n_blocks, float* out, void* stream);
+                            int ladder, int ep, const void* const* mats, const float* const* vecs, int n_hidden,
+                            float beta, void* rec, const float* dens, const float* rgb, const float* gdens,
+                            const float* grgb, float* vwork, int n_blocks, void* rrec, float* part, int n_splits,
+                            float* vec_out, float* mat_out, void* stream);

@@ -18,7 +18,7 @@ import os
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f) for f in ("bindings.cpp", "density.cu", "nn_min.cu", "corr_argmax.cu",
-                                                        "bundle_loss.cu", "field_color.cu")]
+                                                        "bundle_loss.cu", "field_color.cu", "field_tc.cu")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), ".kernel_build")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 

@@ -128,7 +128,7 @@ def density_plain(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch
     return 1.0 - torch.exp(-raw)
 
 
-# The tensor-core kernels (K1, K4) take their product weights as bf16,
+# The tensor-core kernels (K1, K4-K6) take their product weights as bf16,
 # zero-padded: every product to 256 columns (the widest hidden layer a tile
 # covers), each embedding half's rows to a multiple of 16 (the mma's k).
 _TILE_N = 256
@@ -286,11 +286,24 @@ def _t(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2)
 
 
+def _density_head(h1b, weights, beta: float):
+    """(h2, raw) from the rounded h1 (nH, N, nh): h2 = softplus(h1b W2 +
+    b2), raw = softplus(h2 . wd + bd) on the unrounded h2, in f32."""
+    w2, b2, wd, bd = weights[3], weights[4], weights[5], weights[6]
+    h2 = softplus_beta(h1b @ _bf16(w2) + b2[:, None], beta)
+    return h2, softplus_beta(h2 @ wd[..., None] + bd[:, None], beta)
+
+
+def _color_head(c1b, weights):
+    """rgb = sigmoid(c1b Wc2 + bc2) from the rounded c1 (nH, N, nh)."""
+    return torch.sigmoid(c1b @ _bf16(weights[11]) + weights[12][:, None])
+
+
 def _field_forward(pts, dirs, fmat, weights, ladder: int, beta: float):
     """The plain field forward of K4 and K5, with the TPU kernels' rounding
     points: pts (nH, R, P, 3), unit dirs (nH, R, 3).  Returns its
     intermediates by name, flat over (R, P) points."""
-    w1s, w1c, b1, w2, b2, wd, bd, wc1h, wc1ds, wc1dc, bc1, wc2, bc2 = weights
+    w1s, w1c, b1, wc1h, wc1ds, wc1dc, bc1 = (weights[i] for i in (0, 1, 2, 7, 8, 9, 10))
     nH, R, P, _ = pts.shape
     N = R * P
     bf = _bf16
@@ -298,15 +311,14 @@ def _field_forward(pts, dirs, fmat, weights, ladder: int, beta: float):
     es, ec = bf(s).reshape(nH, N, -1), bf(c).reshape(nH, N, -1)
     h1 = softplus_beta(es @ bf(w1s) + ec @ bf(w1c) + b1[:, None], beta)
     h1b = bf(h1)
-    h2 = softplus_beta(h1b @ bf(w2) + b2[:, None], beta)
+    h2, raw = _density_head(h1b, weights, beta)                                    # raw (nH, N, 1)
     h2b = bf(h2)
-    raw = softplus_beta(h2 @ wd[..., None] + bd[:, None], beta)                  # (nH, N, 1), unrounded h2
     ds, dc = _embed_plain(dirs.reshape(-1, 3), fmat, ladder)
     dsb, dcb = bf(ds).reshape(nH, R, -1), bf(dc).reshape(nH, R, -1)
     dpart = dsb @ bf(wc1ds) + dcb @ bf(wc1dc) + bc1[:, None]                       # (nH, R, C), once per ray
     c1 = softplus_beta((h2b @ bf(wc1h)).reshape(nH, R, P, -1) + dpart[:, :, None], beta)
     c1b = bf(c1).reshape(nH, N, -1)
-    rgb = torch.sigmoid(c1b @ bf(wc2) + bc2[:, None])                              # (nH, N, 3)
+    rgb = _color_head(c1b, weights)                                                # (nH, N, 3)
     return SimpleNamespace(es=es, ec=ec, h1b=h1b, h2b=h2b, raw=raw, dsb=dsb, dcb=dcb, c1b=c1b, rgb=rgb)
 
 
@@ -413,16 +425,16 @@ def _kernel_weights(weights, shapes: dict, nH: int, dev) -> dict:
 
 
 def _resident_blocks(dev, R: int, nH: int) -> int:
-    """One resident wave of a grad-accumulating kernel: a block per SM (its
+    """One resident wave of a persistent tile kernel: a block per SM (its
     shared memory allows no more at full width), split over the halves."""
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     return max(1, min(R, n_sm // nH))
 
 
 def _dw_splits(dev, nH: int, n_tiles: int, n_rows: int) -> int:
-    """Slices of the points per weight-grad tile in K4's contraction
-    kernel: one resident wave of its two blocks per SM, at least 64 rows a
-    slice."""
+    """Slices of the points per weight-grad tile in the contraction kernel
+    of K4 and K6: one resident wave of its two blocks per SM, at least 64
+    rows a slice."""
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     return max(1, min(2 * n_sm // (nH * n_tiles), -(-n_rows // 64)))
 
@@ -438,10 +450,43 @@ def _named_views(flat, names, shapes: dict) -> dict:
     return out
 
 
-# K4's outputs: the matrix grads (from its contraction kernel) and the
-# vector grads then (ce_sum, se_sum) (from per-block slices), each flat
-_K4_MATS = ("w1s", "w1c", "w2", "wc1h", "wc1ds", "wc1dc")
-_K4_VECS = ("b1", "b2", "wd", "bd", "bc1", "wc2", "bc2")
+def _mma_operands(wts: dict, ep: int, names) -> list:
+    """The tensor-core products' bf16 weights by name, zero-padded to 256
+    columns: w1 = [W1s; W1c] (2 ep rows), w2, wc1h, and the backward's
+    transposes wc1ht, w2t (256 rows)."""
+    sq = lambda t: _padded((t,), (0,), _TILE_N)  # noqa: E731
+    make = dict(w1=lambda: _padded((wts["w1s"], wts["w1c"]), (0, ep), 2 * ep), w2=lambda: sq(wts["w2"]),
+                wc1h=lambda: sq(wts["wc1h"]), wc1ht=lambda: sq(_t(wts["wc1h"])), w2t=lambda: sq(_t(wts["w2"])))
+    return [make[k]() for k in names]
+
+
+# The weight grads of K4 and K6: the matrix grads (from the contraction
+# kernel) and the vector grads, then K4's (ce_sum, se_sum) (from per-block
+# slices), each flat
+_MAT_GRADS = ("w1s", "w1c", "w2", "wc1h", "wc1ds", "wc1dc")
+_VEC_GRADS = ("b1", "b2", "wd", "bd", "bc1", "wc2", "bc2")
+
+
+def _grad_buffers(ext, dev, nH: int, R: int, P: int, E: int, nh: int) -> SimpleNamespace:
+    """Scratch and outputs of a grad kernel (K4, K6): the per-block vector
+    slices and the per-ray records of a persistent grid over the rays, the
+    contraction kernel's slices, and the flat vector and matrix grads."""
+    f32, ep = torch.float32, _pad_rows(E)
+    n_blocks = _resident_blocks(dev, R, nH)
+    n_splits = _dw_splits(dev, nH, ext.field_dw_tiles(E, nh), R * P)
+    V, G = ext.field_vec_width(nh), 4 * E * nh + 2 * nh * nh
+    return SimpleNamespace(
+        n_blocks=n_blocks, n_splits=n_splits,
+        vwork=torch.empty((nH, n_blocks, V), dtype=f32, device=dev),
+        rrec=torch.empty((nH, R, ext.field_ray_rec_width(ep)), dtype=torch.bfloat16, device=dev),
+        part=torch.empty((nH, n_splits, G), dtype=f32, device=dev),
+        vec=torch.empty((nH, V), dtype=f32, device=dev), mats=torch.empty((nH, G), dtype=f32, device=dev))
+
+
+def _grads_of(buf, shapes: dict) -> tuple:
+    """The 13 grads (LOSS_BLOCKS order) as views of a grad kernel's outputs."""
+    g = {**_named_views(buf.mats, _MAT_GRADS, shapes), **_named_views(buf.vec, _VEC_GRADS, shapes)}
+    return tuple(g[k] for k in LOSS_BLOCKS)
 
 
 def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float, scale: float,
@@ -465,38 +510,24 @@ def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs
     shapes = _block_shapes(E, nh)
     wts = _kernel_weights(weights, shapes, nH, dev)
     w_out = torch.empty((nH, R, P), dtype=f32, device=dev) if want_weights else None
-    G = 4 * E * nh + 2 * nh * nh
     if not (R and P):
-        mats = torch.zeros((nH, G), dtype=f32, device=dev)
-        vec = torch.zeros((nH, 7 * nh + 6), dtype=f32, device=dev)
+        zero = lambda *shape: torch.zeros(shape, dtype=f32, device=dev)  # noqa: E731
+        buf = SimpleNamespace(mats=zero(nH, 4 * E * nh + 2 * nh * nh), vec=zero(nH, 7 * nh + 6))
     else:
-        # the products' operands as bf16, zero-padded; the backward's products
-        # read W2 and Wc1h transposed
         ep = _pad_rows(E)
-        sq = lambda t: _padded((t,), (0,), _TILE_N)  # noqa: E731
-        w1 = _padded((wts["w1s"], wts["w1c"]), (0, ep), 2 * ep)
-        mats_in = (w1, sq(wts["w2"]), sq(wts["wc1h"]), sq(_t(wts["wc1h"])), sq(_t(wts["w2"])))
         ext = cuda_build.kernels()
-        n_blocks = _resident_blocks(dev, R, nH)
-        n_splits = _dw_splits(dev, nH, ext.bundle_loss_dw_tiles(E, nh), R * P)
-        V = ext.bundle_loss_vec_width(nh)
-        vwork = torch.empty((nH, n_blocks, V), dtype=f32, device=dev)
-        rec = torch.empty((nH, R * P, ext.bundle_loss_rec_width(ep)), dtype=torch.bfloat16, device=dev)
-        rrec = torch.empty((nH, R, ext.bundle_loss_ray_rec_width(ep)), dtype=torch.bfloat16, device=dev)
-        part = torch.empty((nH, n_splits, G), dtype=f32, device=dev)
-        vec = torch.empty((nH, V), dtype=f32, device=dev)
-        mats = torch.empty((nH, G), dtype=f32, device=dev)
+        buf = _grad_buffers(ext, dev, nH, R, P, E, nh)
+        rec = torch.empty((nH, R * P, ext.field_rec_width(ep)), dtype=torch.bfloat16, device=dev)
         ext.bundle_loss(
             pts.data_ptr(), dirs.data_ptr(), tgt.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
-            *(m.data_ptr() for m in mats_in), *(wts[k].data_ptr() for k in ("b1", "b2", "wd", "bd", "wc1ds", "wc1dc",
-                                                                             "bc1", "wc2", "bc2")),
-            nh, float(beta), float(hs), float(hs * hs), float(scale), float(scale / 3.0), vwork.data_ptr(), n_blocks,
-            rec.data_ptr(), rrec.data_ptr(), part.data_ptr(), n_splits, vec.data_ptr(), mats.data_ptr(),
-            0 if w_out is None else w_out.data_ptr(), cuda_build.stream_ptr(dev),
+            *(m.data_ptr() for m in _mma_operands(wts, ep, ("w1", "w2", "wc1h", "wc1ht", "w2t"))),
+            *(wts[k].data_ptr() for k in ("b1", "b2", "wd", "bd", "wc1ds", "wc1dc", "bc1", "wc2", "bc2")),
+            nh, float(beta), float(hs), float(hs * hs), float(scale), float(scale / 3.0), buf.vwork.data_ptr(),
+            buf.n_blocks, rec.data_ptr(), buf.rrec.data_ptr(), buf.part.data_ptr(), buf.n_splits, buf.vec.data_ptr(),
+            buf.mats.data_ptr(), 0 if w_out is None else w_out.data_ptr(), cuda_build.stream_ptr(dev),
         )
         bundle_loss_cuda.launches += 1
-    g = {**_named_views(mats, _K4_MATS, shapes), **_named_views(vec, _K4_VECS, shapes)}
-    return tuple(g[k] for k in LOSS_BLOCKS), vec[:, -2:], w_out
+    return _grads_of(buf, shapes), buf.vec[:, -2:], w_out
 
 
 bundle_loss_cuda.launches = 0
@@ -566,9 +597,34 @@ def bundle_loss_grads(fields, pts, dirs, col, sil, valid, cfg, huber_scaling: fl
 # autograd.Function.  Shapes as K4's: pts (H, R, P, 3), unit view dirs
 # (H, R, 3), each weight block with a leading H.  The residuals are the
 # bf16 activations h1, h2, c1 (H, R, P, nh) and the embedding es, ec
-# (H, R, P, E), E in the kernels' (rung-major) column order.
+# (H, R, P, E), E in the kernels' (rung-major) column order.  On the card
+# they are views of K4's per-point record (``record_views``), which K6
+# fills with the cotangents and contracts.
 
 RESIDUALS = ("h1", "h2", "c1", "es", "ec")
+
+
+def _rec_width(ep: int) -> int:
+    """bf16 values of a point's record: es | ec (ep each) | h1 | h2 | c1 |
+    dh1 | dh2 | dc1 (256 each), as csrc/field_tc.cuh lays it out."""
+    return 2 * ep + 6 * _TILE_N
+
+
+def _record_kernels(ep: int):
+    """The built kernels, after checking that they lay the record out as
+    ``_rec_width`` does."""
+    ext = cuda_build.kernels()
+    if ext.field_rec_width(ep) != _rec_width(ep):
+        raise ValueError(f"field record: the kernels' width {ext.field_rec_width(ep)}, not {_rec_width(ep)}")
+    return ext
+
+
+def record_views(rec: torch.Tensor, E: int, nh: int) -> dict:
+    """The named residuals (``RESIDUALS``) of records rec (..., rec width)
+    as views: es, ec (..., E), h1, h2, c1 (..., nh)."""
+    ep = _pad_rows(E)
+    start = dict(h1=2 * ep, h2=2 * ep + _TILE_N, c1=2 * ep + 2 * _TILE_N, es=0, ec=ep)
+    return {k: rec[..., start[k]:start[k] + (E if k in ("es", "ec") else nh)] for k in RESIDUALS}
 
 
 def field_color_fwd_plain(pts, dirs, fmat, weights, ladder: int, beta: float):
@@ -581,6 +637,17 @@ def field_color_fwd_plain(pts, dirs, fmat, weights, ladder: int, beta: float):
     res = {k: v.reshape(nH, R, P, -1).to(torch.bfloat16) for k, v in res.items()}
     dens = (1.0 - torch.exp(-f.raw)).reshape(nH, R, P, 1)
     return dens, f.rgb.reshape(nH, R, P, 3), res
+
+
+def field_color_heads(res, weights, beta: float):
+    """dens (H, R, P, 1) and rgb (H, R, P, 3) of the plain K5's heads from
+    given residuals: the density head reads only h1, the colour head only
+    c1, both rounded.  Holds a kernel's heads to its own residuals."""
+    h1, c1 = res["h1"], res["c1"]
+    nH, lead = h1.shape[0], h1.shape[:-1]
+    _, raw = _density_head(h1.float().reshape(nH, -1, h1.shape[-1]), weights, beta)
+    rgb = _color_head(c1.float().reshape(nH, -1, c1.shape[-1]), weights)
+    return (1.0 - torch.exp(-raw)).reshape(lead + (1,)), rgb.reshape(lead + (3,))
 
 
 def field_color_bwd_plain(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder: int, beta: float):
@@ -602,7 +669,9 @@ def field_color_bwd_plain(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladd
 
 def field_color_fwd_cuda(pts, dirs, fmat, weights, ladder: int, beta: float):
     """K5 on the card (``csrc/field_color.cu``): the contract of
-    ``field_color_fwd_plain``.  One block per 64-point tile of a ray."""
+    ``field_color_fwd_plain``, the residuals as views of the points'
+    records, which the dict also holds under "record" for K6.  A persistent
+    grid whose blocks walk whole rays."""
     dev = pts.device
     f32 = torch.float32
     nH, R, P, _ = pts.shape
@@ -613,18 +682,21 @@ def field_color_fwd_cuda(pts, dirs, fmat, weights, ladder: int, beta: float):
     cuda_build.check(dirs, "dirs", f32, (nH, R, 3), dev)
     cuda_build.check(fmat, "fmat", f32, (3, n_base), dev)
     wts = _kernel_weights(weights, _block_shapes(E, nh), nH, dev)
+    ep = _pad_rows(E)
     dens = torch.empty((nH, R, P, 1), dtype=f32, device=dev)
     rgb = torch.empty((nH, R, P, 3), dtype=f32, device=dev)
-    res = {k: torch.empty((nH, R, P, E if k in ("es", "ec") else nh), dtype=torch.bfloat16, device=dev)
-           for k in RESIDUALS}
+    rec = torch.empty((nH, R, P, _rec_width(ep)), dtype=torch.bfloat16, device=dev)
     if R and P:
-        cuda_build.kernels().field_color_fwd(
-            pts.data_ptr(), dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder,
-            *(wts[k].data_ptr() for k in LOSS_BLOCKS), nh, float(beta), dens.data_ptr(), rgb.data_ptr(),
-            *(res[k].data_ptr() for k in RESIDUALS), cuda_build.stream_ptr(dev),
+        ext = _record_kernels(ep)
+        ext.field_color_fwd(
+            pts.data_ptr(), dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
+            *(m.data_ptr() for m in _mma_operands(wts, ep, ("w1", "w2", "wc1h"))),
+            *(wts[k].data_ptr() for k in ("b1", "b2", "wd", "bd", "wc1ds", "wc1dc", "bc1", "wc2", "bc2")),
+            nh, float(beta), rec.data_ptr(), dens.data_ptr(), rgb.data_ptr(),
+            _resident_blocks(dev, R, nH), cuda_build.stream_ptr(dev),
         )
         field_color_fwd_cuda.launches += 1
-    return dens, rgb, res
+    return dens, rgb, {**record_views(rec, E, nh), "record": rec}
 
 
 field_color_fwd_cuda.launches = 0
@@ -632,39 +704,44 @@ field_color_fwd_cuda.launches = 0
 
 def field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder: int, beta: float):
     """K6 on the card (``csrc/field_color.cu``): the contract of
-    ``field_color_bwd_plain``.  A persistent grid walks whole rays, each
-    block adding into its own f32 slice of a workspace, and a second small
-    kernel sums the slices in a fixed order: two launches give bit-identical
-    grads."""
+    ``field_color_bwd_plain``.  It reads the residuals from K5's records
+    (``res["record"]``, which it requires) and writes each point's
+    cotangents into them.  A persistent grid walks
+    whole rays, each block adding the vector grads into its own f32 slice;
+    a contraction kernel computes the matrix grads over fixed slices of the
+    points, and small kernels sum the slices in a fixed order: two launches
+    give bit-identical grads."""
+    if "record" not in res:
+        raise ValueError("field colour backward: K6 reads K5's records, res['record'] is missing")
     dev = dens.device
     f32 = torch.float32
     nH, R, P, _ = dens.shape
     n_base = fmat.shape[1]
     E = n_base * max(ladder, 1)
     nh = weights[2].shape[-1]
+    ep = _pad_rows(E)
     cuda_build.check(dirs, "dirs", f32, (nH, R, 3), dev)
     cuda_build.check(fmat, "fmat", f32, (3, n_base), dev)
     for name, t, shape in (("dens", dens, 1), ("rgb", rgb, 3), ("gdens", gdens, 1), ("grgb", grgb, 3)):
         cuda_build.check(t, name, f32, (nH, R, P, shape), dev)
-    for k in RESIDUALS:
-        cuda_build.check(res[k], k, torch.bfloat16, (nH, R, P, E if k in ("es", "ec") else nh), dev)
+    rec = res["record"]
+    cuda_build.check(rec, "record", torch.bfloat16, (nH, R, P, _rec_width(ep)), dev)
     shapes = _block_shapes(E, nh)
     wts = _kernel_weights(weights, shapes, nH, dev)
-    w2t = _t(wts["w2"]).contiguous()
-    wc1ht = _t(wts["wc1h"]).contiguous()
-    n_grad = sum(math.prod(s) for s in shapes.values())
-    n_blocks = _resident_blocks(dev, R, nH)
-    work = torch.empty((nH, n_blocks, n_grad), dtype=f32, device=dev)
-    flat = torch.zeros((nH, n_grad), dtype=f32, device=dev)
-    if R and P:
-        cuda_build.kernels().field_color_bwd(
-            dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, wts["wd"].data_ptr(), wts["wc2"].data_ptr(),
-            w2t.data_ptr(), wc1ht.data_ptr(), nh, float(beta), *(res[k].data_ptr() for k in RESIDUALS),
-            dens.data_ptr(), rgb.data_ptr(), gdens.data_ptr(), grgb.data_ptr(), work.data_ptr(), n_blocks,
-            flat.data_ptr(), cuda_build.stream_ptr(dev),
-        )
-        field_color_bwd_cuda.launches += 1
-    return tuple(_named_views(flat, LOSS_BLOCKS, shapes).values())
+    if not (R and P):
+        zero = lambda *shape: torch.zeros(shape, dtype=f32, device=dev)  # noqa: E731
+        return _grads_of(SimpleNamespace(mats=zero(nH, 4 * E * nh + 2 * nh * nh), vec=zero(nH, 7 * nh + 6)), shapes)
+    ext = _record_kernels(ep)
+    buf = _grad_buffers(ext, dev, nH, R, P, E, nh)
+    ext.field_color_bwd(
+        dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
+        *(m.data_ptr() for m in _mma_operands(wts, ep, ("wc1ht", "w2t"))), wts["wd"].data_ptr(),
+        wts["wc2"].data_ptr(), nh, float(beta), rec.data_ptr(), dens.data_ptr(), rgb.data_ptr(), gdens.data_ptr(),
+        grgb.data_ptr(), buf.vwork.data_ptr(), buf.n_blocks, buf.rrec.data_ptr(), buf.part.data_ptr(),
+        buf.n_splits, buf.vec.data_ptr(), buf.mats.data_ptr(), cuda_build.stream_ptr(dev),
+    )
+    field_color_bwd_cuda.launches += 1
+    return _grads_of(buf, shapes)
 
 
 field_color_bwd_cuda.launches = 0
@@ -697,15 +774,20 @@ class FieldColor(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pts, dirs, fmat, ladder, beta, *weights):
         dens, rgb, res = field_color_fwd_op(pts, dirs, fmat, weights, ladder, beta)
-        ctx.save_for_backward(dirs, fmat, dens, rgb, *(res[k] for k in RESIDUALS), *weights)
-        ctx.ladder, ctx.beta = ladder, beta
+        # on the card K6 reads only the records (the named residuals are
+        # views of them); the plain version's named residuals otherwise
+        if "record" in res:
+            res = {"record": res["record"]}
+        ctx.save_for_backward(dirs, fmat, dens, rgb, *res.values(), *weights)
+        ctx.res_names, ctx.ladder, ctx.beta = tuple(res), ladder, beta
         return dens, rgb
 
     @staticmethod
     def backward(ctx, gdens, grgb):
         dirs, fmat, dens, rgb, *rest = ctx.saved_tensors
-        res = dict(zip(RESIDUALS, rest[:len(RESIDUALS)]))
-        grads = field_color_bwd_op(dirs, fmat, tuple(rest[len(RESIDUALS):]), res, dens, rgb, gdens.contiguous(),
+        n = len(ctx.res_names)
+        res = dict(zip(ctx.res_names, rest[:n]))
+        grads = field_color_bwd_op(dirs, fmat, tuple(rest[n:]), res, dens, rgb, gdens.contiguous(),
                                    grgb.contiguous(), ctx.ladder, ctx.beta)
         return (None, None, None, None, None) + tuple(grads)
 

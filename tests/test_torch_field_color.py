@@ -132,6 +132,41 @@ def test_field_color_hand_backward_matches_autograd(monkeypatch):
         np.testing.assert_allclose(a.numpy() / s, w.grad.numpy() / s, atol=3e-2, err_msg=name)
 
 
+@pytest.mark.parametrize("embed,n_halves,R,P,n_hidden", CASES)
+def test_record_views_round_trip(embed, n_halves, R, P, n_hidden):
+    """K5's residuals on the card are views of per-point records (K4's
+    layout: es | ec padded to a multiple of 16, h1 | h2 | c1 | dh1 | dh2 |
+    dc1 of 256).  The plain residuals written through record_views land in
+    their slots of the record, in the reference's shapes, and leave every
+    padding column and cotangent slot zero.  field_color_heads,
+    which holds K5's heads to its own residuals on the card, gives the plain
+    forward's heads from its residuals."""
+    cfg, _, tf, pts, dirs = _case(embed, n_halves, R, P, n_hidden, seed=R * P)
+    E = 3 * cfg.n_harmonic_functions
+    ep = -(-E // 16) * 16
+    weights = tuple(torch.stack(b) for b in zip(*(tfk.loss_weights(f) for f in tf)))
+    dn = torch.from_numpy(dirs)
+    dn = dn / dn.norm(dim=-1, keepdim=True)
+    dens, rgb, res = tfk.field_color_fwd_plain(torch.from_numpy(pts), dn, torch.from_numpy(tfk.fmat_of(cfg)),
+                                               weights, tfk.ladder_of(cfg), cfg.softplus_beta)
+    # the heads read only the rounded h1 and c1: from the residuals alone, the same bits
+    heads = tfk.field_color_heads(res, weights, cfg.softplus_beta)
+    assert torch.equal(heads[0], dens) and torch.equal(heads[1], rgb)
+    rec = torch.zeros((n_halves, R, P, 2 * ep + 6 * 256), dtype=torch.bfloat16)
+    views = tfk.record_views(rec, E, n_hidden)
+    assert tuple(views) == tfk.RESIDUALS
+    for k in tfk.RESIDUALS:
+        width = E if k in ("es", "ec") else n_hidden
+        assert views[k].shape == res[k].shape == (n_halves, R, P, width), k
+        views[k].copy_(res[k])
+    filled = torch.zeros(rec.shape[-1], dtype=torch.bool)
+    slots = dict(es=(0, E), ec=(ep, E), h1=(2 * ep, n_hidden), h2=(2 * ep + 256, n_hidden),
+                 c1=(2 * ep + 512, n_hidden))
+    for k, (start, width) in slots.items():
+        assert torch.equal(rec[..., start:start + width], res[k]), k
+        filled[start:start + width] = True
+    assert not rec[..., ~filled].any()
+
 def test_field_color_dispatch_on_cpu():
     cfg, _, tf, pts, dirs = _case("direct", 1, 3, 5, 32, seed=2)
     before = (tfk.field_color_fwd_cuda.launches, tfk.field_color_bwd_cuda.launches)
@@ -145,6 +180,11 @@ def test_field_color_dispatch_on_cpu():
         tfk.field_color_fwd_op(meta, None, None, w, 0, 10.0)
     with pytest.raises(ValueError):
         tfk.field_color_bwd_op(None, None, w, None, meta[..., :1], None, None, None, 0, 10.0)
+    # K6 reads K5's records; named residuals alone are refused
+    _, _, res = tfk.field_color_fwd_plain(torch.from_numpy(pts), torch.from_numpy(dirs),
+                                          torch.from_numpy(tfk.fmat_of(cfg)), w, 0, 10.0)
+    with pytest.raises(ValueError, match="record"):
+        tfk.field_color_bwd_cuda(None, None, w, res, None, None, None, None, 0, 10.0)
 
 
 def test_color_weights_carry_grads_back_unpermuted():
