@@ -20,8 +20,7 @@ Phases (any failure raises, and the script exits non-zero):
    the bound (the least time the card could take: bytes over 3.35 TB/s or
    operations over the peak rate of their type, from this run's shapes):
    K1 on the 128^3 grid of a randomly initialised full-width field (and
-   its sin / cos embedding stage alone), K2 at
-   50,000 x 50,000, K3 with 5,625 queries x 80,000 keys at 12 dims, K4 at
+   its sin / cos embedding stage alone), K4 at
    the train step's shapes (2 halves x 1,200 rays x 64 coarse / 320 fine
    points, full-width random fields, both embeddings, synthetic targets),
    K5 / K6 at a chunk's shapes (one half, 4,096 rays and the ragged 704,
@@ -47,7 +46,13 @@ Phases (any failure raises, and the script exits non-zero):
    with each kernel's launches counted over exactly that run;
 7. checks of the outputs: shapes, finiteness, keys on the planted shell,
    and ICP from a perturbed ground-truth pose, card against the CPU plain
-   path.
+   path;
+8. K2 and K3 against their plain versions at the launch shapes the serve
+   run recorded (K2's time summed over its launches, K3's one launch),
+   each captured in a CUDA graph and timed with CUDA events over its
+   replays; K2 also at 50,000 x 50,000, K3 also with one 224^2 crop
+   (5,625 queries) and 8 crops (45,000) against a real object's 80,000
+   keys.
 
 Output: one JSON line with the kernels, then the device JSON as the last line.
 """
@@ -86,8 +91,8 @@ SOURCES = {
 # two each: the tile kernel and the weight-grad contraction kernel they share)
 DEVICE_FUNCTIONS = {
     "density": ("density_kernel",),
-    "nn_min": ("nn_min_kernel",),
-    "corr_argmax": ("corr_argmax_kernel",),
+    "nn_min": ("nn_min_kernel", "nn_min_merge_kernel"),
+    "corr_argmax": ("corr_argmax_kernel", "corr_argmax_merge_kernel"),
     "bundle_loss": ("bundle_loss_kernel", "dw_kernel"),
     "field_color_fwd": ("field_color_fwd_kernel",),
     "field_color_bwd": ("field_color_bwd_kernel", "dw_kernel"),
@@ -95,8 +100,12 @@ DEVICE_FUNCTIONS = {
 # their products must run on the tensor cores
 TENSOR_CORE_KERNELS = ("density", "bundle_loss", "field_color_fwd", "field_color_bwd")
 # one H100 SXM (NVIDIA's data sheet, dense): device memory bytes/s, bf16
-# tensor-core and f32 FLOP/s, for the bounds
+# tensor-core and f32 FLOP/s (an FMA counted as two), for the bounds; and
+# at its 1.98 GHz boost clock on 132 SMs: unfused f32 operations a second
+# (one a lane a clock, 128 lanes an SM) and special-function results (an
+# exponential: 16 an SM a clock)
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+F32_LANE_OPS, SFU_OPS = 132 * 128 * 1.98e9, 132 * 16 * 1.98e9
 # K4: loss sums (relative), EA weights (absolute), each grad block scaled by
 # its max |g|.  K5: dens and rgb (absolute), the share of bf16 residual
 # values that are not bit-equal, and each head against the plain head
@@ -110,8 +119,10 @@ HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # plain step that resamples its own fine depths: flipped bf16 roundings of
 # the coarse densities move the depths (3.58e-2 of each grad's max at init
 # on the H100, 1.27e-1 after 100 steps); the replayed depths hold the rest
-# to grad_scaled
-TOL = {"density": 2e-2, "density_share": 2e-3, "nn_min": 0.0, "corr_argmax": 1e-4, "loss_rel": 1e-3, "w_abs": 1e-3,
+# to grad_scaled.  K2: bit-identical.  K3: conf, max abs (its f64 running
+# sum reads 1.907e-06 at every timed shape on the H100; an f32 running sum
+# read 1.335e-05 at 45,000 x 80,000)
+TOL = {"density": 2e-2, "density_share": 2e-3, "nn_min": 0.0, "corr_argmax": 5e-6, "loss_rel": 1e-3, "w_abs": 1e-3,
        "grad_scaled": 3e-2, "color_abs": 2e-2, "res_share": 1e-2, "head_own": 1e-5, "fine_own_depths": 1e-1}
 # the bench's serving settings (bench.py run_pipeline, full-size branch)
 SERVE = {"n_views": 8, "image_size": 224, "grid_res": 128, "n_infer": 8, "n_points": 20000,
@@ -128,6 +139,12 @@ CHUNKED = {"n_views": 8, "image_size": 224, "n_rays": 800, "batch": 6, "seed": 1
 # K5 / K6 at a chunk's shapes, (rays, points): a full chunk and the ragged
 # last chunk of a 4,800-ray step, each of the coarse and the fine pass
 FIELD_COLOR_SHAPES = [(4096, 64), (4096, 320), (704, 64), (704, 320)]
+# K2 beside the serve's launches: two 50,000-point clouds, masked
+NN_SHAPE = (50_000, 50_000)
+# K3 (queries, keys, width) beside the serve's own launch: one 224^2 crop at
+# stride 3 (5,625 queries) and a batch of 8 crops, against a real object's
+# FeatConfig.n_points = 80,000 keys
+CORR_SHAPES = [(5_625, 80_000, 12), (45_000, 80_000, 12)]
 
 
 def log(msg: str):
@@ -156,6 +173,29 @@ def cuda_ms(fn, reps: int = 3):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def graph_ms(fn, reps: int = 20):
+    """Mean device milliseconds of the launches ``fn()`` makes: captured
+    once in a CUDA graph after one warm-up call, the graph replayed
+    ``reps`` times between CUDA events, so that no host time falls between
+    the launches; returns (ms, result of the warm-up)."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
@@ -196,6 +236,22 @@ def bound(n_bytes: float, n_ops: float, rate: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def nn_bound(n: int, m: int, masked: bool = False):
+    """K2's bound: points (and mask) read, dist and index written; 3
+    differences, 3 products, 2 sums and a compare a pair, unfused f32, one
+    lane-clock each."""
+    return bound(12 * (n + m) + 4 * m * masked + 8 * n, 9 * n * m, F32_LANE_OPS)
+
+
+def corr_bound(n: int, m: int, e: int):
+    """K3's bound: queries and keys read, index and conf written; the
+    logits' e FFMAs a pair (2 e FLOP at the f32 peak) or one exponential a
+    pair on the special-function unit, whichever takes longer."""
+    b = bound(4 * e * (n + m) + 8 * n, 2 * n * m * e, F32_FLOPS)
+    t_exp = 1e3 * n * m / SFU_OPS
+    return (t_exp, "operations") if t_exp > b[0] else b
+
+
 def field_flops(E: int, nh: int) -> dict:
     """bf16 product FLOPs a point of the field kernels, by shapes: the
     forward (trunk and colour products), the backward (the two cotangent
@@ -214,16 +270,13 @@ def result(err, ms, plain_ms, bound_pair, library_ms=None) -> dict:
             "library_ms": library_ms}
 
 
-def kernel_phases(dev, seed: int):
-    """Each kernel against its plain version at the serving path's shapes."""
+def density_phase(dev, seed: int):
+    """K1 against its plain version at the bake's shape."""
     import torch
 
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import NerfField
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel, point_kernels
-
-    results = {}
-    g = torch.Generator(device=dev).manual_seed(seed)
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel
 
     # K1: the 128^3 density grid of a randomly initialised full-width field
     # (direct embedding, 60 harmonics, 256 hidden), so that both embedding
@@ -248,7 +301,6 @@ def kernel_phases(dev, seed: int):
     same = bool(torch.equal(got, again))
     n, E, nh = pts.shape[0], w[1].shape[0], w[3].shape[0]
     b = bound(n * 16 + 4 * (2 * E * nh + nh * nh + 3 * nh + 1), n * (4 * E * nh + 2 * nh * nh), BF16_FLOPS)
-    results["density"] = result(float(err.max()), ms, plain_ms, b)
     log(f"K1 density  N={n} H=60 hidden=256, random field (density min {float(want.min()):.4f} "
         f"mean {float(want.mean()):.4f} max {float(want.max()):.4f}): max_abs_err {float(err.max()):.3e} "
         f"(tol {TOL['density']}), share > 1e-4: {frac:.2e} (tol {TOL['density_share']}); second launch "
@@ -256,44 +308,7 @@ def kernel_phases(dev, seed: int):
         f"(its sin / cos embedding alone {embed_ms:.3f} ms), plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
     if not (float(err.max()) <= TOL["density"] and frac < TOL["density_share"] and float(want.std()) > 1e-3 and same):
         raise AssertionError("K1 disagrees with its plain version")
-    del want, err, again
-
-    # K2: 50,000 x 50,000 nearest neighbour with a mask
-    q = torch.randn((50_000, 3), generator=g, device=dev)
-    r = torch.randn((50_000, 3), generator=g, device=dev)
-    mask = torch.rand((50_000,), generator=g, device=dev) > 0.1
-    ms, (d_k, i_k) = cuda_ms(lambda: point_kernels.nn_min_cuda(q, r, mask))
-    plain_ms, (d_p, i_p) = cuda_ms(lambda: point_kernels.nn_min_plain(q, r, mask), reps=1)
-    err = float((d_k - d_p).abs().max())
-    same_idx = bool(torch.equal(i_k, i_p))
-    n, m = q.shape[0], r.shape[0]
-    # 3 differences, 3 products, 2 sums and a compare a pair, f32
-    b = bound(12 * (n + m) + m + 8 * n, 9 * n * m, F32_FLOPS)
-    results["nn_min"] = result(err, ms, plain_ms, b)
-    log(f"K2 nn_min   50000 x 50000: max_abs_err {err:.3e} (tol {TOL['nn_min']}), indices equal: "
-        f"{same_idx}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
-    if not (err <= TOL["nn_min"] and same_idx):
-        raise AssertionError("K2 disagrees with its plain version")
-
-    # K3: 5,625 queries (one 224^2 crop at stride 3) x 80,000 keys, 12 dims
-    qq = torch.randn((5_625, 12), generator=g, device=dev)
-    kk = torch.randn((80_000, 12), generator=g, device=dev)
-    ms, (i_k, c_k) = cuda_ms(lambda: point_kernels.correspondence_argmax_cuda(qq, kk))
-    plain_ms, (i_p, c_p) = cuda_ms(lambda: point_kernels.correspondence_argmax_plain(qq, kk), reps=1)
-    err = float((c_k - c_p).abs().max())
-    diff = i_k != i_p
-    tie_gap = float(((qq[diff] * kk[i_k[diff].long()]).sum(-1)
-                     - (qq[diff] * kk[i_p[diff].long()]).sum(-1)).abs().max()) if bool(diff.any()) else 0.0
-    n, m, e = qq.shape[0], kk.shape[0], qq.shape[1]
-    # the logits' f32 multiply-adds (the softmax's exp per logit not counted)
-    b = bound(4 * e * (n + m) + 8 * n, 2 * n * m * e, F32_FLOPS)
-    results["corr_argmax"] = result(err, ms, plain_ms, b)
-    log(f"K3 corr     5625 x 80000 x 12: conf max_abs_err {err:.3e} (tol {TOL['corr_argmax']}), "
-        f"index mismatches {int(diff.sum())} (logit gap {tie_gap:.2e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {b[0]:.3f} ms ({b[1]})")
-    if not (err <= TOL["corr_argmax"] and float(diff.float().mean()) < 1e-3 and tie_gap < 1e-5):
-        raise AssertionError("K3 disagrees with its plain version")
-    return results
+    return result(float(err.max()), ms, plain_ms, b)
 
 
 def launch_counts():
@@ -1016,26 +1031,33 @@ def serve_path(dev, seed: int, out_dir: str, profile: str | None = None):
 
     once("cold: first call, cuDNN and allocator warm-up")
     # the measured run: launch counts cover exactly this run of the path;
-    # K2's shapes are recorded on the way through, for its bound
+    # K2's and K3's launch shapes (queries, references or keys, masked) are
+    # recorded on the way through, for their timings and bounds
     reset_launch_counts()
-    k2, k2_shapes = point_kernels.nn_min, []
+    ops = point_kernels.nn_min, point_kernels.correspondence_argmax
+    shapes = {"nn_min": [], "corr_argmax": []}
 
-    def k2_recorded(query, ref, ref_mask=None):
+    def nn_recorded(query, ref, ref_mask=None):
         if query.device.type == "cuda" and query.shape[0]:
-            k2_shapes.append((query.shape[0], ref.shape[0]))
-        return k2(query, ref, ref_mask)
+            shapes["nn_min"].append((query.shape[0], ref.shape[0], ref_mask is not None))
+        return ops[0](query, ref, ref_mask)
 
-    point_kernels.nn_min = k2_recorded
+    def corr_recorded(queries, keys):
+        if queries.device.type == "cuda" and queries.shape[0]:
+            shapes["corr_argmax"].append((queries.shape[0], keys.shape[0], keys.shape[1]))
+        return ops[1](queries, keys)
+
+    point_kernels.nn_min, point_kernels.correspondence_argmax = nn_recorded, corr_recorded
     try:
         (verts_scaled, feats, verts_real, n_real, adds, pred_R, pred_t, R_gt, t_gt, best, chamfers,
          cad, upper, lower, out, stages) = once("warm")
     finally:
-        point_kernels.nn_min = k2
+        point_kernels.nn_min, point_kernels.correspondence_argmax = ops
     counts = {k: launch_counts()[k] for k in SERVE_KERNELS}
     log("launches in the serve run: " + json.dumps(counts))
-    k2_bound = sum(bound(12 * (n + m) + m + 8 * n, 9 * n * m, F32_FLOPS)[0] for n, m in k2_shapes)
-    log(f"K2 bound over the serve run's {len(k2_shapes)} launches, summed: {k2_bound:.3f} ms (query x ref sizes "
-        f"{sorted(set(k2_shapes))})")
+    log(f"K2 launch shapes in the serve run (queries, references, masked: launches): "
+        f"{ {str(k): shapes['nn_min'].count(k) for k in sorted(set(shapes['nn_min']))} }; K3's (queries, keys, "
+        f"width): {shapes['corr_argmax']}")
     if profile:
         profile_run(lambda: once("profiled")[-1]["serve_s"], profile, "serve run")
 
@@ -1062,7 +1084,104 @@ def serve_path(dev, seed: int, out_dir: str, profile: str | None = None):
     log(f"FPS of {hits.shape[0]} points: {1e3 * (time.perf_counter() - t_fps):.1f} ms (host clock)")
     if not all(c > 0 for c in counts.values()):
         raise AssertionError(f"a kernel of the serving path never launched: {counts}")
-    return counts, stages
+    return counts, stages, shapes
+
+
+def point_kernel_phase(dev, seed: int, shapes: dict):
+    """K2 and K3 against their plain versions on random inputs: K2 at every
+    launch shape the serve run recorded (``shapes``, from ``serve_path``),
+    each bit-identical to the plain version and to a second launch, its
+    time summed over the run's launches replayed as one CUDA graph, and at
+    50,000 x 50,000; K3 at the serve's launch shape and at ``CORR_SHAPES``.
+    Returns {name: result} over the serve run's launches."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import cuda_build
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import point_kernels as pk
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nn_slots, corr_slots = pk.slots(dev.index, "nn_min"), pk.slots(dev.index, "corr_argmax")
+    log(f"blocks the card holds at once (SMs x occupancy): K2 {nn_slots}, K3 {corr_slots}; queries a block "
+        f"{cuda_build.kernels().point_queries_per_block()}")
+    results = {}
+
+    inputs, per_shape, want = {}, {}, {}
+    for n, m, masked in sorted(set(shapes["nn_min"])):
+        q = torch.randn((n, 3), generator=g, device=dev)
+        r = torch.randn((m, 3), generator=g, device=dev)
+        mask = torch.rand((m,), generator=g, device=dev) > 0.1 if masked else None
+        inputs[n, m, masked] = (q, r, mask)
+        ms, (d_k, i_k) = graph_ms(lambda: pk.nn_min_cuda(q, r, mask))
+        plain_ms, (d_p, i_p) = cuda_ms(lambda: pk.nn_min_plain(q, r, mask), reps=1)
+        d_2, i_2 = pk.nn_min_cuda(q, r, mask)
+        same = torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+        again = torch.equal(d_2, d_k) and torch.equal(i_2, i_k)
+        per_shape[n, m, masked] = (ms, plain_ms)
+        want[n, m, masked] = (d_p, i_p)
+        b = nn_bound(n, m, masked)
+        log(f"K2 nn_min {n} x {m}{' masked' if masked else ''} ({pk.launch_plan(n, m, dev, 'nn_min')[0]} splits): "
+            f"bit-identical to plain {same}, second launch {again}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {b[0]:.4f} ms ({b[1]})")
+        if not (same and again):
+            raise AssertionError(f"K2 disagrees with its plain version or itself at {n} x {m}")
+    launches = shapes["nn_min"]
+    ms, outs = graph_ms(lambda: [pk.nn_min_cuda(*inputs[s]) for s in launches])
+    plain_ms = sum(per_shape[s][1] for s in launches)
+    bounds = [nn_bound(*s) for s in launches]
+    b = (sum(t for t, _ in bounds), "operations" if all(by == "operations" for _, by in bounds) else "bytes")
+    # the graph's launches against the plain version at each launch's shape
+    err = max(float((d - want[s][0]).abs().max()) for s, (d, _) in zip(launches, outs))
+    idx_same = all(torch.equal(i, want[s][1]) for s, (_, i) in zip(launches, outs))
+    results["nn_min"] = result(err, ms, plain_ms, b)
+    log(f"K2 over the serve run's {len(launches)} launches (one CUDA graph): dist max_abs_err {err:.3e} (tol "
+        f"{TOL['nn_min']}), indices equal {idx_same}; kernel {ms:.3f} ms (per-shape times summed "
+        f"{sum(per_shape[s][0] for s in launches):.3f}), plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms summed ({b[1]})")
+    if not (err <= TOL["nn_min"] and idx_same):
+        raise AssertionError("K2 disagrees with its plain version over the serve run's launches")
+    del inputs, want, outs
+
+    n, m = NN_SHAPE
+    q = torch.randn((n, 3), generator=g, device=dev)
+    r = torch.randn((m, 3), generator=g, device=dev)
+    mask = torch.rand((m,), generator=g, device=dev) > 0.1
+    ms, (d_k, i_k) = cuda_ms(lambda: pk.nn_min_cuda(q, r, mask), reps=10)
+    plain_ms, (d_p, i_p) = cuda_ms(lambda: pk.nn_min_plain(q, r, mask), reps=1)
+    d_2, i_2 = pk.nn_min_cuda(q, r, mask)
+    same = torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    again = torch.equal(d_2, d_k) and torch.equal(i_2, i_k)
+    b = nn_bound(n, m, True)
+    log(f"K2 nn_min {n} x {m} masked ({pk.launch_plan(n, m, dev, 'nn_min')[0]} splits): bit-identical to plain "
+        f"{same}, second launch {again}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
+    if not (same and again):
+        raise AssertionError(f"K2 disagrees with its plain version or itself at {n} x {m}")
+    del q, r, mask, d_k, i_k, d_p, i_p, d_2, i_2
+
+    corr = {}
+    for n, m, e in sorted(set(shapes["corr_argmax"])) + CORR_SHAPES:
+        q = torch.randn((n, e), generator=g, device=dev)
+        k = torch.randn((m, e), generator=g, device=dev)
+        ms, (i_k, c_k) = graph_ms(lambda: pk.correspondence_argmax_cuda(q, k))
+        plain_ms, (i_p, c_p) = cuda_ms(lambda: pk.correspondence_argmax_plain(q, k), reps=1)
+        i_2, c_2 = pk.correspondence_argmax_cuda(q, k)
+        err = float((c_k - c_p).abs().max())
+        diff = i_k != i_p
+        tie_gap = float(((q[diff] * k[i_k[diff].long()]).sum(-1)
+                         - (q[diff] * k[i_p[diff].long()]).sum(-1)).abs().max()) if bool(diff.any()) else 0.0
+        again = torch.equal(i_2, i_k) and torch.equal(c_2, c_k)
+        b = corr_bound(n, m, e)
+        corr[n, m, e] = (err, ms, plain_ms, b)
+        log(f"K3 corr {n} x {m} x {e} ({pk.launch_plan(n, m, dev, 'corr_argmax')[0]} splits): conf max_abs_err "
+            f"{err:.3e} (tol {TOL['corr_argmax']}), index mismatches {int(diff.sum())} (logit gap {tie_gap:.2e}), "
+            f"second launch bit-identical {again}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
+            f"({b[1]})")
+        if not (err <= TOL["corr_argmax"] and float(diff.float().mean()) < 1e-3 and tie_gap < 1e-5 and again):
+            raise AssertionError(f"K3 disagrees with its plain version or itself at {n} x {m} x {e}")
+        del q, k, i_k, c_k, i_p, c_p, i_2, c_2
+    launches = shapes["corr_argmax"]
+    b = (sum(corr[s][3][0] for s in launches), corr[launches[0]][3][1])
+    results["corr_argmax"] = result(max(corr[s][0] for s in launches), sum(corr[s][1] for s in launches),
+                                    sum(corr[s][2] for s in launches), b)
+    return results
 
 
 def main(argv=None) -> int:
@@ -1101,16 +1220,16 @@ def main(argv=None) -> int:
     log(f"built K1-K6 for sm_90a in {time.perf_counter() - t0:.1f} s ({cuda_build.BUILD_DIR})")
     sass_phase(ext.__file__)
 
-    phases = kernel_phases(dev, args.seed)
-    phases["bundle_loss"] = bundle_loss_phase(dev, args.seed)
+    phases = {"density": density_phase(dev, args.seed), "bundle_loss": bundle_loss_phase(dev, args.seed)}
     phases.update(field_color_phase(dev, args.seed))
     train_counts, _ = train_path(dev, args.seed, args.nerf_steps, args.profile)
     chunked_counts, _ = chunked_train_path(dev, args.seed, args.chunk_steps, args.profile)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        counts, _ = serve_path(dev, args.seed, out_dir, args.profile)
+        counts, _, shapes = serve_path(dev, args.seed, out_dir, args.profile)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    phases.update(point_kernel_phase(dev, args.seed, shapes))
     counts["bundle_loss"] = train_counts["bundle_loss"]
     counts.update({k: chunked_counts[k] for k in ("field_color_fwd", "field_color_bwd")})
     if "jax" in sys.modules:

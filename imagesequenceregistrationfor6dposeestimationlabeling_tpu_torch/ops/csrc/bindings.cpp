@@ -22,15 +22,15 @@ void density(uintptr_t pts, int64_t n, uintptr_t fmat, int n_base, int ladder, i
                  ptr<const float>(bd), n_hidden, beta, embed_only, ptr<float>(out), ptr<void>(stream));
 }
 
-void nn_min(uintptr_t query, int64_t n, uintptr_t ref, uintptr_t mask, int64_t m, uintptr_t dist,
-            uintptr_t idx, uintptr_t stream) {
-  launch_nn_min(ptr<const float>(query), n, ptr<const float>(ref), ptr<const float>(mask), m,
-                ptr<float>(dist), ptr<int32_t>(idx), ptr<void>(stream));
+void nn_min(uintptr_t query, int64_t n, uintptr_t ref, uintptr_t mask, int64_t m, int n_splits, int64_t split_len,
+            uintptr_t work, uintptr_t dist, uintptr_t idx, uintptr_t stream) {
+  launch_nn_min(ptr<const float>(query), n, ptr<const float>(ref), ptr<const float>(mask), m, n_splits, split_len,
+                ptr<void>(work), ptr<float>(dist), ptr<int32_t>(idx), ptr<void>(stream));
 }
 
-void corr_argmax(uintptr_t queries, int64_t n, uintptr_t keys, int64_t m, int e, uintptr_t idx,
-                 uintptr_t conf, uintptr_t stream) {
-  launch_corr_argmax(ptr<const float>(queries), n, ptr<const float>(keys), m, e,
+void corr_argmax(uintptr_t queries, int64_t n, uintptr_t keys, int64_t m, int e, int n_splits, int64_t split_len,
+                 uintptr_t work, uintptr_t idx, uintptr_t conf, uintptr_t stream) {
+  launch_corr_argmax(ptr<const float>(queries), n, ptr<const float>(keys), m, e, n_splits, split_len, ptr<void>(work),
                      ptr<int32_t>(idx), ptr<float>(conf), ptr<void>(stream));
 }
 
@@ -90,7 +90,10 @@ void field_color_bwd(uintptr_t dirs, int n_halves, int n_rays, int n_pts, uintpt
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("density", &density);
   mod.def("nn_min", &nn_min);
+  mod.def("nn_min_blocks_per_sm", &nn_min_blocks_per_sm);
   mod.def("corr_argmax", &corr_argmax);
+  mod.def("corr_argmax_blocks_per_sm", &corr_argmax_blocks_per_sm);
+  mod.def("point_queries_per_block", &point_queries_per_block);
   mod.def("bundle_loss", &bundle_loss);
   mod.def("field_rec_width", &field_rec_width);
   mod.def("field_ray_rec_width", &field_ray_rec_width);

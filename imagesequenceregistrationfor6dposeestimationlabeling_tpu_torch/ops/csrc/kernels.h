@@ -17,14 +17,24 @@ void launch_density(const float* pts, int64_t n, const float* fmat, int n_base, 
                     float beta, int embed_only, float* out, void* stream);
 
 // K2: nearest neighbour (nn_min.cu).  For query (N, 3): dist (N,) and the
-// lowest index (N,) of the closest ref (M, 3) point with mask > 0.
-void launch_nn_min(const float* query, int64_t n, const float* ref, const float* mask, int64_t m,
-                   float* dist, int32_t* idx, void* stream);
+// lowest index (N,) of the closest ref (M, 3) point with mask > 0 (mask
+// may be null: every point counts).  The references go in n_splits
+// consecutive splits of split_len points, one block row each; with more
+// than one, work holds the partials (n_splits * N * 8 bytes) and a merge
+// pass combines them.
+void launch_nn_min(const float* query, int64_t n, const float* ref, const float* mask, int64_t m, int n_splits,
+                   int64_t split_len, void* work, float* dist, int32_t* idx, void* stream);
+// blocks of the K2 kernel one SM of the current device holds at once
+int nn_min_blocks_per_sm();
 
 // K3: dense correspondence (corr_argmax.cu).  For queries (N, E): argmax
-// over keys (M, E) of q . k and max_logit - logsumexp.
-void launch_corr_argmax(const float* queries, int64_t n, const float* keys, int64_t m, int e,
-                        int32_t* idx, float* conf, void* stream);
+// over keys (M, E) of q . k and max_logit - logsumexp.  Keys split as K2's
+// references (work: n_splits * N * 16 bytes).
+void launch_corr_argmax(const float* queries, int64_t n, const float* keys, int64_t m, int e, int n_splits,
+                        int64_t split_len, void* work, int32_t* idx, float* conf, void* stream);
+int corr_argmax_blocks_per_sm();
+// queries one block of K2 or K3 covers (the split planner's query tile)
+int point_queries_per_block();
 
 // The NeRF field kernels' workspace (field_tc.cuh): the bf16 record widths
 // a point and a ray for an embedding padded to ep, the f32 vector-grad

@@ -24,6 +24,13 @@ def cuda():
     return torch.device("cuda")
 
 
+def _force_splits(monkeypatch, n_splits):
+    """K2 / K3 launch ``n_splits`` reference / key splits (None: as planned);
+    splits past the end of M are empty."""
+    if n_splits is not None:
+        monkeypatch.setattr(point_kernels, "launch_plan", lambda n, m, dev, kernel: (n_splits, -(-m // n_splits)))
+
+
 @pytest.mark.parametrize("cfg,n", [
     (FieldConfig(act_dtype="bfloat16"), 128 ** 3),
     (FieldConfig(act_dtype="bfloat16", embed_method="grouped"), 100_003),
@@ -58,8 +65,15 @@ def test_density_kernel_matches_plain(cuda, cfg, n):
     assert torch.equal(got, field_kernel.density_cuda(pts, w, ladder, cfg.softplus_beta))
 
 
-@pytest.mark.parametrize("n,m", [(50_000, 50_000), (20_000, 9_000), (1, 1)])
-def test_nn_kernel_matches_plain(cuda, n, m):
+@pytest.mark.parametrize("n,m,n_splits", [
+    (50_000, 50_000, None), (20_000, 9_000, None), (1, 1, None),
+    (1, 50_000, None),     # one query tile: the planner's largest split count
+    (913, 20_000, None),   # the serve's shapes: a few hundred queries, tens of thousands of references
+    (1_000, 5, 8),         # more splits than references: empty splits merge as (1e30, 0)
+    (3_000, 50_001, 7),    # M not a multiple of the split count
+])
+def test_nn_kernel_matches_plain(cuda, monkeypatch, n, m, n_splits):
+    _force_splits(monkeypatch, n_splits)
     g = torch.Generator(device=cuda).manual_seed(n + m)
     q = torch.randn((n, 3), generator=g, device=cuda)
     r = torch.randn((m, 3), generator=g, device=cuda)
@@ -68,17 +82,43 @@ def test_nn_kernel_matches_plain(cuda, n, m):
     d_k, i_k = point_kernels.nn_min_cuda(q, r, mask)
     d_p, i_p = point_kernels.nn_min_plain(q, r, mask)
     torch.cuda.synchronize()
-    # the same unfused f32 operations in the same order: bit-identical
+    # the same unfused f32 operations in the same order, and a merge whose
+    # minimum and lowest-index rule do not depend on the split: bit-identical
     assert torch.equal(i_k, i_p)
     assert torch.equal(d_k, d_p)
+    d_2, i_2 = point_kernels.nn_min_cuda(q, r, mask)
+    assert torch.equal(d_2, d_k) and torch.equal(i_2, i_k)
 
 
-@pytest.mark.parametrize("n,m", [(5_625, 80_000), (5_625 * 8, 20_480), (3, 5)])
-def test_corr_kernel_matches_plain(cuda, n, m):
-    g = torch.Generator(device=cuda).manual_seed(n)
-    q = torch.randn((n, 12), generator=g, device=cuda)
-    k = torch.randn((m, 12), generator=g, device=cuda)
-    i_k, c_k = point_kernels.correspondence_argmax_cuda(q, k)
+@pytest.mark.parametrize("n_splits", [None, 2, 5])
+def test_nn_kernel_edge_cases(cuda, monkeypatch, n_splits):
+    _force_splits(monkeypatch, n_splits)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    n, m = 913, 20_000
+    q = torch.randn((n, 3), generator=g, device=cuda)
+    r = torch.randn((m, 3), generator=g, device=cuda)
+    # every reference masked: dist sqrt(1e30), index 0, as the plain version
+    none = torch.zeros((m,), dtype=torch.bool, device=cuda)
+    d_k, i_k = point_kernels.nn_min_cuda(q, r, none)
+    d_p, i_p = point_kernels.nn_min_plain(q, r, none)
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p) and not bool(i_k.any())
+    # exact duplicates on both sides of a split boundary (and at the ends of
+    # a shared tile), the query on them: the lowest index wins
+    splits, length = point_kernels.launch_plan(n, m, q.device, "nn_min")
+    assert splits > 1
+    # the last: a shared tile's end inside split 1 where a split is longer than a tile
+    bounds = (length, length * (splits - 1), length + 256)
+    for j, b in enumerate(bounds):
+        r[b] = r[b - 1]
+        q[j] = r[b]
+    d_k, i_k = point_kernels.nn_min_cuda(q, r)
+    d_p, i_p = point_kernels.nn_min_plain(q, r)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    assert i_k[:3].tolist() == [b - 1 for b in bounds]
+
+
+def _corr_matches(q, k, i_k, c_k):
     i_p, c_p = point_kernels.correspondence_argmax_plain(q, k)
     torch.cuda.synchronize()
     # f32 dots in another order: an index may differ only between keys whose
@@ -88,7 +128,49 @@ def test_corr_kernel_matches_plain(cuda, n, m):
     lp = (q[diff] * k[i_p[diff].long()]).sum(-1)
     assert float((lk - lp).abs().max()) < 1e-5 if bool(diff.any()) else True
     assert float(diff.float().mean()) < 1e-3
-    assert float((c_k - c_p).abs().max()) < 1e-4
+    # the kernel's f64 running sum reads 1.907e-06 at every shape here; an
+    # f32 one drifted to 1.335e-05 at 45,000 x 80,000
+    assert float((c_k - c_p).abs().max()) < 5e-6
+
+
+@pytest.mark.parametrize("n,m,n_splits", [
+    (5_625, 80_000, None), (5_625 * 8, 20_480, None), (3, 5, None),
+    (5_625 * 8, 80_000, None),  # 8 crops against a real object's 80,000 keys
+    (5_625 * 8, 1_024, None),   # the serve's launch: 8 crops against the padded baked keys
+    (100, 5, 8),                # more splits than keys
+])
+def test_corr_kernel_matches_plain(cuda, monkeypatch, n, m, n_splits):
+    _force_splits(monkeypatch, n_splits)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    q = torch.randn((n, 12), generator=g, device=cuda)
+    k = torch.randn((m, 12), generator=g, device=cuda)
+    i_k, c_k = point_kernels.correspondence_argmax_cuda(q, k)
+    _corr_matches(q, k, i_k, c_k)
+    # each logit's fmaf chain and the merge order are fixed: bit-identical
+    i_2, c_2 = point_kernels.correspondence_argmax_cuda(q, k)
+    assert torch.equal(i_2, i_k) and torch.equal(c_2, c_k)
+
+
+@pytest.mark.parametrize("e", [12, 5])
+def test_corr_kernel_first_occurrence_across_splits(cuda, e):
+    g = torch.Generator(device=cuda).manual_seed(e)
+    n, m = 2_000, 30_000
+    q = torch.randn((n, e), generator=g, device=cuda)
+    k = torch.randn((m, e), generator=g, device=cuda)
+    splits, length = point_kernels.launch_plan(n, m, q.device, "corr_argmax")
+    assert splits > 1
+    # duplicated keys on both sides of split boundaries, each pair the
+    # argmax of a query with an exact logit (3 e, > 6 sigma above the random
+    # keys'; the other pair's logit is at most 3): the first occurrence wins
+    bounds = (length, length * (splits - 1))
+    for j, b in enumerate(bounds):
+        pattern = torch.ones((e,), device=cuda)
+        pattern[(e + 1) // 2:] = 1.0 - 2.0 * j
+        k[b - 1] = k[b] = 3.0 * pattern
+        q[j] = pattern
+    i_k, c_k = point_kernels.correspondence_argmax_cuda(q, k)
+    assert i_k[:2].tolist() == [b - 1 for b in bounds]
+    _corr_matches(q, k, i_k, c_k)
 
 
 def _bundle_inputs(cfg, n_halves, R, P, dev, seed):

@@ -3,7 +3,8 @@
 on one CUDA device, for several training seeds: each run's mean loss of
 every 10 steps and its fine field's grid max density at the end.  Tells a
 systematic difference between the kernels and their plain versions from
-the spread of the trajectories themselves.
+the spread of the trajectories themselves: the count of seeds where each
+side ends lower, and a two-sided sign test.
 
     python3 tools/chunked_trajectories.py [--steps 100] [--seeds 1 2 3 4]
 
@@ -64,6 +65,23 @@ def main():
             last[name].append(windows[-1])
     for name, v in last.items():
         print(f"{name}: mean loss of the last 10 steps by seed {v}, mean {float(np.mean(v)):.3f}", flush=True)
+    plain_lower, kernels_lower, p = sign_test(last["plain"], last["K5 / K6"])
+    print(f"sign test over {len(args.seeds)} seeds: plain lower at {plain_lower}, kernels lower at {kernels_lower} "
+          f"(ties {len(args.seeds) - plain_lower - kernels_lower}); two-sided p = {p:.4f}", flush=True)
+
+
+def sign_test(a, b):
+    """(count a < b, count b < a, two-sided exact binomial p with ties
+    dropped) for paired samples ``a``, ``b``."""
+    import math
+
+    lo = sum(x < y for x, y in zip(a, b))
+    hi = sum(y < x for x, y in zip(a, b))
+    n = lo + hi
+    if n == 0:
+        return lo, hi, 1.0
+    tail = sum(math.comb(n, i) for i in range(min(lo, hi) + 1)) / 2 ** n
+    return lo, hi, min(1.0, 2 * tail)
 
 
 if __name__ == "__main__":

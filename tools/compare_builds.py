@@ -2,15 +2,17 @@
 """Compare two checkouts of the PyTorch / CUDA port on one CUDA device: the
 ptxas resource use of every kernel each tree builds (registers, stack
 frame, spill stores and loads, from ``-Xptxas=-v``), then K4 (the
-bundle-loss kernel) at the NeRF train step's shapes, its outputs bit for
-bit and its times, run in the order A, B, B, A.
+bundle-loss kernel) at the NeRF train step's shapes, K2 (nearest
+neighbour) and K3 (dense correspondence) at the shapes ``chip_smoke.py``
+times, their outputs bit for bit and their times, run in the order A, B,
+B, A.
 
     python3 tools/compare_builds.py OLD_ROOT NEW_ROOT
 
 Each root is a checkout's top directory, for example an unpacked
 ``git archive`` of another commit.  Each tree builds its own kernels into
-its own ``.kernel_build``.  Fails if a tree's K4 gives other bits on its
-second run; prints whether the two trees' outputs are bit-identical.
+its own ``.kernel_build``.  Fails if a tree's kernel gives other bits on
+its second run; prints whether the two trees' outputs are bit-identical.
 """
 
 from __future__ import annotations
@@ -27,6 +29,11 @@ import tempfile
 PKG = "imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch"
 # (embedding, rays, points) of K4's launches in a train step of both halves
 K4_SHAPES = [("direct", 1200, 64), ("direct", 1200, 320), ("grouped", 1200, 64), ("grouped", 1200, 320)]
+# K2 (queries, references): the serve's ICP launch and 50,000 x 50,000,
+# masked; K3 (queries, keys), E = 12: the serve's launch, one crop and 8
+# crops against 80,000 keys
+K2_SHAPES = [(913, 14_018), (50_000, 50_000)]
+K3_SHAPES = [(45_000, 1_024), (5_625, 80_000), (45_000, 80_000)]
 
 
 def _cuda_build(root: str):
@@ -83,15 +90,36 @@ def ptxas_usage(root: str) -> dict:
     return usage
 
 
-def k4_run(root: str) -> dict:
-    """K4 of the tree at ``root`` at ``K4_SHAPES`` on random full-width fields
-    (density bias 0) from fixed seeds: {shape: {ms, digest of every output}}."""
+def _timed(fn, reps: int = 10) -> dict:
+    """{ms: mean of ``reps`` calls of ``fn`` after one, timed with CUDA
+    events; digest: sha256 of the first call's output tensors}."""
+    import torch
+
+    outs = fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for t in outs:
+        digest.update(t.cpu().numpy().tobytes())
+    return {"ms": start.elapsed_time(end) / reps, "digest": digest.hexdigest()}
+
+
+def tree_run(root: str) -> dict:
+    """The tree at ``root``: K4 at ``K4_SHAPES`` on random full-width fields
+    (density bias 0), K2 at ``K2_SHAPES`` and K3 at ``K3_SHAPES`` on random
+    points and features, from fixed seeds: {shape: {ms, digest of every
+    output}}."""
     sys.path.insert(0, root)
     import torch
 
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import NerfField
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import point_kernels as pk
 
     dev = torch.device("cuda", 0)
     out = {}
@@ -115,23 +143,27 @@ def k4_run(root: str) -> dict:
         weights = tuple(torch.stack(b) for b in zip(*(fk.loss_weights(f) for f in fields)))
         fm = torch.from_numpy(fk.fmat_of(cfg)).to(dev)
         args = (pts, dn, tgt, fm, weights, fk.ladder_of(cfg), cfg.softplus_beta, 0.1, 500.0 / R, True)
-        grads, loss, w = fk.bundle_loss_cuda(*args)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(10):
-            fk.bundle_loss_cuda(*args)
-        end.record()
-        torch.cuda.synchronize()
-        digest = hashlib.sha256()
-        for t in (*grads, loss, w):
-            digest.update(t.cpu().numpy().tobytes())
-        out[f"{embed} 2 x {R} x {P}"] = {"ms": start.elapsed_time(end) / 10, "digest": digest.hexdigest()}
+
+        def k4():
+            grads, loss, w = fk.bundle_loss_cuda(*args)
+            return (*grads, loss, w)
+
+        out[f"K4 {embed} 2 x {R} x {P}"] = _timed(k4)
+    for n, m in K2_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(n + m)
+        q, r = torch.randn((n, 3), generator=g, device=dev), torch.randn((m, 3), generator=g, device=dev)
+        mask = torch.rand((m,), generator=g, device=dev) > 0.1
+        out[f"K2 {n} x {m}"] = _timed(lambda: pk.nn_min_cuda(q, r, mask), reps=20)
+    for n, m in K3_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(n + m)
+        q, k = torch.randn((n, 12), generator=g, device=dev), torch.randn((m, 12), generator=g, device=dev)
+        out[f"K3 {n} x {m} x 12"] = _timed(lambda: pk.correspondence_argmax_cuda(q, k), reps=20)
     return out
 
 
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--k4":
-        print(json.dumps(k4_run(os.path.abspath(sys.argv[2]))))
+    if len(sys.argv) == 3 and sys.argv[1] == "--run":
+        print(json.dumps(tree_run(os.path.abspath(sys.argv[2]))))
         return
     if len(sys.argv) != 3:
         sys.exit(__doc__)
@@ -140,21 +172,21 @@ def main():
         print(f"ptxas resource use, {label} ({root}): {json.dumps(ptxas_usage(root))}", flush=True)
     runs = []
     for label in ("A", "B", "B", "A"):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--k4", roots[label]],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--run", roots[label]],
                               capture_output=True, text=True)
         if proc.returncode:
-            raise RuntimeError(f"K4 run of {label} failed:\n{proc.stderr[-4000:]}")
+            raise RuntimeError(f"kernel run of {label} failed:\n{proc.stderr[-4000:]}")
         runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
     same = True
     for shape in runs[0][1]:
         times = ", ".join(f"{label} {r[shape]['ms']:.3f}" for label, r in runs)
         equal = runs[0][1][shape]["digest"] == runs[1][1][shape]["digest"]
-        print(f"K4 {shape}: ms {times}; A and B bit-identical: {equal}", flush=True)
+        print(f"{shape}: ms {times}; A and B bit-identical: {equal}", flush=True)
         for a, b in ((0, 3), (1, 2)):
             if runs[a][1][shape]["digest"] != runs[b][1][shape]["digest"]:
                 same = False
     if not same:
-        sys.exit("a tree's K4 gave other bits on its second run")
+        sys.exit("a tree's kernel gave other bits on its second run")
 
 
 if __name__ == "__main__":
