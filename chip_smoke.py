@@ -6,7 +6,7 @@ large ray batch (chunked steps) and drives the serving path at bench
 settings on one GPU.
 
     python3 chip_smoke.py                    # from the repository root, one CUDA device
-    python3 chip_smoke.py --nerf-steps 800   # the bench's full NeRF schedule
+    python3 chip_smoke.py --nerf-steps 200   # a shorter NeRF phase (the pipeline then trains its own 800)
     python3 chip_smoke.py --chunk-steps 200  # the reference's full large-batch schedule
 
 Phases (any failure raises, and the script exits non-zero):
@@ -27,7 +27,7 @@ Phases (any failure raises, and the script exits non-zero):
    x 64 / 320 points, both embeddings);
 4. NeRF training of both halves (``train_nerf_fused``) at the bench's
    settings: 8 views at 224 px, full-width bf16 field, 400 rays per image,
-   batch 3, warmup 266, seed 1, ``--nerf-steps`` steps (default 200), with
+   batch 3, warmup 266, seed 1, ``--nerf-steps`` steps (default 800), with
    K4's launches counted over exactly that run; then one step with K4
    against one with its plain version from the same state and draws;
 5. chunked NeRF training of one half (``train_nerf``) at the reference's
@@ -52,7 +52,17 @@ Phases (any failure raises, and the script exits non-zero):
    each captured in a CUDA graph and timed with CUDA events over its
    replays; K2 also at 50,000 x 50,000, K3 also with one 224^2 crop
    (5,625 queries) and 8 crops (45,000) against a real object's 80,000
-   keys.
+   keys;
+9. the bench's chain after NeRF training (``PIPELINE``), on phase 4's
+   trained fields: ``generate_cors`` of each half (CorsConfig(density_threshold
+   =0.2), 128^3 grid, its sub-stages' times), its hits checked on the mesh
+   and each back hit behind its front hit, ``build_negatives`` (20 loops),
+   ``train_pose`` (200 steps, the round-5 augmentation, the loss must
+   fall), and the serving stages on the trained feature head and CNN, each
+   stage's wall time and launches (every kernel of a stage must launch);
+   then K1 and K2 against their plain versions at the cors stage's shapes,
+   FPS in CUDA graphs against its launch sequence, and ``generate_cors``
+   through K1 / K2 against the same call through their plain versions.
 
 Output: one JSON line with the kernels, then the device JSON as the last line.
 """
@@ -145,6 +155,18 @@ NN_SHAPE = (50_000, 50_000)
 # stride 3 (5,625 queries) and a batch of 8 crops, against a real object's
 # FeatConfig.n_points = 80,000 keys
 CORR_SHAPES = [(5_625, 80_000, 12), (45_000, 80_000, 12)]
+
+
+# the bench's chain after NeRF training (bench.py run_pipeline, full-size
+# branch): generate_cors with CorsConfig(density_threshold=0.2) for each
+# half, 20 loops of negatives at threshold 0.2 (seed 0), 200 descriptor
+# steps (seed 1, warmup 100) with the round-5 augmentation (jitter x 2,
+# distractors p 0.5: the batch's rolled views), then the serving stages on
+# the trained field and CNN; NeRF training is TRAIN's at 800 steps
+PIPELINE = {"nerf_steps": 800, "pose_steps": 200, "neg_loops": 20, "neg_threshold": 0.2, "neg_seed": 0,
+            "pose_seed": 1, "cors": {"density_threshold": 0.2}, "pose": {"warmup_steps": 100},
+            "aug": {"crop_res": 224, "min_mask_sum": 10.0, "p_distractor": 0.5, "scale_jitter": 0.15,
+                    "trans_frac": 0.2}}
 
 
 def log(msg: str):
@@ -590,7 +612,7 @@ def train_path(dev, seed: int, n_steps: int, profile: str | None = None):
     kernel_step_vs_plain_step(states, data, dev, seed + 100, render, train, f"step-{n_steps}", whole_step=False)
     if profile:
         profile_run(lambda: run(20)[1], profile + ".train.txt", "20 training steps")
-    return counts, 1e3 * wall_s / n_steps
+    return counts, wall_s, states
 
 
 def chunk_rays(dev, R: int, P: int, seed: int):
@@ -937,6 +959,80 @@ def icp_check(dev, upper, lower, cad, R_gt, t_gt, diameter: float, scale: float)
         raise AssertionError("ICP on the card disagrees with the CPU plain path")
 
 
+SERVE_OUTPUTS = ("verts_scaled", "feats", "verts_real", "n_real", "adds", "pred_R", "pred_t", "R_gt", "t_gt", "best",
+                 "chamfers", "cad", "upper", "lower", "out", "stages")
+
+
+def serve_stages(dev, seed: int, field, cnn, scene0, scene1, out_dir: str, tag: str) -> dict:
+    """One run of the bench's serving stages (bake -> inference -> ADD ->
+    verification -> ICP) with ``field`` and ``cnn``: scene0's keys baked,
+    scene1's first ``SERVE["n_infer"]`` images posed.  Returns the outputs
+    named in ``SERVE_OUTPUTS``, "stages" the wall seconds of each stage."""
+    import numpy as np
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FeatConfig, InferenceConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import normalize_image
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import metrics
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import (
+        artifacts,
+        gen_feat,
+        inference,
+        registration,
+    )
+
+    img, grid, n_inf = SERVE["image_size"], SERVE["grid_res"], SERVE["n_infer"]
+    diam = scene0.diameter
+    scale = diam / 1.8
+    t_start = time.perf_counter()
+    exp0 = os.path.join(out_dir, "0_synth_obj_1")
+    verts_scaled, feats, normals = gen_feat.gen_feat(
+        field, scene0.R_bop, scene0.t_bop, scene0.K, scene0.sils, diam, exp0, 1,
+        FeatConfig(mc_threshold=0.05, n_points=SERVE["n_points"], sample_loops=SERVE["sample_loops"]),
+        image_size=img, grid_res=grid,
+        threshold=0.2, generator=torch.Generator(device=dev).manual_seed(seed),
+    )
+    sync(dev)
+    t_bake = time.perf_counter()
+
+    imgs_n = normalize_image(scene1.images[:n_inf])
+    Ks_fixed = scene1.K[:n_inf].clone()
+    Ks_fixed[:, 0:2, 2] -= 0.5  # pixel-center convention, as the bench
+    pred_R, pred_t = inference.run_sequence(cnn, imgs_n, scene1.sils[:n_inf], Ks_fixed, verts_scaled, feats,
+                                            cfg=InferenceConfig(), seed=seed, batch=n_inf, device=dev)
+    # metrics use the true (pre-pad) keys, as the bench does
+    verts_real, _, _, n_real = artifacts.load_keys(artifacts.pose_dir(exp0, 1))
+    R_gt = scene1.R_bop[:n_inf]
+    t_gt = scene1.t_bop[:n_inf] * scale
+    adds = metrics.add_metric(torch.as_tensor(verts_real, device=dev), R_gt, t_gt,
+                              torch.as_tensor(pred_R, device=dev), torch.as_tensor(pred_t, device=dev))
+    adds = adds.cpu().numpy()
+    sync(dev)
+    t_inf = time.perf_counter()
+
+    sub_cloud = verts_real[:: max(verts_real.shape[0] // 4000, 1)]
+    best, chamfers = registration.verify_consecutive(sub_cloud, R_gt, t_gt, pred_R, pred_t, device=dev)
+    cad_pts, ok = synthetic.analytic_surface_points(20000, torch.Generator(device=dev).manual_seed(9), device=dev)
+    cad = (cad_pts[ok] * scale).cpu().numpy()
+    upper = verts_real[:20000]
+    lower = cad[cad[:, 2] < 2]
+    out = registration.register_halves(upper, lower, R_gt[best].cpu().numpy(), t_gt[best].cpu().numpy(),
+                                       pred_R[best], pred_t[best], cad, diameter=diam * scale,
+                                       icp_threshold=0.2 * scale, icp_iters=SERVE["icp_iters"], device=dev)
+    sync(dev)
+    t_end = time.perf_counter()
+
+    stages = {"bake_s": t_bake - t_start, "infer_s": t_inf - t_bake, "icp_s": t_end - t_inf,
+              "serve_s": t_end - t_start}
+    log(f"serve stages ({tag}): " + json.dumps(stages))
+    log(f"keys {n_real} (padded {verts_scaled.shape[0]}), ADD per image {np.round(adds, 4).tolist()} "
+        f"(median {float(np.median(adds)):.4f}, bar {0.1 * diam * scale:.4f}), verify best {best}, "
+        f"chamfer {out['chamfer']:.5f} (ok {out['correct']}), ICP fitness {out['fitness']:.3f}")
+    return dict(zip(SERVE_OUTPUTS, (verts_scaled, feats, verts_real, n_real, adds, pred_R, pred_t, R_gt, t_gt, best,
+                                    chamfers, cad, upper, lower, out, stages)))
+
+
 def serve_path(dev, seed: int, out_dir: str, profile: str | None = None):
     """The bench's bake -> inference -> ADD -> verification -> ICP stages.
     With ``profile``, a further run under torch.profiler writes its kernel
@@ -945,27 +1041,12 @@ def serve_path(dev, seed: int, out_dir: str, profile: str | None = None):
     import torch
 
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import convert
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
-        FeatConfig,
-        FieldConfig,
-        InferenceConfig,
-    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import NerfField
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import (
-        ResNetUNet,
-        normalize_image,
-    )
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import metrics, point_kernels
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pointcloud as pc
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import (
-        artifacts,
-        gen_feat,
-        inference,
-        registration,
-    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import ResNetUNet
 
-    n_views, img, grid, n_inf = SERVE["n_views"], SERVE["image_size"], SERVE["grid_res"], SERVE["n_infer"]
+    n_views, img, n_inf = SERVE["n_views"], SERVE["image_size"], SERVE["n_infer"]
     t0 = time.perf_counter()
     halves = [synthetic.make_scene(n_views, img, torch.Generator(device=dev).manual_seed(seed + uh), device=dev)
               for uh in (0, 1)]
@@ -981,78 +1062,17 @@ def serve_path(dev, seed: int, out_dir: str, profile: str | None = None):
     scale = diam / 1.8
 
     def once(tag: str):
-        """One run of the serving stages; returns its outputs and stage times."""
-        t_start = time.perf_counter()
-        exp0 = os.path.join(out_dir, "0_synth_obj_1")
-        verts_scaled, feats, normals = gen_feat.gen_feat(
-            field, scene0.R_bop, scene0.t_bop, scene0.K, scene0.sils, diam, exp0, 1,
-            FeatConfig(mc_threshold=0.05, n_points=SERVE["n_points"], sample_loops=SERVE["sample_loops"]),
-            image_size=img, grid_res=grid,
-            threshold=0.2, generator=torch.Generator(device=dev).manual_seed(seed),
-        )
-        sync(dev)
-        t_bake = time.perf_counter()
-
-        imgs_n = normalize_image(scene1.images[:n_inf])
-        Ks_fixed = scene1.K[:n_inf].clone()
-        Ks_fixed[:, 0:2, 2] -= 0.5  # pixel-center convention, as the bench
-        pred_R, pred_t = inference.run_sequence(cnn, imgs_n, scene1.sils[:n_inf], Ks_fixed, verts_scaled, feats,
-                                                cfg=InferenceConfig(), seed=seed, batch=n_inf, device=dev)
-        # metrics use the true (pre-pad) keys, as the bench does
-        verts_real, _, _, n_real = artifacts.load_keys(artifacts.pose_dir(exp0, 1))
-        R_gt = scene1.R_bop[:n_inf]
-        t_gt = scene1.t_bop[:n_inf] * scale
-        adds = metrics.add_metric(torch.as_tensor(verts_real, device=dev), R_gt, t_gt,
-                                  torch.as_tensor(pred_R, device=dev), torch.as_tensor(pred_t, device=dev))
-        adds = adds.cpu().numpy()
-        sync(dev)
-        t_inf = time.perf_counter()
-
-        sub_cloud = verts_real[:: max(verts_real.shape[0] // 4000, 1)]
-        best, chamfers = registration.verify_consecutive(sub_cloud, R_gt, t_gt, pred_R, pred_t, device=dev)
-        cad_pts, ok = synthetic.analytic_surface_points(20000, torch.Generator(device=dev).manual_seed(9), device=dev)
-        cad = (cad_pts[ok] * scale).cpu().numpy()
-        upper = verts_real[:20000]
-        lower = cad[cad[:, 2] < 2]
-        out = registration.register_halves(upper, lower, R_gt[best].cpu().numpy(), t_gt[best].cpu().numpy(),
-                                           pred_R[best], pred_t[best], cad, diameter=diam * scale,
-                                           icp_threshold=0.2 * scale, icp_iters=SERVE["icp_iters"], device=dev)
-        sync(dev)
-        t_end = time.perf_counter()
-
-        stages = {"bake_s": t_bake - t_start, "infer_s": t_inf - t_bake, "icp_s": t_end - t_inf,
-                  "serve_s": t_end - t_start}
-        log(f"serve stages ({tag}): " + json.dumps(stages))
-        log(f"keys {n_real} (padded {verts_scaled.shape[0]}), ADD per image {np.round(adds, 4).tolist()} "
-            f"(median {float(np.median(adds)):.4f}, bar {0.1 * diam * scale:.4f}), verify best {best}, "
-            f"chamfer {out['chamfer']:.5f} (ok {out['correct']}), ICP fitness {out['fitness']:.3f}")
-        return verts_scaled, feats, verts_real, n_real, adds, pred_R, pred_t, R_gt, t_gt, best, chamfers, \
-            cad, upper, lower, out, stages
+        out = serve_stages(dev, seed, field, cnn, scene0, scene1, out_dir, tag)
+        return tuple(out[k] for k in SERVE_OUTPUTS)
 
     once("cold: first call, cuDNN and allocator warm-up")
     # the measured run: launch counts cover exactly this run of the path;
     # K2's and K3's launch shapes (queries, references or keys, masked) are
     # recorded on the way through, for their timings and bounds
     reset_launch_counts()
-    ops = point_kernels.nn_min, point_kernels.correspondence_argmax
-    shapes = {"nn_min": [], "corr_argmax": []}
-
-    def nn_recorded(query, ref, ref_mask=None):
-        if query.device.type == "cuda" and query.shape[0]:
-            shapes["nn_min"].append((query.shape[0], ref.shape[0], ref_mask is not None))
-        return ops[0](query, ref, ref_mask)
-
-    def corr_recorded(queries, keys):
-        if queries.device.type == "cuda" and queries.shape[0]:
-            shapes["corr_argmax"].append((queries.shape[0], keys.shape[0], keys.shape[1]))
-        return ops[1](queries, keys)
-
-    point_kernels.nn_min, point_kernels.correspondence_argmax = nn_recorded, corr_recorded
-    try:
+    with recorded_launches() as shapes:
         (verts_scaled, feats, verts_real, n_real, adds, pred_R, pred_t, R_gt, t_gt, best, chamfers,
          cad, upper, lower, out, stages) = once("warm")
-    finally:
-        point_kernels.nn_min, point_kernels.correspondence_argmax = ops
     counts = {k: launch_counts()[k] for k in SERVE_KERNELS}
     log("launches in the serve run: " + json.dumps(counts))
     log(f"K2 launch shapes in the serve run (queries, references, masked: launches): "
@@ -1076,15 +1096,43 @@ def serve_path(dev, seed: int, out_dir: str, profile: str | None = None):
     if not (np.isfinite(out["chamfer"]) and len(chamfers) == n_inf - 1):
         raise AssertionError("registration produced no finite Chamfer distance")
     icp_check(dev, upper, lower, cad, R_gt[best].cpu().numpy(), t_gt[best].cpu().numpy(), diam * scale, scale)
-    # FPS at the bake's size, timed on its own (a sequential loop of small launches)
-    hits = torch.as_tensor(verts_real / scale, device=dev)
-    t_fps = time.perf_counter()
-    pc.farthest_point_sampling(hits, hits.shape[0])
-    sync(dev)
-    log(f"FPS of {hits.shape[0]} points: {1e3 * (time.perf_counter() - t_fps):.1f} ms (host clock)")
+    fps_timing(torch.as_tensor(verts_real / scale, device=dev), "the bake's keys")
     if not all(c > 0 for c in counts.values()):
         raise AssertionError(f"a kernel of the serving path never launched: {counts}")
     return counts, stages, shapes
+
+
+def fps_timing(pts, what: str, reps: int = 5):
+    """Farthest-point sampling of all of ``pts``, timed on the host clock
+    ``reps`` times each with its selections in CUDA graphs (as the port runs
+    it on the card) and as a launch sequence a selection; the two must
+    select the same points."""
+    import numpy as np
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pointcloud as pc
+
+    times, idx = {}, {}
+    block = pc.FPS_GRAPH_BLOCK
+    for name, b in (("graphs", block), ("launches", 0)):
+        pc.FPS_GRAPH_BLOCK = b
+        try:
+            ms = []
+            for _ in range(reps):
+                sync(pts.device)
+                t0 = time.perf_counter()
+                idx[name] = pc.farthest_point_sampling(pts, pts.shape[0])
+                sync(pts.device)
+                ms.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            pc.FPS_GRAPH_BLOCK = block
+        times[name] = ms
+    same = bool((idx["graphs"] == idx["launches"]).all())
+    log(f"FPS of {pts.shape[0]} points ({what}, host clock, {reps} runs each): CUDA graphs of {block} selections "
+        f"{np.round(times['graphs'], 1).tolist()} ms, a launch sequence a selection "
+        f"{np.round(times['launches'], 1).tolist()} ms; same selections: {same}")
+    if not same:
+        raise AssertionError("FPS through CUDA graphs selects other points than its launch sequence")
+    return float(np.median(times["graphs"])), float(np.median(times["launches"]))
 
 
 def point_kernel_phase(dev, seed: int, shapes: dict):
@@ -1184,12 +1232,399 @@ def point_kernel_phase(dev, seed: int, shapes: dict):
     return results
 
 
+@contextlib.contextmanager
+def recorded_launches():
+    """While open, the sizes (points) of K1's launches and the shapes of
+    K2's (queries, references, masked) and K3's (queries, keys, width) on
+    the card are appended to the yielded dict (recorded at the ops'
+    dispatch)."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import point_kernels as pk
+
+    shapes = {"density": [], "nn_min": [], "corr_argmax": []}
+    ops = fk.density_op, pk.nn_min, pk.correspondence_argmax
+
+    def density(pts, *rest):
+        if pts.device.type == "cuda" and pts.shape[0]:
+            shapes["density"].append(pts.shape[0])
+        return ops[0](pts, *rest)
+
+    def nn_min(query, ref, ref_mask=None):
+        if query.device.type == "cuda" and query.shape[0]:
+            shapes["nn_min"].append((query.shape[0], ref.shape[0], ref_mask is not None))
+        return ops[1](query, ref, ref_mask)
+
+    def corr(queries, keys):
+        if queries.device.type == "cuda" and queries.shape[0]:
+            shapes["corr_argmax"].append((queries.shape[0], keys.shape[0], keys.shape[1]))
+        return ops[2](queries, keys)
+
+    fk.density_op, pk.nn_min, pk.correspondence_argmax = density, nn_min, corr
+    try:
+        yield shapes
+    finally:
+        fk.density_op, pk.nn_min, pk.correspondence_argmax = ops
+
+
+@contextlib.contextmanager
+def plain_density_and_nn():
+    """While open, K1 and K2 run their plain versions, on the card too."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import point_kernels as pk
+
+    k1, k2 = fk.density_cuda, pk.nn_min_cuda
+    fk.density_cuda, pk.nn_min_cuda = fk.density_plain, pk.nn_min_plain
+    try:
+        yield
+    finally:
+        fk.density_cuda, pk.nn_min_cuda = k1, k2
+
+
+def view_geometry(scene, view: int, image_size: int, dev):
+    """(camera, silhouette pixels, min depth, max depth) of one view, as
+    generate_cors takes them."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import generate_cors
+
+    cam = cam_lib.camera_from_bop(scene.R_bop, scene.t_bop, scene.K, image_size)[view]
+    pix = torch.as_tensor(generate_cors.silhouette_pixels(scene.sils[view].cpu().numpy()), device=dev)
+    z = scene.t_bop[:, 2].abs().cpu().numpy()
+    return cam, pix, float(z.min() - 2.0), float(z.max() + 2.0)
+
+
+def ray_pixels(xys, S: int):
+    """Flat pixel index of each NDC ray center."""
+    import numpy as np
+
+    col = np.rint((1.0 - xys[:, 0]) * S / 2.0 - 0.5).astype(np.int64)
+    row = np.rint((1.0 - xys[:, 1]) * S / 2.0 - 0.5).astype(np.int64)
+    return row * S + col
+
+
+def check_cors_hits(cors: str, scene, cfg, S: int, dev):
+    """What generate_cors wrote for one half: every front and back hit
+    within ``mesh_filter_dist`` of a1 (K2's plain version, on the card),
+    every back hit behind its front hit along its back ray (the direction
+    -camera origin; the back ray starts at the front hit, so a back hit may
+    sit on it), and no nearer the camera.  Returns the counts of front and
+    back hits."""
+    import numpy as np
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import point_kernels as pk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts
+
+    a1 = torch.as_tensor(artifacts.load_array(cors, "a1.npy"), device=dev)
+    origins = cam_lib.camera_center(cam_lib.camera_from_bop(scene.R_bop, scene.t_bop, scene.K, S)).cpu().numpy()
+    n_front = n_back = at_front = 0
+    worst_d, least_t, least_gain = 0.0, np.inf, np.inf
+    for v in range(scene.R_bop.shape[0]):
+        xys, pos, bxys, back = artifacts.load_view_rays(cors, S, v)
+        for hits in (pos, back):
+            if hits.shape[0]:
+                d, _ = pk.nn_min_plain(torch.as_tensor(hits, device=dev), a1)
+                worst_d = max(worst_d, float(d.max()))
+        row = dict(zip(ray_pixels(xys, S).tolist(), range(xys.shape[0])))
+        front = pos[[row[q] for q in ray_pixels(bxys, S).tolist()]]
+        o = origins[v]
+        u = -o / np.linalg.norm(o)
+        if back.shape[0]:
+            t = (back - front) @ u
+            least_t, at_front = min(least_t, float(t.min())), at_front + int((t == 0).sum())
+            gain = np.linalg.norm(back - o, axis=-1) - np.linalg.norm(front - o, axis=-1)
+            least_gain = min(least_gain, float(gain.min()))
+        n_front, n_back = n_front + pos.shape[0], n_back + back.shape[0]
+    log(f"  {cors}: {n_front} front / {n_back} back hits; farthest from a1 {worst_d:.4f} (filter "
+        f"{cfg.mesh_filter_dist}); least step behind the front hit along the back ray {least_t:.4f} ({at_front} back "
+        f"hits on their front hit: the back pass's only sample above 0.05 is its first), least gain in distance from "
+        f"the camera {least_gain:.4f}")
+    if not (n_front > 0 and n_back > 0 and worst_d < cfg.mesh_filter_dist and least_t >= 0.0 and least_gain >= 0.0):
+        raise AssertionError(f"correspondence hits off the mesh, or a back hit not behind its front hit ({cors})")
+    return n_front, n_back
+
+
+def cors_kernel_checks(dev, field, scene, cors: str, cfg, S: int, shapes: dict, counts: dict) -> dict:
+    """K1 and K2 against their plain versions at the shapes the cors stage
+    gave them: K1 at view 0's front pass (its silhouette's rays x
+    ``grid_pts_per_ray`` points, one launch), K2 at view 0's front mesh
+    filter (those rays' hits against the unpadded a1), bit-identical."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import point_kernels as pk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts, generate_cors
+
+    sizes = {n: shapes["density"].count(n) for n in sorted(set(shapes["density"]))}
+    nn_shapes = {str(k): shapes["nn_min"].count(k) for k in sorted(set(shapes["nn_min"]))}
+    log(f"cors stage launches: K1 {counts['density']} (points: launches {sizes}), K2 {counts['nn_min']} "
+        f"(queries, references, masked: launches {nn_shapes})")
+    cam, pix, lo, hi = view_geometry(scene, 0, S, dev)
+    pts = cam_lib.ray_points(cam_lib.rays_at_pixels(cam, pix, S, cfg.grid_pts_per_ray, lo, hi)).reshape(-1, 3)
+    pts = pts.contiguous()
+    w, ladder, beta = fk.density_weights(field), fk.ladder_of(field.cfg), float(field.cfg.softplus_beta)
+    ms, got = cuda_ms(lambda: fk.density_cuda(pts, w, ladder, beta), reps=5)
+    plain_ms, want = cuda_ms(lambda: torch.cat([fk.density_plain(p, w, ladder, beta)
+                                                for p in torch.split(pts, 262144)]), reps=1)
+    err = (got - want).abs()
+    share = float((err > 1e-4).float().mean())
+    flips = int(((got > cfg.density_threshold) != (want > cfg.density_threshold)).sum())
+    same = torch.equal(got, fk.density_cuda(pts, w, ladder, beta))
+    n, E, nh = pts.shape[0], w[1].shape[0], w[3].shape[0]
+    b1 = bound(n * 16 + 4 * (2 * E * nh + nh * nh + 3 * nh + 1), n * (4 * E * nh + 2 * nh * nh), BF16_FLOPS)
+    log(f"K1 density at view 0's front pass ({pix.shape[0]} rays x {cfg.grid_pts_per_ray} = {n} points, trained "
+        f"fine field): max_abs_err {float(err.max()):.3e} (tol {TOL['density']}), share > 1e-4 {share:.2e} (tol "
+        f"{TOL['density_share']}), points on the other side of the threshold {flips}; second launch bit-identical "
+        f"{same}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b1[0]:.3f} ms ({b1[1]})")
+    if not (float(err.max()) <= TOL["density"] and share < TOL["density_share"] and same):
+        raise AssertionError("K1 disagrees with its plain version at the cors stage's front pass")
+    del pts, got, want, err
+
+    a1 = torch.as_tensor(artifacts.load_array(cors, "a1.npy"), device=dev)
+    hits = generate_cors.view_surface_hits(field, cam, pix, a1, S, cfg.grid_pts_per_ray, lo, hi,
+                                           cfg.density_threshold, cfg.mesh_filter_dist, cfg.back_len_div)["pos_vec"]
+    hits = hits.contiguous()
+    k_ms, (d_k, i_k) = graph_ms(lambda: pk.nn_min_cuda(hits, a1))
+    p_ms, (d_p, i_p) = cuda_ms(lambda: pk.nn_min_plain(hits, a1), reps=1)
+    same2 = torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    b2 = nn_bound(hits.shape[0], a1.shape[0])
+    log(f"K2 nn_min at view 0's mesh filter ({hits.shape[0]} front hits x {a1.shape[0]} surface points, "
+        f"{pk.launch_plan(hits.shape[0], a1.shape[0], dev, 'nn_min')[0] if dev.type == 'cuda' else '-'} splits): "
+        f"bit-identical to plain {same2}; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b2[0]:.4f} ms ({b2[1]})")
+    if not same2:
+        raise AssertionError("K2 disagrees with its plain version at the cors stage's mesh filter")
+
+
+def threshold_flips(field, cam, pix, S: int, cfg, lo: float, hi: float, back_hits) -> "torch.Tensor":
+    """Per ray through ``pix``: does some sample's density fall on one side
+    of its pass's threshold through K1 and on the other through its plain
+    version (the front pass at ``cfg.density_threshold``; the back pass at
+    0.05 from each of ``back_hits``, front hits of those rays)?"""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import renderer
+
+    w, ladder, beta = fk.density_weights(field), fk.ladder_of(field.cfg), float(field.cfg.softplus_beta)
+    front = cam_lib.rays_at_pixels(cam, pix, S, cfg.grid_pts_per_ray, lo, hi)
+
+    def flips(bundle, thr):
+        pts = cam_lib.ray_points(bundle).reshape(-1, 3).contiguous()
+        k = fk.density_cuda(pts, w, ladder, beta)
+        p = torch.cat([fk.density_plain(c, w, ladder, beta) for c in torch.split(pts, 262144)])
+        return ((k > thr) != (p > thr)).reshape(pix.shape[0], -1).any(-1)
+
+    out = flips(front, cfg.density_threshold)
+    for hits in back_hits:
+        out |= flips(renderer.back_ray_bundle(front, hits, cfg.back_len_div), 0.05)
+    return out
+
+
+def cors_vs_plain(dev, field, scene, cors: str, cfg, S: int, out_dir: str):
+    """generate_cors of one half again with K1 and K2's plain versions (on the
+    card): per view the same rays kept, with the same front and back hits
+    bit for bit, except rays where some sample's density lies on the two
+    sides of its pass's threshold through K1 and through the plain version
+    (``threshold_flips``; K2 is bit-identical to its plain version, so the
+    mesh filters add no flip of their own)."""
+    import numpy as np
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts, generate_cors
+
+    t0 = time.perf_counter()
+    with plain_density_and_nn():
+        plain = generate_cors.generate_cors(field, scene.R_bop, scene.t_bop, scene.K, scene.sils,
+                                            os.path.join(out_dir, "plain"), 1, cfg, grid_res=SERVE["grid_res"],
+                                            image_size=S, device=dev)
+    sync(dev)
+    plain_s = time.perf_counter() - t0
+    n_same = n_diff = 0
+    count_diff, moved = [], 0.0
+    for v in range(scene.R_bop.shape[0]):
+        runs = [artifacts.load_view_rays(d, S, v) for d in (cors, plain)]
+        front = [dict(zip(ray_pixels(r[0], S).tolist(), r[1])) for r in runs]
+        back = [dict(zip(ray_pixels(r[2], S).tolist(), r[3])) for r in runs]
+        odd = set()
+        for a, b in (front, back):
+            both = set(a) & set(b)
+            diff = {q for q in both if not np.array_equal(a[q], b[q])}
+            moved = max([moved] + [float(np.abs(a[q] - b[q]).max()) for q in diff])
+            odd |= (set(a) ^ set(b)) | diff
+            n_same += len(both - diff)
+        count_diff.append((len(front[0]) - len(front[1]), len(back[0]) - len(back[1])))
+        if odd:
+            cam, _, lo, hi = view_geometry(scene, v, S, dev)
+            pix = np.asarray(sorted(odd))
+            have = threshold_flips(field, cam, torch.as_tensor(pix, device=dev), S, cfg, lo, hi, [])
+            # a ray whose front pass does not flip has the same front hit (and
+            # mesh filter) in both runs, and is kept by both: its back pass
+            both = [i for i, q in enumerate(pix) if q in front[0] and q in front[1]]
+            if both:
+                hb = [torch.as_tensor(np.stack([f[q] for q in pix[both]]), device=dev) for f in front]
+                have[torch.as_tensor(both, device=dev)] |= threshold_flips(
+                    field, cam, torch.as_tensor(pix[both], device=dev), S, cfg, lo, hi, hb)
+            if not bool(have.all()):
+                raise AssertionError(f"generate_cors through K1 / K2 and through their plain versions differ at "
+                                     f"view {v} on rays with no threshold flip: {pix[~have.cpu().numpy()][:10]}")
+            n_diff += len(odd)
+    log(f"generate_cors of half 0 through K1 / K2's plain versions ({plain_s:.2f} s): {n_same} front / back hits "
+        f"bit-identical to the kernels' run; {n_diff} rays differ, each with a sample's density on the two sides of "
+        f"its pass's threshold through K1 and through the plain version (largest hit move {moved:.4f}); per view "
+        f"(front, back) count differences {count_diff}")
+    return n_same, n_diff
+
+
+def pipeline_path(dev, seed: int, out_dir: str, trained=None):
+    """The bench's chain on the card: NeRF training of both halves (or
+    ``trained`` = (states, wall seconds, launch counts) of that run), then
+    generate_cors of each half, negatives, descriptor training, and the
+    serving stages on the trained feature head and CNN.  Each stage's
+    launches are counted over exactly that stage."""
+    import numpy as np
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
+        CorsConfig,
+        FieldConfig,
+        NerfTrainConfig,
+        PoseTrainConfig,
+        RenderConfig,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import (
+        artifacts,
+        generate_cors,
+        surface_sampling,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment, nerf_trainer, pose_trainer
+
+    P, S, V = PIPELINE, TRAIN["image_size"], TRAIN["n_views"]
+    halves = [synthetic.make_scene(V, S, torch.Generator(device=dev).manual_seed(seed + uh), device=dev)
+              for uh in (0, 1)]
+    stages, counts = {}, {}
+    if trained is not None:
+        states, stages["nerf_s"], counts["nerf"] = trained
+    else:
+        stacked = [torch.stack([getattr(h, f) for h in halves]) for f in ("images", "sils", "R_bop", "t_bop", "K")]
+        cfg = FieldConfig(**FIELD)
+        train = NerfTrainConfig(warmup_steps=TRAIN["warmup"], batch_size=TRAIN["batch"])
+        reset_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        states, _ = nerf_trainer.train_nerf_fused(*stacked, cfg, RenderConfig(n_rays_per_image=TRAIN["n_rays"]), train,
+                                                  n_steps=P["nerf_steps"], seed=TRAIN["seed"], device=dev)
+        sync(dev)
+        stages["nerf_s"], counts["nerf"] = time.perf_counter() - t0, launch_counts()
+
+    cors_cfg = CorsConfig(**P["cors"])
+    timing = os.environ.get("CORS_TIMING")
+    os.environ["CORS_TIMING"] = "1"
+    reset_launch_counts()
+    try:
+        with recorded_launches() as shapes:
+            t0 = time.perf_counter()
+            cors_dirs = [generate_cors.generate_cors(states[uh].fine, h.R_bop, h.t_bop, h.K, h.sils,
+                                                     os.path.join(out_dir, f"{uh}_synth_obj_1"), 1, cors_cfg,
+                                                     grid_res=SERVE["grid_res"], image_size=S, device=dev)
+                         for uh, h in enumerate(halves)]
+            sync(dev)
+            stages["cors_s"] = time.perf_counter() - t0
+    finally:
+        if timing is None:
+            del os.environ["CORS_TIMING"]
+        else:
+            os.environ["CORS_TIMING"] = timing
+    counts["cors"] = launch_counts()
+    cors_rays = [int(sum(artifacts.load_view_rays(d, S, i)[1].shape[0] for i in range(V))) for d in cors_dirs]
+    log(f"cors_s {stages['cors_s']:.3f} s: cors_rays {cors_rays} (front hits of each half's {V} views)")
+    for d, h in zip(cors_dirs, halves):
+        check_cors_hits(d, h, cors_cfg, S, dev)
+
+    h0, h1 = halves
+    pose_cfg = PoseTrainConfig(**P["pose"])
+    a1 = artifacts.load_array(cors_dirs[0], "a1.npy")
+    reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    neg = pose_trainer.build_negatives(states[0].fine, h0.R_bop, h0.t_bop, h0.K, h0.sils, a1, pose_cfg,
+                                       image_size=S, n_loops=P["neg_loops"], threshold=P["neg_threshold"],
+                                       generator=torch.Generator(device=dev).manual_seed(P["neg_seed"]), device=dev)
+    sync(dev)
+    stages["neg_s"], counts["neg"] = time.perf_counter() - t0, launch_counts()
+    log(f"neg_s {stages['neg_s']:.3f} s: n_neg {neg.shape[0]} (surface-hit loops {P['neg_loops']}, a1 "
+        f"{a1.shape[0]} points)")
+
+    aug_cfg = augment.AugmentConfig(**P["aug"])
+    bank = pose_trainer.load_ray_bank(cors_dirs[0], S, V, device=dev)
+
+    def run_pose(n: int):
+        sync(dev)
+        t = time.perf_counter()
+        out = pose_trainer.train_pose(states[0].fine, h0.images, h0.sils, bank, neg, cfg=pose_cfg, aug_cfg=aug_cfg,
+                                      n_steps=n, seed=P["pose_seed"], device=dev)
+        sync(dev)
+        return out, time.perf_counter() - t
+
+    _, cold_s = run_pose(1)
+    reset_launch_counts()
+    (pstate, losses), stages["pose_s"] = run_pose(P["pose_steps"])
+    counts["pose"] = launch_counts()
+    losses = np.asarray(losses)
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    trunk_same = torch.equal(pstate.field.trunk1.weight, states[0].fine.trunk1.weight)
+    head_moved = not torch.equal(pstate.field.feature_layer.out.weight, states[0].fine.feature_layer.out.weight)
+    log(f"pose_s {stages['pose_s']:.3f} s: {P['pose_steps']} descriptor steps ({min(pose_cfg.batch_size, V)} views x "
+        f"{pose_cfg.sample_size} samples, {bank.pos_vec.shape[1]} bank rows a view), warm "
+        f"{1e3 * stages['pose_s'] / P['pose_steps']:.2f} ms per step, cold first step {1e3 * cold_s:.1f} ms; mean "
+        f"loss of the first 10 steps {first:.6f}, of the last 10 {last:.6f}; NeRF trunk unchanged {trunk_same}, "
+        f"feature head moved {head_moved}")
+    if not (np.isfinite(losses).all() and last < first and trunk_same and head_moved):
+        raise AssertionError("descriptor training: losses not finite or not falling, or the wrong parameters moved")
+
+    reset_launch_counts()
+    served = serve_stages(dev, seed, pstate.field, pstate.cnn, h0, h1, os.path.join(out_dir, "serve"),
+                          "the trained chain")
+    counts["serve"] = launch_counts()
+    stages.update({k: served["stages"][k] for k in ("bake_s", "infer_s", "icp_s")})
+    diam, scale = h0.diameter, h0.diameter / 1.8
+    adds = served["adds"]
+    quality = {"pose_correct": int((adds < 0.1 * diam * scale).sum()), "median_add": float(np.median(adds)),
+               "chamfer": float(served["out"]["chamfer"]), "cors_rays": cors_rays, "n_neg": int(neg.shape[0]),
+               "n_keys": int(served["n_real"])}
+    log("pipeline stages (s): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    log("pipeline outputs: " + json.dumps(quality))
+    if not (np.isfinite(adds).all() and np.isfinite(served["pred_R"]).all() and np.isfinite(quality["chamfer"])
+            and np.isfinite(served["feats"]).all()):
+        raise AssertionError("the trained chain produced non-finite outputs")
+    wanted = {"nerf": ("bundle_loss",), "cors": ("density", "nn_min"), "neg": ("density", "nn_min"),
+              "serve": ("density", "nn_min", "corr_argmax")}
+    log("launches per stage: " + json.dumps({k: {n: v[n] for n in names} for k, (names, v) in
+                                             ((k, (names, counts[k])) for k, names in wanted.items())}))
+    for stage, names in wanted.items():
+        if not all(counts[stage][n] > 0 for n in names):
+            raise AssertionError(f"a kernel of the {stage} stage never launched: {counts[stage]}")
+
+    hits = surface_sampling.sample_surface_hits(
+        states[0].fine, h0.R_bop, h0.t_bop, h0.K, h0.sils, n_loops=P["neg_loops"], rays_per_image=50, image_size=S,
+        threshold=P["neg_threshold"], generator=torch.Generator(device=dev).manual_seed(P["neg_seed"]))
+    fps_timing(hits, "the negatives' surface hits", reps=3)
+    cors_kernel_checks(dev, states[0].fine, h0, cors_dirs[0], cors_cfg, S, shapes, counts["cors"])
+    cors_vs_plain(dev, states[0].fine, h0, cors_dirs[0], cors_cfg, S, out_dir)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", metavar="PATH",
                         help="also profile one serve run (kernel table to PATH) and 20 training steps (PATH.train.txt)")
-    parser.add_argument("--nerf-steps", type=int, default=200, help="NeRF training steps (the bench runs 800)")
+    parser.add_argument("--nerf-steps", type=int, default=PIPELINE["nerf_steps"],
+                        help="NeRF training steps (the bench's 800; the pipeline phase reuses the trained fields when "
+                             "it is 800, and trains its own 800 steps otherwise)")
     parser.add_argument("--chunk-steps", type=int, default=100,
                         help="chunked NeRF training steps at the large-batch schedule (the reference runs 200)")
     args = parser.parse_args(argv)
@@ -1222,7 +1657,7 @@ def main(argv=None) -> int:
 
     phases = {"density": density_phase(dev, args.seed), "bundle_loss": bundle_loss_phase(dev, args.seed)}
     phases.update(field_color_phase(dev, args.seed))
-    train_counts, _ = train_path(dev, args.seed, args.nerf_steps, args.profile)
+    train_counts, train_s, train_states = train_path(dev, args.seed, args.nerf_steps, args.profile)
     chunked_counts, _ = chunked_train_path(dev, args.seed, args.chunk_steps, args.profile)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1230,6 +1665,12 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     phases.update(point_kernel_phase(dev, args.seed, shapes))
+    trained = (train_states, train_s, train_counts) if args.nerf_steps == PIPELINE["nerf_steps"] else None
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    try:
+        pipeline_path(dev, args.seed, out_dir, trained)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
     counts["bundle_loss"] = train_counts["bundle_loss"]
     counts.update({k: chunked_counts[k] for k in ("field_color_fwd", "field_color_bwd")})
     if "jax" in sys.modules:

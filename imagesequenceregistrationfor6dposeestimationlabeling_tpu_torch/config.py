@@ -68,6 +68,49 @@ class NerfTrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PoseTrainConfig:
+    """trainPose.py:60-77,208-236."""
+
+    lr_cnn: float = 3e-4
+    lr_mlp: float = 3e-5
+    batch_size: int = 16
+    sample_size: int = 1024                 # samples per image
+    key_noise: float = 1e-3
+    warmup_steps: int = 2000                # trainPose.py:229-236
+    total_query_steps: int = 60000          # trainPose.py:214
+    image_size: int = 224
+    n_neg: int = 80000                      # FPS target, trainPose.py:338
+    neg_bound: float = 1.2                  # trainPose.py:340
+    neg_mesh_dist: float = 0.05             # trainPose.py:349-351
+    mask_loss_scale: float = 1e-3           # BCE/1000, trainPose.py:430
+    infonce_scale: float = 1e-3             # CE/1000, nutil.py:366,385
+    ckpt_every: int = 100
+    seed: int = 1
+    # regularizers with no counterpart in the reference script (0.0 / 1.0 /
+    # 0.0 are its behaviour): Gaussian jitter of the positive keys' sample
+    # points, the InfoNCE temperature dividing the logits, and AdamW weight
+    # decay on the trained feature head
+    pos_noise: float = 0.0
+    infonce_temp: float = 1.0
+    head_weight_decay: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class CorsConfig:
+    """generateCors.py:110-141,297-341."""
+
+    render_size: int = 224
+    grid_pts_per_ray: int = 256             # rayCT
+    density_threshold: float = 0.2          # thresholdFac
+    mesh_filter_dist: float = 0.1           # generateCors.py:309,339
+    outlier_nb_points: int = 20             # generateCors.py:257
+    outlier_radius: float = 0.05
+    n_subsurface: int = 1000                # FPS, generateCors.py:208
+    normals_k: int = 400                    # neighborhood_size, generateCors.py:211
+    back_len_div: float = 3.0               # generateCors.py:323
+
+
+@dataclasses.dataclass(frozen=True)
 class FeatConfig:
     """genFeat.py:160-228."""
 

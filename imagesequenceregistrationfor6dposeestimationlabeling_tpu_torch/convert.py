@@ -10,7 +10,9 @@ arrays) onto this package's ``NerfField`` and ``ResNetUNet`` state dicts:
 * a flax GroupNorm ``scale`` is the torch GroupNorm ``weight``.
 
 ``train_state_from_jax`` carries a NeRF training state (params, Adam
-moments, counts) across the same way.
+moments, counts) across the same way, ``pose_state_from_jax`` a
+descriptor training state (NeRF and CNN params, the feature head's and
+the CNN's Adam moments, the count and the step).
 
 ``planted_field_params`` builds a full NerfField tree in the flax layout
 with numpy alone, so the reference (through JAX) and the port (without
@@ -45,15 +47,21 @@ def _gn(prefix: str, node) -> dict:
     return {f"{prefix}.weight": _t(node["scale"]), f"{prefix}.bias": _t(node["bias"])}
 
 
-def _field_state(p) -> dict:
+def _feature_head_state(fl) -> dict:
+    """The SIREN feature head's entries from its flax subtree."""
     sd = {}
-    for name in ("trunk1", "trunk2", "density_layer", "color1", "color2"):
-        sd.update(_dense(name, p[name]))
-    fl = p["feature_layer"]
     n_layers = sum(k.startswith("SirenLayer_") for k in fl)
     for i in range(n_layers):
         sd.update(_dense(f"feature_layer.layers.{i}", fl[f"SirenLayer_{i}"]["Dense_0"]))
     sd.update(_dense("feature_layer.out", fl["Dense_0"]))
+    return sd
+
+
+def _field_state(p) -> dict:
+    sd = {}
+    for name in ("trunk1", "trunk2", "density_layer", "color1", "color2"):
+        sd.update(_dense(name, p[name]))
+    sd.update(_feature_head_state(p["feature_layer"]))
     return sd
 
 
@@ -128,6 +136,49 @@ def train_state_from_jax(state, cfg: FieldConfig, device=None):
                 sd.update(_dense(name, moments["params"][name]))
             out.extend(sd[name].to(device) for name, _ in trainable(f))
     return NerfTrainState(pair[0], pair[1], AdamState(count, mu, nu), int(np.asarray(state.step)))
+
+
+def pose_state_from_jax(state, cfg: FieldConfig, cnn, device=None):
+    """The port's ``PoseTrainState`` from the reference's (its leaves as
+    numpy), on ``device`` (the card unless named): the NeRF params, the CNN
+    params loaded into a copy of ``cnn`` (a port ResNetUNet of the same
+    architecture), the Adam moments of the feature head and of the CNN, the
+    count and the step.  ``state.opt_state`` is optax's ``multi_transform``
+    state: ``inner_states["train"]`` and ``["cnn"]`` hold (ScaleByAdamState,
+    ..., ScaleByScheduleState), their moments over the (nerf, cnn) tree
+    with masked leaves elsewhere."""
+    import copy
+
+    device = resolve_device(device)
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import NerfField, freeze_spec
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train.pose_trainer import (
+        PoseAdamState,
+        PoseTrainState,
+    )
+
+    head_adam, cnn_adam = (state.opt_state.inner_states[g].inner_state[0] for g in ("train", "cnn"))
+    counts = {int(np.asarray(s.count)) for g in ("train", "cnn") for s in state.opt_state.inner_states[g].inner_state
+              if hasattr(s, "count")}
+    if len(counts) != 1:
+        raise ValueError(f"the optimizer's counts disagree: {sorted(counts)}")
+    field = NerfField(cfg)
+    field.load_state_dict(params_from_jax(state.nerf_params))
+    net = copy.deepcopy(cnn)
+    net.load_state_dict(params_from_jax(state.cnn_params))
+    field, net = field.to(device), net.to(device)
+    labels = freeze_spec(train_feature_head=True)(field)
+    names = [n for n, _ in field.named_parameters() if labels[n] == "train"]   # head_params' order
+
+    def head(moments):
+        sd = _feature_head_state(moments[0]["params"]["feature_layer"])
+        return [sd[n].to(device) for n in names]
+
+    def unet(moments):
+        sd = params_from_jax(moments[1])
+        return [sd[n].to(device) for n, _ in net.named_parameters()]
+
+    opt = PoseAdamState(counts.pop(), head(head_adam.mu), head(head_adam.nu), unet(cnn_adam.mu), unet(cnn_adam.nu))
+    return PoseTrainState(field, net, opt, int(np.asarray(state.step)))
 
 
 # ------------------------------------------------------------- planted field

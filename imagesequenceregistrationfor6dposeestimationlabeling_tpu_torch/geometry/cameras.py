@@ -89,6 +89,21 @@ def grid_rays(cam: Camera, image_size: int, n_pts: int, min_depth, max_depth) ->
     return RayBundle(origins=origins, directions=dirs, lengths=lengths, xys=xys)
 
 
+def rays_at_pixels(cam: Camera, pix_idx: torch.Tensor, image_size: int, n_pts: int, min_depth: float,
+                   max_depth: float) -> RayBundle:
+    """Rays through the centers of the flat row-major pixels ``pix_idx``
+    (N,) of one camera, with ``n_pts`` depths spread evenly over [min_depth,
+    max_depth] (the reference's ``linspace``): (N, 3) / (N, P) / (N, 2)."""
+    S = image_size
+    row = torch.div(pix_idx, S, rounding_mode="floor").to(torch.float32)
+    col = (pix_idx % S).to(torch.float32)
+    xys = torch.stack([1.0 - 2.0 * (col + 0.5) / S, 1.0 - 2.0 * (row + 0.5) / S], dim=-1)
+    dirs = ndc_directions(cam, xys)
+    origins = camera_center(cam)[..., None, :].expand(dirs.shape)
+    lengths = depth_edges(min_depth, max_depth, n_pts - 1, pix_idx.device).expand(dirs.shape[:-1] + (n_pts,))
+    return RayBundle(origins=origins, directions=dirs, lengths=lengths, xys=xys)
+
+
 def depth_edges(min_depth: float, max_depth: float, n_pts: int, device=None) -> torch.Tensor:
     """The n_pts + 1 stratification edges of [min_depth, max_depth] in f32,
     by the reference's own ``linspace`` formula: ``start * (1 - i/n) +

@@ -1,11 +1,19 @@
 """On-disk artifacts of the port (counterpart of pipeline/artifacts.py).
 
-The port's own reader and writer of the reference's format, for the
-stages ported so far: the bake's arrays in ``{UH}_{dataset}_obj_{objid}/
-<obj>poseEst/`` (vert1_scaled, feat1_scaled, normals_scaled, n_keys), as
-``.npy`` files with the reference's stems, so either package reads what
-the other wrote (a test holds them to that).  The correspondence stage's
-per-view ray files come with its port.
+The port's own reader and writer of the reference's format, as ``.npy``
+files with the reference's stems, so either package reads what the other
+wrote (a test holds them to that).  Per half-sequence experiment
+directory ``{UH}_{dataset}_obj_{objid}/``:
+
+  <obj>Cors/a1.npy                      denoised surface cloud
+  <obj>Cors/subvert1.npy                its FPS subsample
+  <obj>Cors/subnormal1.npy              the subsample's normals
+  <obj>Cors/{S}_sampledRayxys/<i>.npy   view i's front-hit ray xys (NDC)
+  <obj>Cors/{S}_posVec/<i>.npy          view i's front surface hits
+  <obj>Cors/{S}_sampledRayBackxys/<i>.npy
+  <obj>Cors/{S}_posVecBack/<i>.npy      view i's back surface hits
+  <obj>poseEst/vert1_scaled.npy, feat1_scaled.npy, normals_scaled.npy,
+  n_keys.npy                            the bake's keys
 """
 
 from __future__ import annotations
@@ -14,9 +22,36 @@ import os
 
 import numpy as np
 
+_VIEW_RAYS = ("sampledRayxys", "posVec", "sampledRayBackxys", "posVecBack")
+
+
+def cors_dir(exp_dir: str, objid) -> str:
+    return os.path.join(exp_dir, f"{objid}Cors")
+
 
 def pose_dir(exp_dir: str, objid) -> str:
     return os.path.join(exp_dir, f"{objid}poseEst")
+
+
+def nerf_dir(exp_dir: str, objid) -> str:
+    return os.path.join(exp_dir, f"{objid}TLESSObj_Fine")
+
+
+def save_view_rays(cors: str, render_size: int, view_id: int, xys, pos_vec, back_xys, back_vec):
+    """View ``view_id``'s front and back hits with their ray xys."""
+    for sub, arr in zip(_VIEW_RAYS, (xys, pos_vec, back_xys, back_vec)):
+        d = os.path.join(cors, f"{render_size}_{sub}")
+        os.makedirs(d, exist_ok=True)
+        np.save(os.path.join(d, f"{view_id}.npy"), np.asarray(arr))
+
+
+def load_view_rays(cors: str, render_size: int, view_id: int):
+    """(xys, pos_vec, back_xys, back_vec) of view ``view_id``."""
+    return tuple(np.load(os.path.join(cors, f"{render_size}_{sub}", f"{view_id}.npy")) for sub in _VIEW_RAYS)
+
+
+def has_view_rays(cors: str, render_size: int, view_id: int) -> bool:
+    return os.path.exists(os.path.join(cors, f"{render_size}_posVec", f"{view_id}.npy"))
 
 
 def save_array(path_dir: str, name: str, arr):

@@ -49,6 +49,16 @@ def composite(
     return torch.cat([feat, opacity], dim=-1), weights
 
 
+def back_weights(densities: torch.Tensor, eps: float = 1e-10, surface_thickness: int = 1,
+                 threshold_mode: bool = False, threshold: float = 0.05) -> torch.Tensor:
+    """Weights of the last surface crossing along each ray: the EA weights
+    with the cumprod taken from the ray's end (densities (..., P))."""
+    if threshold_mode:
+        densities = threshold_densities(densities, threshold)
+    flipped = shifted_cumprod((1.0 + eps) - densities.flip(-1), shift=surface_thickness)
+    return densities * flipped.flip(-1)
+
+
 def surface_depth(lengths: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """max(lengths * weights) depth heuristic."""
     return (lengths * weights).amax(-1)

@@ -1,6 +1,7 @@
 """Volumetric rendering entry points (counterpart of render/renderer.py):
-the density grid over [-1, 1]^3, and the coarse / fine ray renderers of
-NeRF training, evaluated through the field's own color path."""
+the density grid over [-1, 1]^3, the coarse / fine ray renderers of NeRF
+training, evaluated through the field's own color path, and the chunked
+and back-ray renders of the correspondence stage."""
 
 from __future__ import annotations
 
@@ -47,6 +48,34 @@ def render_bundle(field_fn: Callable, bundle: RayBundle, mode: str = "color", th
     (..., P))."""
     dens, feats = field_fn(ray_points(bundle), bundle.directions, mode)
     return raymarch.composite(dens[..., 0], feats, eps=eps, threshold_mode=threshold_mode, threshold=threshold)
+
+
+def render_rays_chunked(field_fn: Callable, bundle: RayBundle, mode: str = "feature", threshold_mode: bool = True,
+                        threshold: float = 0.2, chunk: int = 32768):
+    """EA render of a flat bundle of N rays, ``chunk`` rays at a time (the
+    last chunk ragged): (images (N, C+1), weights (N, P))."""
+    images, weights = [], []
+    for part in bundle_chunks(bundle, chunk):
+        img, w = render_bundle(field_fn, part, mode=mode, threshold_mode=threshold_mode, threshold=threshold)
+        images.append(img)
+        weights.append(w)
+    return torch.cat(images), torch.cat(weights)
+
+
+def bundle_chunks(bundle: RayBundle, chunk: int):
+    """The flat bundle's rays ``chunk`` at a time, the last chunk ragged."""
+    for i0 in range(0, bundle.origins.shape[0], chunk):
+        c = slice(i0, i0 + chunk)
+        yield RayBundle(bundle.origins[c], bundle.directions[c], bundle.lengths[c], bundle.xys[c])
+
+
+def back_ray_bundle(front_bundle: RayBundle, front_hits: torch.Tensor, div: float = 3.0) -> RayBundle:
+    """Rays from the front surface hits away from the camera: origin = the
+    hit, direction = -normalize(camera origin), lengths = (l - l0) / div."""
+    o = front_bundle.origins
+    d = -o / torch.linalg.vector_norm(o, dim=-1, keepdim=True)
+    lengths = (front_bundle.lengths - front_bundle.lengths[..., 0:1]) / div
+    return RayBundle(origins=front_hits, directions=d, lengths=lengths, xys=front_bundle.xys)
 
 
 def render_coarse_fine(coarse_fn: Callable, fine_fn: Callable, cam: Camera, n_rays: int, n_pts_coarse: int,

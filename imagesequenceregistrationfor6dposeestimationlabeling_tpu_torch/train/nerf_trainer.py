@@ -97,24 +97,34 @@ class Adam:
     def init(self, params) -> AdamState:
         return AdamState(0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params])
 
-    @torch.no_grad()
     def update(self, params, grads, mu, nu, count: int) -> int:
         """One update of ``params`` from ``grads``; ``mu``/``nu`` change in
         place.  Returns the new count."""
-        b1, b2 = self.b1, self.b2
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
-        c = np.float32(count + 1)
-        bc1 = float(np.float32(1) - np.float32(b1) ** c)
-        bc2 = float(np.float32(1) - np.float32(b2) ** c)
-        den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
-        torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
-        torch._foreach_mul_(upd, -self.learning_rate(count))
-        torch._foreach_add_(params, upd)
-        return count + 1
+        return adam_update_(params, grads, mu, nu, count, self.learning_rate(count))
+
+
+@torch.no_grad()
+def adam_update_(params, grads, mu, nu, count: int, lr: float, weight_decay: float = 0.0) -> int:
+    """One in-place Adam update at rate ``lr`` (``optax.scale_by_adam``, then
+    ``add_decayed_weights(weight_decay)`` where it is > 0 (AdamW), then the
+    rate): update k (from 0) takes the bias corrections at count k + 1, in
+    f32 as optax computes them.  Returns the new count."""
+    b1, b2, eps = Adam.b1, Adam.b2, Adam.eps
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
+    c = np.float32(count + 1)
+    bc1 = float(np.float32(1) - np.float32(b1) ** c)
+    bc2 = float(np.float32(1) - np.float32(b2) ** c)
+    den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+    torch._foreach_add_(den, eps)
+    upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+    if weight_decay > 0:
+        torch._foreach_add_(upd, torch._foreach_mul(params, weight_decay))
+    torch._foreach_mul_(upd, -lr)
+    torch._foreach_add_(params, upd)
+    return count + 1
 
 
 def make_optimizer(cfg: NerfTrainConfig) -> Adam:

@@ -1,0 +1,358 @@
+"""SurfEmb descriptor training (counterpart of train/pose_trainer.py).
+
+1. **Negative keys** (``build_negatives``): surface hits over ``n_loops``
+   passes of every view (K1), FPS, keep |x| < ``neg_bound``, keep points
+   within ``neg_mesh_dist`` of the surface cloud (K2).
+2. **Contrastive training** (``train_pose``), one eager step a batch of
+   views:
+   * augment the views (train/augment.py) and move their ray xys with them,
+   * CNN queries: ResNet-UNet -> 12-d map + mask logit, read at the
+     augmented xys of ``sample_size`` sampled front hits,
+   * keys: the NeRF feature head at those hits; negatives: the feature head
+     at jittered negative keys,
+   * loss = InfoNCE(q, k, neg) * infonce_scale + BCE(mask) * mask_loss_scale,
+   * Adam per group (``PoseOptimizer``): the CNN at ``lr_cnn``, the feature
+     head at ``lr_mlp`` (AdamW with ``head_weight_decay``), each rate with
+     a linear warmup; the rest of the NeRF stays frozen.
+
+f32 matmuls and convolutions run without TF32.  Random draws come from a
+generator seeded with (seed, step), or are passed in (``draws``), so tests
+can replay the reference's ``jax.random`` streams and a resumed run draws
+what the uninterrupted one drew.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import PoseTrainConfig
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import no_tf32, of_module
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models import fields
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import ResNetUNet
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pointcloud as pc
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.grid_sample import grid_sample
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts, surface_sampling
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment as aug_lib
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train.nerf_trainer import (
+    adam_update_,
+    step_generator,
+)
+
+
+def info_nce_with_neg(q: torch.Tensor, k: torch.Tensor, k_neg: torch.Tensor, scale: float = 1e-3,
+                      temp: float = 1.0) -> torch.Tensor:
+    """Per positive pair, the cross entropy of [q.k, q @ k_neg^T] / temp
+    against class 0, averaged and times ``scale``.  q, k (B, P, E); k_neg
+    (B, N, E)."""
+    sim_pos = (q * k).sum(-1, keepdim=True)
+    with no_tf32():
+        sim_neg = torch.einsum("bpe,bne->bpn", q, k_neg)
+    lgts = torch.cat([sim_pos, sim_neg], -1)
+    if temp != 1.0:
+        lgts = lgts / temp
+    return (torch.logsumexp(lgts, -1) - lgts[..., 0]).mean() * scale
+
+
+def info_nce_in_batch(q: torch.Tensor, k: torch.Tensor, perm: torch.Tensor, neg_frac: float = 1.0,
+                      scale: float = 1e-3) -> torch.Tensor:
+    """In-batch negatives: the positives' own keys at the first
+    ``neg_frac`` of the permutation ``perm`` (P,) serve as the negatives."""
+    n_neg = int(k.shape[1] * neg_frac)
+    return info_nce_with_neg(q, k, k[:, perm[:n_neg]], scale)
+
+
+def _sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """optax.sigmoid_binary_cross_entropy, elementwise."""
+    return -(labels * F.logsigmoid(logits) + (1.0 - labels) * F.logsigmoid(-logits))
+
+
+def build_negatives(field, R_bop, t_bop, K, sils, mverts, cfg: PoseTrainConfig, image_size: int = 224,
+                    rays_per_image: int = 50, n_loops: int = 20, threshold: float = 0.2,
+                    generator: torch.Generator | None = None, draws=None, device=None) -> torch.Tensor:
+    """The negative keys (M, 3) on the field's device (``device``, the card
+    unless named): surface hits of ``n_loops`` passes (draws from
+    ``generator`` or ``draws``, as ``surface_sampling.sample_surface_hits``
+    takes them), FPS to ``cfg.n_neg``, the bound and mesh filters."""
+    dev = of_module(field, device)
+    hits = surface_sampling.sample_surface_hits(
+        field, R_bop, t_bop, K, sils, n_loops=n_loops, rays_per_image=rays_per_image, image_size=image_size,
+        threshold=threshold, generator=generator, draws=draws,
+    )
+    if hits.shape[0] < 10:
+        raise RuntimeError(
+            f"negative-key build collected only {hits.shape[0]} surface hits — the NeRF density is too weak "
+            "at this threshold (train longer or lower the threshold)"
+        )
+    neg = hits[pc.farthest_point_sampling(hits, min(cfg.n_neg, hits.shape[0]))]
+    neg = neg[neg.abs().amax(-1) < cfg.neg_bound]
+    d, _ = pc.nn_query(neg, torch.as_tensor(np.asarray(mverts), dtype=torch.float32, device=dev))
+    neg = neg[d < cfg.neg_mesh_dist]
+    if neg.shape[0] < 10:
+        raise RuntimeError(
+            f"negative-key build kept only {neg.shape[0]} points after the bound/mesh filters (bound "
+            f"{cfg.neg_bound}, mesh dist {cfg.neg_mesh_dist}) — surface cloud and hits disagree"
+        )
+    return neg
+
+
+class RayBank(NamedTuple):
+    """Per-view front and back hits, padded to a common count per view."""
+
+    pos_vec: torch.Tensor   # (V, M, 3)
+    xys: torch.Tensor       # (V, M, 2)
+    back_vec: torch.Tensor  # (V, Mb, 3)
+    back_xys: torch.Tensor  # (V, Mb, 2)
+    valid: torch.Tensor     # (V, M) bool
+    back_valid: torch.Tensor
+
+
+def load_ray_bank(cors_dir: str, render_size: int, n_views: int, max_rays: Optional[int] = None,
+                  bucket: int = 2048, device=None) -> RayBank:
+    """The correspondence files of ``n_views`` views as a ``RayBank`` on
+    ``device`` (the card unless named), each view padded to ``max_rays``
+    or to the largest view's count rounded up to a multiple of ``bucket``
+    (the reference's stable shapes; the padding is never sampled)."""
+    dev = resolve_device(device)
+    pos, xys, bxys, bvec = [], [], [], []
+    for i in range(n_views):
+        x, p, bx, bv = artifacts.load_view_rays(cors_dir, render_size, i)
+        xys.append(x)
+        pos.append(p)
+        bxys.append(bx)
+        bvec.append(bv)
+
+    def rounded(m):
+        return int(np.ceil(max(m, 1) / bucket) * bucket) if bucket > 1 else max(m, 1)
+
+    M = max_rays or rounded(max(p.shape[0] for p in pos))
+    Mb = max_rays or rounded(max(b.shape[0] for b in bvec))
+
+    def padto(arrs, m, dim):
+        out = np.zeros((n_views, m, dim), np.float32)
+        val = np.zeros((n_views, m), bool)
+        for i, a in enumerate(arrs):
+            k = min(a.shape[0], m)
+            out[i, :k] = a[:k]
+            val[i, :k] = True
+        return torch.as_tensor(out, device=dev), torch.as_tensor(val, device=dev)
+
+    pos_p, valid = padto(pos, M, 3)
+    xys_p, _ = padto(xys, M, 2)
+    bvec_p, bvalid = padto(bvec, Mb, 3)
+    bxys_p, _ = padto(bxys, Mb, 2)
+    return RayBank(pos_p, xys_p, bvec_p, bxys_p, valid, bvalid)
+
+
+class PoseAdamState(NamedTuple):
+    """Adam moments of the feature head's and the CNN's parameters (in
+    ``head_params`` / ``cnn.parameters()`` order) and the update count."""
+
+    count: int
+    head_mu: list
+    head_nu: list
+    cnn_mu: list
+    cnn_nu: list
+
+
+class PoseTrainState(NamedTuple):
+    field: fields.NerfField      # its feature head trains, the rest is frozen
+    cnn: ResNetUNet
+    opt: PoseAdamState
+    step: int
+
+
+def head_params(field: fields.NerfField) -> list:
+    """The field's parameters that descriptor training updates: the feature
+    head (``freeze_spec(train_feature_head=True)``)."""
+    labels = fields.freeze_spec(train_feature_head=True)(field)
+    return [p for n, p in field.named_parameters() if labels[n] == "train"]
+
+
+class PoseOptimizer:
+    """The reference's ``make_pose_optimizer``: Adam on the CNN at
+    ``lr_cnn`` and on the feature head at ``lr_mlp`` (AdamW when
+    ``head_weight_decay`` > 0), each rate ``base * min((count + 1) /
+    warmup_steps, 1)`` in f32; the frozen parameters never move."""
+
+    def __init__(self, cfg: PoseTrainConfig):
+        self.cfg = cfg
+
+    def learning_rate(self, base: float, count: int) -> float:
+        f = np.float32
+        return float(f(base) * np.minimum(f(count + 1) / f(self.cfg.warmup_steps), f(1)))
+
+    def init(self, field: fields.NerfField, cnn: ResNetUNet) -> PoseAdamState:
+        zeros = lambda ps: [torch.zeros_like(p) for p in ps]  # noqa: E731
+        head, net = head_params(field), list(cnn.parameters())
+        return PoseAdamState(0, zeros(head), zeros(head), zeros(net), zeros(net))
+
+    def update(self, field: fields.NerfField, cnn: ResNetUNet, opt: PoseAdamState) -> PoseAdamState:
+        """One update of both groups from their ``.grad``s; the moments change
+        in place."""
+        c, n = self.cfg, opt.count
+        head, net = head_params(field), list(cnn.parameters())
+        adam_update_(head, [p.grad for p in head], opt.head_mu, opt.head_nu, n, self.learning_rate(c.lr_mlp, n),
+                     c.head_weight_decay)
+        adam_update_(net, [p.grad for p in net], opt.cnn_mu, opt.cnn_nu, n, self.learning_rate(c.lr_cnn, n))
+        return opt._replace(count=n + 1)
+
+
+def make_pose_optimizer(cfg: PoseTrainConfig) -> PoseOptimizer:
+    return PoseOptimizer(cfg)
+
+
+def init_pose_state(field: fields.NerfField, cfg: PoseTrainConfig, cnn: Optional[ResNetUNet] = None,
+                    generator: torch.Generator | None = None, device=None) -> PoseTrainState:
+    """A fresh state on ``device`` (the card unless named) with copies of
+    ``field`` and of ``cnn`` (default: a full-width ResNetUNet drawn from
+    ``generator``); the callers' modules are not changed."""
+    dev = resolve_device(device)
+    net = copy.deepcopy(cnn) if cnn is not None else ResNetUNet().reset_parameters(generator)
+    f, net = copy.deepcopy(field).to(dev), net.to(dev)
+    return PoseTrainState(f, net, make_pose_optimizer(cfg).init(f, net), 0)
+
+
+class PoseDraws(NamedTuple):
+    """One step's draws for a batch of B views, ``n = sample_size``.  In
+    brackets the reference's key path from the step key:
+    ``(k_aug, k_sel, k_noise) = split(key, 3)``."""
+
+    aug: aug_lib.AugmentDraws        # split(k_aug, B)[b] per view (k_aug after the pick's split)
+    pick: Optional[torch.Tensor]     # (B,) distractor bank rows [split(k_aug) -> k_pick], or None
+    sel: Optional[torch.Tensor]      # (B, n) sampled rays [split(k_sel, B)]; None: drawn in the step
+    pos_noise: Optional[torch.Tensor]  # (B, n, 3) normal [split(k_noise) -> k_pos]; None if unused
+    neg_idx: torch.Tensor            # (B, n) negative rows [k_noise' -> split -> k_pick]
+    neg_jitter: torch.Tensor         # (B, n, 3) normal [... -> k_jitter]
+
+
+def draw_pose_step(generator: torch.Generator, B: int, S: int, n_neg: int, cfg: PoseTrainConfig,
+                   aug_cfg: aug_lib.AugmentConfig, n_bg: int = 0, n_distractors: int = 0) -> PoseDraws:
+    """One step's ``PoseDraws`` from ``generator`` on its device, ``sel``
+    left to the step (it depends on the augmented xys)."""
+    dev = generator.device
+    n = cfg.sample_size
+    pick = torch.randint(0, n_distractors, (B,), generator=generator, device=dev) if n_distractors else None
+    aug = aug_lib.draw_augment(generator, B, S, aug_cfg, n_bank=n_bg)
+    pos = torch.randn((B, n, 3), generator=generator, device=dev) if cfg.pos_noise > 0 else None
+    neg_idx = torch.randint(0, n_neg, (B, n), generator=generator, device=dev)
+    return PoseDraws(aug, pick, None, pos, neg_idx, torch.randn((B, n, 3), generator=generator, device=dev))
+
+
+def pose_train_step(state: PoseTrainState, opt: PoseOptimizer, images, sils, pos_vec, xys, valid, neg_pts,
+                    cfg: PoseTrainConfig, aug_cfg: aug_lib.AugmentConfig, draws: PoseDraws,
+                    generator: torch.Generator | None = None, bg_bank=None, distractor_bank=None):
+    """One descriptor step on a batch: images (B, S, S, 3), sils (B, S, S),
+    its ray bank rows pos_vec (B, M, 3), xys (B, M, 2), valid (B, M), the
+    negative keys (Nn, 3).  ``draws.sel`` None draws the sampled rays from
+    ``generator``.  The state's modules and moments change in place.
+    Returns (new state, loss, {"nce", "bce"}), all on the device."""
+    field, cnn = state.field, state.cnn
+    d = draws
+    distractor = None
+    if aug_cfg.p_distractor > 0:
+        if distractor_bank is not None:
+            distractor = (distractor_bank[0][d.pick], distractor_bank[1][d.pick])
+        else:
+            distractor = (torch.roll(images, 1, 0), torch.roll(sils, 1, 0))
+    aug = aug_lib.augment_view(images, sils, aug_cfg, d.aug, distractor, bg_bank)
+    new_xys = aug_lib.transform_xys(xys, aug.A, aug.t)
+    sel = d.sel if d.sel is not None else aug_lib.select_ray_samples(new_xys, valid, cfg.sample_size, generator)
+    sel_xys = new_xys.gather(1, sel[..., None].expand(-1, -1, 2))
+    sel_pos = pos_vec.gather(1, sel[..., None].expand(-1, -1, 3))
+    if cfg.pos_noise > 0:
+        sel_pos = sel_pos + d.pos_noise * cfg.pos_noise
+    neg = neg_pts[d.neg_idx] + d.neg_jitter * cfg.key_noise
+
+    trained = head_params(field) + list(cnn.parameters())
+    for p in trained:
+        p.grad = None
+    with torch.enable_grad(), no_tf32():
+        feat_full = cnn(aug.rgb)                                            # (B, S, S, 13)
+        queries = grid_sample(feat_full[..., :12], -sel_xys, mode="nearest")
+        nce = info_nce_with_neg(queries, field.features(sel_pos), field.features(neg), cfg.infonce_scale,
+                                temp=cfg.infonce_temp)
+        bce = _sigmoid_bce(feat_full[..., -1], aug.mask_full).mean() * cfg.mask_loss_scale
+        loss = nce + bce
+        loss.backward()
+    new_opt = opt.update(field, cnn, state.opt)
+    return state._replace(opt=new_opt, step=state.step + 1), loss.detach(), {"nce": nce.detach(),
+                                                                             "bce": bce.detach()}
+
+
+def view_schedule(n_views: int, batch: int, n_steps: int, seed: int) -> np.ndarray:
+    """(n_steps, batch) view indices: a fresh ``default_rng(seed)``
+    permutation a step, cut to the batch (or cycled up to it)."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.permutation(n_views)[:batch] if n_views >= batch else
+                     np.resize(rng.permutation(n_views), batch) for _ in range(n_steps)])
+
+
+def train_pose(field, images, sils, ray_bank: RayBank, neg_pts, cfg: PoseTrainConfig = PoseTrainConfig(),
+               aug_cfg: Optional[aug_lib.AugmentConfig] = None, n_steps: int = 1000, seed: int = 1,
+               cnn: Optional[ResNetUNet] = None, log_every: int = 0, on_checkpoint: Callable | None = None,
+               resume_state: Optional[PoseTrainState] = None, bg_bank=None, distractor_bank=None, device=None,
+               draws: Callable | None = None):
+    """Descriptor training on one half: images (V, S, S, 3), sils (V, S, S)
+    as numpy arrays or tensors, its ``RayBank`` and the negative keys.
+
+    The state starts from ``resume_state``, else from copies of ``field``
+    and ``cnn`` (default: a full-width ResNetUNet drawn from ``seed``).
+    ``n_steps`` is the TOTAL step target: a resumed run continues from its
+    state's step with the schedule and draws the uninterrupted run would
+    have used, exactly.  Batches follow ``view_schedule(seed)``; a step's
+    draws come from a generator seeded with (seed, step), unless
+    ``draws(step)`` supplies a ``PoseDraws``.  ``on_checkpoint(state,
+    step)`` runs after every ``cfg.ckpt_every``-th step and after the last.
+    ``distractor_bank`` = ((D, S, S, 3), (D, S, S)) of other objects to
+    paste (default: the batch's own views, rolled by one); ``bg_bank`` (N,
+    S, S, 3) backgrounds.  Runs on ``device``, the card unless named.
+    Returns (state, per-step losses of this run as floats)."""
+    dev = resolve_device(device)
+    as_t = lambda x: torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,  # noqa: E731
+                                     dtype=torch.float32).to(dev)
+    images, sils, neg_pts = as_t(images), as_t(sils), as_t(neg_pts)
+    n, S = images.shape[0], images.shape[1]
+    if aug_cfg is None:
+        aug_cfg = aug_lib.AugmentConfig(crop_res=S, min_mask_sum=10.0,
+                                        p_distractor=0.3 if distractor_bank is not None else 0.0)
+    elif distractor_bank is not None and aug_cfg.p_distractor <= 0:
+        raise ValueError(
+            "distractor_bank was given but aug_cfg.p_distractor is 0 — the bank would never be used; set "
+            "p_distractor > 0 or drop the bank"
+        )
+    if bg_bank is not None:
+        bg_bank = as_t(bg_bank)
+    if distractor_bank is not None:
+        distractor_bank = tuple(as_t(a) for a in distractor_bank)
+    state = resume_state if resume_state is not None else init_pose_state(
+        field, cfg, cnn, torch.Generator().manual_seed(seed), device=dev)
+    opt = make_pose_optimizer(cfg)
+    bs = min(cfg.batch_size, n)
+    schedule = view_schedule(n, bs, n_steps, seed)
+    n_bg = 0 if bg_bank is None else bg_bank.shape[0]
+    n_dis = 0 if distractor_bank is None else distractor_bank[0].shape[0]
+    losses = []
+    for i in range(state.step, n_steps):
+        idx = torch.as_tensor(schedule[i], device=dev)
+        gen = None
+        if draws is not None:
+            step_draws = draws(i)
+        else:
+            gen = step_generator(seed, i, dev)
+            step_draws = draw_pose_step(gen, bs, S, neg_pts.shape[0], cfg, aug_cfg, n_bg, n_dis)
+        state, loss, _ = pose_train_step(state, opt, images[idx], sils[idx], ray_bank.pos_vec[idx],
+                                         ray_bank.xys[idx], ray_bank.valid[idx], neg_pts, cfg, aug_cfg,
+                                         step_draws, gen, bg_bank, distractor_bank)
+        losses.append(loss)
+        done = i + 1
+        if log_every and done % log_every == 0:
+            print(f"pose step {done}: loss={float(loss):.5f}")
+        if on_checkpoint is not None and (done % cfg.ckpt_every == 0 or done == n_steps):
+            on_checkpoint(state, done)
+    return state, torch.stack(losses).tolist() if losses else []

@@ -354,3 +354,114 @@ def test_field_color_autograd_on_card_matches_plain(cuda, embed, monkeypatch):
             continue
         s = max(float(b.abs().max()), 1e-3)
         assert float((a - b).abs().max()) / s < 3e-2, key
+
+
+# ------------------------------------------- the correspondence stage's shapes
+
+
+def _silhouette_rays(cuda, S=224, P=256):
+    """The front pass of one synthetic view: rays through its silhouette's
+    pixels (~15,000 at 224 px) x 256 depths, as generate_cors builds them."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import generate_cors
+
+    scene = synthetic.make_scene(2, S, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    cam = cam_lib.camera_from_bop(scene.R_bop, scene.t_bop, scene.K, S)[0]
+    pix = torch.as_tensor(generate_cors.silhouette_pixels(scene.sils[0].cpu().numpy()), device=cuda)
+    z = scene.t_bop[:, 2].abs()
+    bundle = cam_lib.rays_at_pixels(cam, pix, S, P, float(z.min()) - 2.0, float(z.max()) + 2.0)
+    return cam_lib.ray_points(bundle).reshape(-1, 3).contiguous()
+
+
+def test_density_kernel_at_front_pass_batch(cuda):
+    cfg = FieldConfig(act_dtype="bfloat16")
+    f = NerfField(cfg).reset_parameters(torch.Generator().manual_seed(2))
+    torch.nn.init.zeros_(f.density_layer.bias)
+    f = f.to(cuda)
+    pts = _silhouette_rays(cuda)
+    assert pts.shape[0] > 1_000_000
+    w = field_kernel.density_weights(f)
+    got = field_kernel.density_cuda(pts, w, 0, cfg.softplus_beta)
+    want = torch.cat([field_kernel.density_plain(p, w, 0, cfg.softplus_beta) for p in torch.split(pts, 262144)])
+    err = (got - want).abs()
+    assert float(want.std()) > 1e-3
+    assert float(err.max()) < 2e-2 and float((err > 1e-4).float().mean()) < 2e-3
+    assert torch.equal(got, field_kernel.density_cuda(pts, w, 0, cfg.softplus_beta))
+
+
+def test_nn_kernel_at_mesh_filter_shape(cuda):
+    """A view's front hits (~15,000 queries) against a denoised surface of
+    ~40,000 vertices, masked: bit-identical to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((15_013, 3), generator=g, device=cuda) * 0.3
+    v = torch.randn((40_021, 3), generator=g, device=cuda)
+    ref = 0.5 * v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    mask = torch.rand((40_021,), generator=g, device=cuda) > 0.05
+    for m in (None, mask):
+        d_k, i_k = point_kernels.nn_min_cuda(q, ref, m)
+        d_p, i_p = point_kernels.nn_min_plain(q, ref, m)
+        assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+
+
+def test_pose_train_step_on_card_matches_cpu(cuda):
+    """One descriptor step on the card and on the CPU from copies of one
+    state with the same draws (an f32 three-stage UNet at 64 px): loss to
+    1e-5 rel, grads per tensor within 1e-3 of its max |g| plus 1e-5 of the
+    max over all, params after the step as that grad bar allows."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import PoseTrainConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import ResNetUNet
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment as aug_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import pose_trainer
+
+    S, B, M = 64, 2, 200
+    cfg = PoseTrainConfig(batch_size=B, sample_size=64, warmup_steps=2, infonce_scale=1.0, mask_loss_scale=1.0)
+    aug_cfg = aug_lib.AugmentConfig(crop_res=S, min_mask_sum=10.0, p_distractor=0.5)
+    scene = synthetic.make_scene(B, S, torch.Generator().manual_seed(1), device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    xys = torch.rand((B, M, 2), generator=gen) * 2.2 - 1.1
+    pos = torch.randn((B, M, 3), generator=gen) * 0.4
+    valid = torch.rand((B, M), generator=gen) > 0.2
+    neg = torch.randn((300, 3), generator=gen) * 0.4
+    field = NerfField(FieldConfig(n_harmonic_functions=8, n_hidden=48))
+    field.reset_parameters(torch.Generator().manual_seed(3))
+    cnn = ResNetUNet(widths=(8, 16, 16), stage_sizes=(1, 1, 1), decoder_width=8, dtype=torch.float32)
+    cpu_state = pose_trainer.init_pose_state(field, cfg, cnn.reset_parameters(torch.Generator().manual_seed(4)),
+                                             device="cpu")
+    card_state = pose_trainer.init_pose_state(cpu_state.field, cfg, cpu_state.cnn, device=cuda)
+    draws = pose_trainer.draw_pose_step(torch.Generator().manual_seed(6), B, S, neg.shape[0], cfg, aug_cfg)
+    images, sils = scene.images, scene.sils
+    aug = aug_lib.augment_view(images, sils, aug_cfg, draws.aug, (torch.roll(images, 1, 0), torch.roll(sils, 1, 0)))
+    sel = aug_lib.select_ray_samples(aug_lib.transform_xys(xys, aug.A, aug.t), valid, cfg.sample_size,
+                                     torch.Generator().manual_seed(7))
+    draws = draws._replace(sel=sel)
+
+    def to(x):
+        if isinstance(x, tuple):
+            return type(x)(*(to(y) for y in x))
+        return x.to(cuda) if torch.is_tensor(x) else x
+
+    opt = pose_trainer.make_pose_optimizer(cfg)
+    args = (images, sils, pos, xys, valid, neg)
+    cpu_state, loss_c, _ = pose_trainer.pose_train_step(cpu_state, opt, *args, cfg, aug_cfg, draws)
+    card_state, loss_g, _ = pose_trainer.pose_train_step(card_state, opt, *(to(a) for a in args), cfg, aug_cfg,
+                                                         to(draws))
+    torch.cuda.synchronize()
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    pairs = [(n, a, b) for mod in ("cnn", "field") for (n, a), (_, b) in
+             zip(getattr(cpu_state, mod).named_parameters(), getattr(card_state, mod).named_parameters())
+             if a.grad is not None]
+    g_all = max(float(a.grad.abs().max()) for _, a, _ in pairs)
+    for n, a, b in pairs:
+        delta = 1e-3 * float(a.grad.abs().max()) + 1e-5 * g_all
+        assert float((b.grad.cpu() - a.grad).abs().max()) <= delta, n
+        # Adam's first step moves each param by rate * g / (|g| + eps): a grad
+        # error delta moves that by at most delta * eps / (|g| - delta + eps)^2
+        # of the rate (so up to the whole rate where |g| is near eps)
+        rate = opt.learning_rate(cfg.lr_mlp if n.startswith("feature_layer") else cfg.lr_cnn, 0)
+        eps = 1e-8
+        near = (a.grad.abs() - delta).clamp_min(0.0) + eps
+        bar = 1e-6 + rate * torch.clamp(delta * eps / near ** 2, max=2.0)
+        assert bool(((b.detach().cpu() - a.detach()).abs() <= bar).all()), n
+    assert card_state.step == cpu_state.step == 1

@@ -1,0 +1,432 @@
+"""Descriptor training, the port against the JAX reference at a small size
+(32 px views, a 48-hidden field, a three-stage f32 ResNet-UNet, 2
+views a batch x 32 samples): the augmentation ops, InfoNCE, and whole
+``train_pose`` steps from a state carried across by ``convert``.  Every
+random draw is the reference's, made along its key path with
+``jax.random`` here and handed to the port as ``PoseDraws``:
+
+    PRNGKey(seed) -> split -> (k_init, key); fold_in(key, done) per call,
+    split per step -> step key -> (k_aug, k_sel, k_noise)
+    k_aug -> split(., B)[b] -> split(., 18): the view's augment draws
+    k_sel -> split(., B)[b]: categorical over the augmented in-bounds rays
+    k_noise -> (k_noise', k_pos); k_noise' -> (k_pick, k_jitter)
+"""
+
+import copy
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu.config import FieldConfig, PoseTrainConfig
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu.data import synthetic as jsyn
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu.models import fields as jfields
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu.models.unet import ResNetUNet as JUNet
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu.train import augment as jaug
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu.train import pose_trainer as jpt
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import config as tconfig
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import convert
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models import fields as tfields
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import ResNetUNet as TUNet
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment as taug
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import pose_trainer as tpt
+
+torch.set_num_threads(1)
+
+S, B, V, NS, M = 32, 2, 4, 32, 64
+SEED = 3
+# three stages: the deepest map is 2 x 2, so each GroupNorm group holds 8 values
+UNET = dict(widths=(8, 16, 16), stage_sizes=(1, 1, 1), decoder_width=8)
+AUG = jaug.AugmentConfig(crop_res=S, min_mask_sum=10.0, p_distractor=0.5, scale_jitter=0.15, trans_frac=0.2)
+# unit loss scales (the reference's are 1e-3): grads well above Adam's eps
+POSE = PoseTrainConfig(batch_size=B, sample_size=NS, warmup_steps=3, ckpt_every=1, infonce_scale=1.0,
+                       mask_loss_scale=1.0)
+FIELD = FieldConfig(n_harmonic_functions=8, n_hidden=48)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _port_cfg(cfg):
+    return getattr(tconfig, type(cfg).__name__)(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+
+
+@functools.lru_cache(maxsize=None)
+def _aug_draws_fn(cfg, bank: int):
+    """jitted: the reference's augment_view draws of a batch of view keys."""
+
+    def one(kb):
+        k = jax.random.split(kb, 18)
+        u = jax.random.uniform
+        kj, ki = jax.random.split(k[9], 3), jax.random.split(k[16], 4)
+        j, tf = cfg.scale_jitter, cfg.trans_frac
+        return dict(
+            rot=u(k[0]), scale=u(k[1], minval=1 - j, maxval=1 + j), trans=u(k[2], (2,), minval=-tf, maxval=tf),
+            occlude=jnp.stack([u(x) for x in jax.random.split(k[3], 4)]), occlude_on=u(k[4]),
+            line=jnp.stack([u(x) for x in jax.random.split(k[5], 3)]), line_on=u(k[6]),
+            background=(jax.random.randint(k[7], (), 0, bank) if bank else u(k[7], (8, 8, 3))),
+            background_on=u(k[8]), gain=u(kj[0], (3,), minval=0.8, maxval=1.2),
+            bias=u(kj[1], (3,), minval=-0.08, maxval=0.08), gamma=u(kj[2], minval=0.8, maxval=1.25),
+            jitter_on=u(k[10]), border_on=u(k[11]),
+            shift=jax.random.randint(jax.random.split(k[12])[0], (2,), -S // 2, S // 2),
+            distractor_on=u(k[13]), sigma=u(k[14], minval=0.3, maxval=1.0), blur_on=u(k[15]),
+            iso_intensity=u(ki[0], minval=0.1, maxval=0.5), iso_shift=u(ki[1], minval=0.01, maxval=0.05),
+            iso_luma=jax.random.normal(ki[2], (S, S, 1)), iso_chroma=jax.random.normal(ki[3], (S, S, 3)),
+            iso_on=u(k[17]))
+
+    return jax.jit(jax.vmap(one))
+
+
+def aug_draws(view_keys, cfg=AUG, bank: int = 0) -> taug.AugmentDraws:
+    """The reference's augment_view draws for each view key, stacked."""
+    got = _aug_draws_fn(cfg, bank)(view_keys)
+    return taug.AugmentDraws(**{f: _t(got[f]) for f in taug.AugmentDraws._fields})
+
+
+@functools.lru_cache(maxsize=None)
+def _augment_fn(cfg, with_bank: bool):
+    """jitted: the reference's augment_view over a batch, rolled-view
+    distractors."""
+
+    def run(keys, images, sils, bank):
+        dis = (jnp.roll(images, 1, 0), jnp.roll(sils, 1, 0))
+        return jax.vmap(jaug.augment_view, in_axes=(0, 0, 0, None, (0, 0), None))(
+            keys, images, sils, cfg, dis, bank if with_bank else None)
+
+    return jax.jit(run)
+
+
+@functools.lru_cache(maxsize=None)
+def _select_fn(n: int):
+    return jax.jit(lambda keys, xys, A, t, valid: jax.vmap(jaug.select_ray_samples, in_axes=(0, 0, 0, None))(
+        keys, jax.vmap(jaug.transform_xys)(xys, A, t), valid, n))
+
+
+def step_draws(key, images, sils, xys, valid, n_neg, cfg=POSE, aug_cfg=AUG) -> tpt.PoseDraws:
+    """The reference step's draws from its step key (rolled-view
+    distractors, no banks)."""
+    k_aug, k_sel, k_noise = jax.random.split(key, 3)
+    keys = jax.random.split(k_aug, images.shape[0])
+    aug = _augment_fn(aug_cfg, False)(keys, images, sils, None)
+    sel = _select_fn(cfg.sample_size)(jax.random.split(k_sel, images.shape[0]), xys, aug.A, aug.t, valid)
+    k_noise, _ = jax.random.split(k_noise)
+    k_pick, k_jitter = jax.random.split(k_noise)
+    shape = (images.shape[0], cfg.sample_size)
+    return tpt.PoseDraws(aug_draws(keys, aug_cfg), None, _t(sel).long(), None,
+                         _t(jax.random.randint(k_pick, shape, 0, n_neg)).long(),
+                         _t(jax.random.normal(k_jitter, shape + (3,))))
+
+
+@pytest.fixture(scope="module")
+def data():
+    scene = jsyn.make_scene(n_views=V, image_size=S, key=jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    xys = rng.uniform(-1.1, 1.1, (V, M, 2)).astype(np.float32)
+    return dict(images=np.array(scene.images), sils=np.array(scene.sils), xys=xys,
+                pos=(rng.normal(size=(V, M, 3)) * 0.4).astype(np.float32), valid=rng.uniform(size=(V, M)) > 0.2,
+                neg=(rng.normal(size=(50, 3)) * 0.4).astype(np.float32))
+
+
+# ----------------------------------------------------------------- the ops
+
+
+def test_augment_config_matches_reference():
+    assert taug.AugmentConfig._fields == jaug.AugmentConfig._fields
+    assert taug.AugmentConfig() == tuple(jaug.AugmentConfig())
+
+
+def test_augment_view_with_replayed_draws(data):
+    """Every output of a batch of augmented views, with distractors and with a
+    background bank: the ops are elementwise and gathers, so only f32
+    roundings in another order remain (the rgb's pow, exp, sqrt)."""
+    idx = np.array([1, 3])
+    img, sil = jnp.asarray(data["images"][idx]), jnp.asarray(data["sils"][idx])
+    bank = np.random.default_rng(1).uniform(size=(5, S, S, 3)).astype(np.float32)
+    for n_bank in (0, 5):
+        keys = jax.random.split(jax.random.PRNGKey(11 + n_bank), 2)
+        dis = (jnp.roll(img, 1, 0), jnp.roll(sil, 1, 0))
+        want = _augment_fn(AUG, bool(n_bank))(keys, img, sil, jnp.asarray(bank) if n_bank else None)
+        got = taug.augment_view(_t(img), _t(sil), taug.AugmentConfig(*AUG), aug_draws(keys, bank=n_bank),
+                                (_t(dis[0]), _t(dis[1])), _t(bank) if n_bank else None)
+        for f in jaug.Augmented._fields:
+            np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)), atol=2e-5, err_msg=f)
+
+
+def test_warp_ops_match_reference():
+    """The packed warp against the reference's, and against the port's own
+    three separate warps.  A nearest tap may flip only where the source
+    coordinate sits within 1e-4 of a pixel edge (A's inverse is a closed
+    form here, an LU solve there)."""
+    rng = np.random.default_rng(2)
+    rgb = rng.uniform(size=(3, S, S, 3)).astype(np.float32)
+    mf = (rng.uniform(size=(3, S, S)) > 0.5).astype(np.float32)
+    mc = mf * (rng.uniform(size=(3, S, S)) > 0.3)
+    th = rng.uniform(0, 2 * np.pi, 3)
+    A = (np.stack([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]]).transpose(2, 0, 1)
+         * rng.uniform(0.7, 1.4, (3, 1, 1))).astype(np.float32)
+    t = rng.uniform(-0.2, 0.2, (3, 2)).astype(np.float32)
+    want = [np.asarray(x) for x in jax.jit(jax.vmap(jaug.warp_all_ndc))(*map(jnp.asarray, (rgb, mf, mc, A, t)))]
+    got = [x.numpy() for x in taug.warp_all_ndc(*map(_t, (rgb, mf, mc, A, t)))]
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5)
+    px, py = (x.numpy() for x in taug._source_pixels(_t(A), _t(t), S))
+    edge = (np.abs(px - np.round(px)) < 1e-4) | (np.abs(py - np.round(py)) < 1e-4)
+    for g, w in zip(got[1:], want[1:]):
+        assert ((g != w) <= edge).all()
+    sep = taug.warp_affine_ndc(_t(rgb), _t(A), _t(t))
+    np.testing.assert_allclose(sep.numpy(), got[0], atol=1e-6)
+    near = taug.warp_affine_ndc(_t(mf), _t(A), _t(t), nearest=True).numpy()
+    assert ((near != got[1]) <= edge).all()
+    ref_near = np.asarray(jax.jit(jax.vmap(lambda m, a, b: jaug.warp_affine_ndc(m, a, b, nearest=True)))(
+        jnp.asarray(mf), jnp.asarray(A), jnp.asarray(t)))
+    assert ((near != ref_near) <= edge).all()
+
+
+def test_blur_noise_and_xys_transform_match_reference():
+    rng = np.random.default_rng(4)
+    img = rng.uniform(size=(2, S, S, 3)).astype(np.float32)
+    sigma = np.array([0.3, 0.9], np.float32)
+    want = np.asarray(jax.jit(jax.vmap(jaug.gaussian_blur3))(jnp.asarray(img), jnp.asarray(sigma)))
+    np.testing.assert_allclose(taug.gaussian_blur3(_t(img), _t(sigma)).numpy(), want, atol=1e-6)
+    keys = jax.random.split(jax.random.PRNGKey(5), 2)
+    # augment_view's ISO noise key is split(key, 18)[16]
+    iso = jax.jit(jax.vmap(lambda k, x: jaug.iso_noise(jax.random.split(k, 18)[16], x)))
+    want = np.asarray(iso(keys, jnp.asarray(img)))
+    d = aug_draws(keys)
+    got = taug.iso_noise(_t(img), d.iso_intensity, d.iso_shift, d.iso_luma, d.iso_chroma).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    xys = rng.uniform(-1, 1, (2, 7, 2)).astype(np.float32)
+    A = rng.normal(size=(2, 2, 2)).astype(np.float32)
+    t = rng.normal(size=(2, 2)).astype(np.float32)
+    want = np.asarray(jax.vmap(jaug.transform_xys)(*map(jnp.asarray, (xys, A, t))))
+    np.testing.assert_allclose(taug.transform_xys(*map(_t, (xys, A, t))).numpy(), want, atol=1e-6)
+
+
+def test_select_ray_samples_support():
+    """The port draws from the reference's distribution: uniform over the
+    valid in-bounds rays, ray 0 alone when there are none."""
+    xys = np.array([[[0.5, 0.2], [1.2, 0.0], [-0.3, -0.99], [0.1, 0.1]],
+                    [[1.5, 0.0], [0.0, -1.5], [2.0, 2.0], [1.0, 0.0]]], np.float32)
+    valid = np.array([[True, True, True, False], [True, True, True, True]])
+    got = taug.select_ray_samples(_t(xys), _t(valid), 400, torch.Generator().manual_seed(0)).numpy()
+    want = np.stack([np.asarray(jaug.select_ray_samples(jax.random.PRNGKey(i), jnp.asarray(xys[i]),
+                                                        jnp.asarray(valid[i]), 400)) for i in range(2)])
+    for g, w in zip(got, want):
+        assert set(g.tolist()) == set(w.tolist())
+    assert set(got[0].tolist()) == {0, 2} and set(got[1].tolist()) == {0}
+
+
+def test_info_nce_matches_reference():
+    rng = np.random.default_rng(6)
+    q, k = rng.normal(size=(2, 2, 5, 4)).astype(np.float32)
+    kn = rng.normal(size=(2, 7, 4)).astype(np.float32)
+    for temp in (1.0, 2.5):
+        want = float(jpt.info_nce_with_neg(jnp.asarray(q), jnp.asarray(k), jnp.asarray(kn), 1e-3, temp=temp))
+        got = float(tpt.info_nce_with_neg(_t(q), _t(k), _t(kn), 1e-3, temp=temp))
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+    key = jax.random.PRNGKey(8)
+    want = float(jpt.info_nce_in_batch(jnp.asarray(q), jnp.asarray(k), key, neg_frac=0.6))
+    perm = _t(jax.random.permutation(key, 5)).long()
+    np.testing.assert_allclose(float(tpt.info_nce_in_batch(_t(q), _t(k), perm, neg_frac=0.6)), want, rtol=1e-6)
+
+
+# ------------------------------------------------------------ train_pose
+
+
+@pytest.fixture(scope="module")
+def reference_run(data):
+    """3 steps of the reference's train_pose from a fresh state, one step a
+    call (ckpt_every=1), the state kept after each."""
+    jf = jfields.NerfField(FIELD)
+    jcnn = JUNet(**UNET, dtype=jnp.float32)
+    st0 = jpt.init_pose_state(jf, jfields.init_field(jf, jax.random.PRNGKey(1)), POSE, jax.random.PRNGKey(2), S,
+                              cnn=jcnn)
+    bank = jpt.RayBank(*(jnp.asarray(data[k]) for k in ("pos", "xys", "pos", "xys", "valid", "valid")))
+    states = []
+    jpt.train_pose(jf, st0.nerf_params, data["images"], data["sils"], bank, data["neg"], cfg=POSE, aug_cfg=AUG,
+                   n_steps=3, seed=SEED, cnn=jcnn, resume_state=st0, mesh=None, steps_per_call=1,
+                   on_checkpoint=lambda st, i: states.append(jax.tree.map(np.array, st)))
+    return jax.tree.map(np.array, st0), states
+
+
+def reference_draws(data, step: int):
+    """The draws of step ``step`` of the reference's train_pose at one step a
+    call, on that step's batch."""
+    key = jax.random.split(jax.random.PRNGKey(SEED))[1]
+    _, sub = jax.random.split(jax.random.fold_in(key, step))
+    idx = jpt_schedule(data)[step]
+    return step_draws(sub, *(jnp.asarray(data[k][idx]) for k in ("images", "sils", "xys", "valid")),
+                      data["neg"].shape[0])
+
+
+def jpt_schedule(data, n_steps=3):
+    rng = np.random.default_rng(SEED)
+    return np.stack([rng.permutation(V)[:B] for _ in range(n_steps)])
+
+
+def _port_state(st):
+    return convert.pose_state_from_jax(st, _port_cfg(FIELD), TUNet(**UNET, dtype=torch.float32), device="cpu")
+
+
+def _port_field():
+    return tfields.NerfField(_port_cfg(FIELD)).reset_parameters(torch.Generator().manual_seed(1))
+
+
+def _port_bank(data):
+    return tpt.RayBank(*(_t(data[k]) for k in ("pos", "xys", "pos", "xys", "valid", "valid")))
+
+
+def test_train_pose_steps_match_reference(data, reference_run):
+    """Step 1's loss and grads, and the params after each of 3 steps.  Grads
+    are read from the reference's first moments after step 1 (mu = 0.1 g).
+    Grad bars: per tensor, 1e-3 of its max |g| plus 1e-5 of the max |g|
+    over all (tensors whose grads cancel analytically, the keys' output
+    bias under the shift-invariant softmax and GroupNorm at 1x1
+    resolution, read f32 noise)."""
+    st0, ref_states = reference_run
+    assert jpt_schedule(data).tolist() == tpt.view_schedule(V, B, 3, SEED).tolist()
+    seen = []
+
+    def hook(state, step):
+        grads = {n: p.grad.clone() for n, p in list(state.cnn.named_parameters())
+                 + list(state.field.named_parameters()) if p.grad is not None}
+        seen.append((copy.deepcopy(state), grads))
+
+    start = _port_state(st0)
+    state, losses = tpt.train_pose(start.field, data["images"], data["sils"], _port_bank(data), data["neg"],
+                                   cfg=_port_cfg(POSE), aug_cfg=taug.AugmentConfig(*AUG), n_steps=3, seed=SEED,
+                                   resume_state=start, on_checkpoint=hook, device="cpu",
+                                   draws=lambda i: reference_draws(data, i))
+    assert len(seen) == 3 and state.step == 3 and state.opt.count == 3
+    st1 = ref_states[0]
+    mu_cnn = convert.params_from_jax(st1.opt_state.inner_states["cnn"].inner_state[0].mu[1])
+    mu_head = convert._feature_head_state(
+        st1.opt_state.inner_states["train"].inner_state[0].mu[0]["params"]["feature_layer"])
+    want = {n: mu.numpy() / 0.1 for n, mu in {**mu_cnn, **mu_head}.items()}
+    got = seen[0][1]
+    assert set(got) == set(want)
+    g_all = max(np.abs(w).max() for w in want.values())
+    for n, w in want.items():
+        bar = 1e-3 * np.abs(w).max() + 1e-5 * g_all
+        assert np.abs(got[n].numpy() - w).max() <= bar, n
+    # params after each step: Adam's update is scale-free, and where a grad's
+    # steps partly cancel its direction follows their f32 roundings, so each
+    # param is held to 1e-6 plus 5 % of its group's summed rates (a wrong
+    # grad moves it by up to twice the rate a step), and all but 1 % to
+    # 1e-6.  The keys' output bias has a grad of 0 (the softmax is shift-
+    # invariant): Adam steps it along the f32 noise, up to the rate a step
+    opt = tpt.PoseOptimizer(_port_cfg(POSE))
+    for k, ((port, _), ref) in enumerate(zip(seen, ref_states)):
+        refp = {**convert.params_from_jax(ref.cnn_params), **convert.params_from_jax(ref.nerf_params)}
+        errs = []
+        for group, base in ((port.cnn, POSE.lr_cnn), (port.field, POSE.lr_mlp)):
+            rates = sum(opt.learning_rate(base, i) for i in range(k + 1))
+            for n, p in group.named_parameters():
+                err = np.abs(p.detach().numpy() - refp[n].numpy()).ravel()
+                bar = 2.0 * rates if n == "feature_layer.out.bias" else 1e-6 + 0.05 * rates
+                assert err.max() <= bar, (k, n, float(err.max()))
+                errs.append(err)
+        assert (np.concatenate(errs) > 1e-6).mean() < 0.01, k
+    # frozen trunk, moving head; the step-1 loss to f32 rounding
+    f0 = convert.params_from_jax(st0.nerf_params)
+    assert torch.equal(state.field.trunk1.weight, f0["trunk1.weight"])
+    assert not torch.equal(state.field.feature_layer.out.weight, f0["feature_layer.out.weight"])
+    assert np.isfinite(losses).all() and len(losses) == 3
+
+
+def test_train_pose_resumes_exactly(data):
+    """4 steps against 2, then a resume to 4 from a copy of the state: the
+    same losses, params and Adam moments, bit for bit (draws from (seed,
+    step))."""
+    field = _port_field()
+    cnn = TUNet(**UNET, dtype=torch.float32).reset_parameters(torch.Generator().manual_seed(0))
+    kw = dict(cfg=_port_cfg(POSE), aug_cfg=taug.AugmentConfig(*AUG), seed=SEED, cnn=cnn, device="cpu")
+    args = (field, data["images"], data["sils"], _port_bank(data), data["neg"])
+    full, full_losses = tpt.train_pose(*args, n_steps=4, **kw)
+    saved = []
+    _, head = tpt.train_pose(*args, n_steps=2, on_checkpoint=lambda st, i: saved.append(copy.deepcopy(st)), **kw)
+    end, tail = tpt.train_pose(*args, n_steps=4, resume_state=saved[-1], **kw)
+    assert head + tail == full_losses and end.step == full.step == 4 and end.opt.count == 4
+    for a, b in zip(list(end.cnn.parameters()) + list(end.field.parameters()) + end.opt.cnn_nu + end.opt.head_mu,
+                    list(full.cnn.parameters()) + list(full.field.parameters()) + full.opt.cnn_nu + full.opt.head_mu):
+        assert torch.equal(a, b)
+    assert not torch.equal(next(iter(full.cnn.parameters())), next(iter(cnn.parameters())))
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+def test_pose_optimizer_matches_optax(weight_decay):
+    """The grouped optimizer against the reference's make_pose_optimizer on
+    a small tree: the feature head at lr_mlp (AdamW with
+    head_weight_decay), the CNN at lr_cnn, the trunk frozen; three updates
+    inside the warmup and one past it."""
+    cfg = PoseTrainConfig(warmup_steps=3, head_weight_decay=weight_decay)
+    rng = np.random.default_rng(10)
+    shapes = {"head": (4, 3), "trunk": (3, 2), "cnn": (2, 3, 1, 1)}
+    vals = {k: rng.normal(size=v).astype(np.float32) for k, v in shapes.items()}
+    grads = [{k: rng.normal(size=v).astype(np.float32) for k, v in shapes.items()} for _ in range(4)]
+
+    def jtree(d):
+        return ({"params": {"feature_layer": {"kernel": jnp.asarray(d["head"])},
+                            "trunk1": {"kernel": jnp.asarray(d["trunk"])}}},
+                {"params": {"Conv_0": {"kernel": jnp.asarray(d["cnn"])}}})
+
+    tx = jpt.make_pose_optimizer(cfg)
+    params = jtree(vals)
+    state = tx.init(params)
+
+    class Field(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.feature_layer = torch.nn.Module()
+            self.feature_layer.weight = torch.nn.Parameter(_t(vals["head"]))
+            self.trunk1 = torch.nn.Module()
+            self.trunk1.weight = torch.nn.Parameter(_t(vals["trunk"]))
+
+    field = Field()
+    cnn = torch.nn.Module()
+    cnn.weight = torch.nn.Parameter(_t(vals["cnn"]))
+    opt = tpt.PoseOptimizer(_port_cfg(cfg))
+    ostate = opt.init(field, cnn)
+    for g in grads:
+        upd, state = tx.update(jtree(g), state, params)
+        params = jax.tree.map(lambda a, b: a + b, params, upd)
+        field.feature_layer.weight.grad, field.trunk1.weight.grad = _t(g["head"]), _t(g["trunk"])
+        cnn.weight.grad = _t(g["cnn"])
+        ostate = opt.update(field, cnn, ostate)
+        np.testing.assert_allclose(field.feature_layer.weight.detach().numpy(),
+                                   np.asarray(params[0]["params"]["feature_layer"]["kernel"]), rtol=0, atol=1e-7)
+        np.testing.assert_allclose(cnn.weight.detach().numpy(), np.asarray(params[1]["params"]["Conv_0"]["kernel"]),
+                                   rtol=0, atol=1e-7)
+        np.testing.assert_array_equal(field.trunk1.weight.detach().numpy(), vals["trunk"])
+    assert ostate.count == 4
+
+
+def test_train_pose_distractor_bank(data):
+    """A distractor bank whose picked rows are the batch's rolled views
+    gives the step without a bank bit for bit; a bank with p_distractor 0
+    is refused."""
+    cfg = _port_cfg(POSE)
+    aug_cfg = taug.AugmentConfig(*AUG)
+    images, sils = _t(data["images"][:2]), _t(data["sils"][:2])
+    bank = (torch.roll(images, 1, 0), torch.roll(sils, 1, 0))
+    draws = tpt.draw_pose_step(torch.Generator().manual_seed(4), 2, S, 50, cfg, aug_cfg, n_distractors=2)
+    assert draws.pick.shape == (2,)
+    draws = draws._replace(pick=torch.tensor([0, 1]))
+    field = _port_field()
+    cnn = TUNet(**UNET, dtype=torch.float32).reset_parameters(torch.Generator().manual_seed(0))
+    args = (images, sils, _t(data["pos"][:2]), _t(data["xys"][:2]), _t(data["valid"][:2]), _t(data["neg"]), cfg,
+            aug_cfg)
+    losses = []
+    for dis in (None, bank):
+        state = tpt.init_pose_state(field, cfg, cnn, device="cpu")
+        gen = torch.Generator().manual_seed(5)
+        _, loss, _ = tpt.pose_train_step(state, tpt.make_pose_optimizer(cfg), *args, draws, gen,
+                                         distractor_bank=dis)
+        losses.append(float(loss))
+    assert losses[0] == losses[1]
+    with pytest.raises(ValueError, match="p_distractor"):
+        tpt.train_pose(field, data["images"], data["sils"], _port_bank(data), data["neg"], cfg=cfg,
+                       aug_cfg=aug_cfg._replace(p_distractor=0.0), n_steps=1, distractor_bank=bank, device="cpu")

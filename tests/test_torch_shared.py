@@ -12,19 +12,21 @@ import torch
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu import config as jconfig
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu.ops import mcubes as jmcubes
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu.pipeline import artifacts as jart
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu.train import pose_trainer as jpt
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import config as tconfig
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import convert
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import mcubes as tmcubes
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts as tart
-from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import registration
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import generate_cors, registration
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import renderer
-from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import checkpoint, nerf_trainer
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import checkpoint, nerf_trainer, pose_trainer
 
 torch.set_num_threads(1)
 
-CONFIGS = ["FieldConfig", "RenderConfig", "NerfTrainConfig", "FeatConfig", "InferenceConfig", "RegistrationConfig"]
+CONFIGS = ["FieldConfig", "RenderConfig", "NerfTrainConfig", "PoseTrainConfig", "CorsConfig", "FeatConfig",
+           "InferenceConfig", "RegistrationConfig"]
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -66,6 +68,48 @@ def test_artifacts_read_across_packages(tmp_path, writer, reader):
         np.testing.assert_array_equal(feats, arrays["feat1_scaled.npy"][:n])
         np.testing.assert_array_equal(normals, arrays["normals_scaled.npy"][:n])
     np.testing.assert_array_equal(reader.load_array(reader.pose_dir(exp, 1), "n_keys.npy"), [7])
+
+
+def _write_cors(art, exp, rng, n_views=3, S=16):
+    """A correspondence directory: the surface arrays and ragged per-view rays."""
+    cors = art.cors_dir(exp, 1)
+    arrays = {name: rng.normal(size=(n, 3)).astype(np.float32)
+              for name, n in (("a1.npy", 40), ("subvert1.npy", 12), ("subnormal1.npy", 12))}
+    for name, arr in arrays.items():
+        art.save_array(cors, name, arr)
+    views = []
+    for i in range(n_views):
+        n, nb = 5 + 3 * i, 2 + i
+        v = (rng.uniform(-1, 1, (n, 2)), rng.normal(size=(n, 3)), rng.uniform(-1, 1, (nb, 2)), rng.normal(size=(nb, 3)))
+        v = tuple(x.astype(np.float32) for x in v)
+        art.save_view_rays(cors, S, i, *v)
+        views.append(v)
+    return cors, arrays, views
+
+
+@pytest.mark.parametrize("writer,reader", [(tart, jart), (jart, tart)], ids=["port-to-jax", "jax-to-port"])
+def test_cors_artifacts_read_across_packages(tmp_path, writer, reader):
+    """The surface arrays and per-view rays one package writes, the other
+    reads back bit for bit, and both pose trainers' ray banks read them
+    alike (tests/test_torch_cors.py hands the port's a1 to the
+    reference's build_negatives)."""
+    exp = str(tmp_path / "0_synth_obj_1")
+    cors, arrays, views = _write_cors(writer, exp, np.random.default_rng(6))
+    assert reader.cors_dir(exp, 1) == cors and reader.nerf_dir(exp, 1) == writer.nerf_dir(exp, 1)
+    for name, arr in arrays.items():
+        np.testing.assert_array_equal(reader.load_array(cors, name), arr)
+    for i, want in enumerate(views):
+        assert reader.has_view_rays(cors, 16, i)
+        for got, w in zip(reader.load_view_rays(cors, 16, i), want):
+            np.testing.assert_array_equal(got, w)
+    assert not reader.has_view_rays(cors, 16, len(views))
+    ref = jpt.load_ray_bank(cors, 16, len(views), bucket=8)
+    port = pose_trainer.load_ray_bank(cors, 16, len(views), bucket=8, device="cpu")
+    assert ref.pos_vec.shape == (3, 16, 3) and ref.back_vec.shape == (3, 8, 3)
+    for f in ref._fields:
+        np.testing.assert_array_equal(getattr(port, f).numpy(), np.asarray(getattr(ref, f)))
+    fixed = pose_trainer.load_ray_bank(cors, 16, len(views), max_rays=6, device="cpu")
+    assert fixed.pos_vec.shape == (3, 6, 3) and bool(fixed.valid[2].all())
 
 
 def _planted_grid(R=24):
@@ -111,6 +155,13 @@ ENTRY_POINTS = {
     "checkpoint.load_state": lambda: checkpoint.load_state("never-read", tconfig.FieldConfig()),
     "train_state_from_jax": lambda: convert.train_state_from_jax(None, tconfig.FieldConfig()),
     "depth_edges": lambda: cameras.depth_edges(2.0, 6.0, 4),
+    "generate_cors": lambda: generate_cors.generate_cors(None, None, None, None, None, "never-written", 1),
+    "build_negatives": lambda: pose_trainer.build_negatives(None, None, None, None, None, None,
+                                                            tconfig.PoseTrainConfig()),
+    "load_ray_bank": lambda: pose_trainer.load_ray_bank("never-read", 224, 1),
+    "init_pose_state": lambda: pose_trainer.init_pose_state(None, tconfig.PoseTrainConfig()),
+    "train_pose": lambda: pose_trainer.train_pose(None, None, None, None, None),
+    "pose_state_from_jax": lambda: convert.pose_state_from_jax(None, tconfig.FieldConfig(), None),
 }
 
 
@@ -127,7 +178,9 @@ def test_entry_points_default_device_is_none():
     fns = [nerf_trainer.init_state, nerf_trainer.train_nerf_fused, nerf_trainer.train_nerf,
            registration.register_halves, registration.verify_consecutive, renderer.density_grid,
            synthetic.analytic_surface_points, synthetic.random_bop_poses, synthetic.make_scene, checkpoint.load,
-           checkpoint.load_state, convert.train_state_from_jax, cameras.depth_edges]
+           checkpoint.load_state, convert.train_state_from_jax, cameras.depth_edges, generate_cors.generate_cors,
+           pose_trainer.build_negatives, pose_trainer.load_ray_bank, pose_trainer.init_pose_state,
+           pose_trainer.train_pose, convert.pose_state_from_jax]
     assert len(fns) == len(ENTRY_POINTS)
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default is None, fn.__qualname__
