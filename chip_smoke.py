@@ -62,7 +62,17 @@ Phases (any failure raises, and the script exits non-zero):
    stage's wall time and launches (every kernel of a stage must launch);
    then K1 and K2 against their plain versions at the cors stage's shapes,
    FPS in CUDA graphs against its launch sequence, and ``generate_cors``
-   through K1 / K2 against the same call through their plain versions.
+   through K1 / K2 against the same call through their plain versions;
+10. the port's command-line program (``CLI``) in a temporary root, through
+   ``cli.main`` in this process: train-nerf (K4), generate-cors (K1, K2),
+   train-pose and gen-feat (K1, K2) of each half, then poses-est (K3),
+   inference --dataset tless (K3, K2 through ADD-S), rel-poses,
+   choose-image, icp (K2), verify (K2), check and, where Pillow imports,
+   video and the image-folder banks; each command's wall time and
+   launches; ``check`` once more through ``python -m`` in a subprocess; a
+   train-nerf stopped after its step-200 checkpoint and resumed with
+   ``--cont`` must equal the straight run bit for bit, and train-pose on a
+   copy of the experiment must write bit-identical checkpoints.
 
 Output: one JSON line with the kernels, then the device JSON as the last line.
 """
@@ -167,6 +177,11 @@ PIPELINE = {"nerf_steps": 800, "pose_steps": 200, "neg_loops": 20, "neg_threshol
             "pose_seed": 1, "cors": {"density_threshold": 0.2}, "pose": {"warmup_steps": 100},
             "aug": {"crop_res": 224, "min_mask_sum": 10.0, "p_distractor": 0.5, "scale_jitter": 0.15,
                     "trans_frac": 0.2}}
+# the command-line program's phase: the synthetic scene's 8 views a half, a
+# full-width bf16 field (the field kernels), 400 NeRF steps a half (the CLI's
+# checkpoint every 100), 100 descriptor steps, the CLI's defaults otherwise;
+# the resume check stops its run after the step-200 checkpoint
+CLI = {"views": 8, "nerf_steps": 400, "pose_steps": 100, "resume_at": 200, "flags": []}
 
 
 def log(msg: str):
@@ -1617,6 +1632,166 @@ def pipeline_path(dev, seed: int, out_dir: str, trained=None):
     cors_vs_plain(dev, states[0].fine, h0, cors_dirs[0], cors_cfg, S, out_dir)
 
 
+def _state_tensors(path: str) -> list:
+    """Every tensor and number of a ``torch.save`` checkpoint, in order."""
+    import torch
+
+    out = []
+    for v in torch.load(path, map_location="cpu", weights_only=True).values():
+        if isinstance(v, dict):
+            out += list(v.values())
+        elif isinstance(v, list):
+            out += v
+        else:
+            out.append(torch.tensor(v))
+    return out
+
+
+def same_checkpoints(a: str, b: str, names) -> bool:
+    import torch
+
+    for name in names:
+        ta, tb = _state_tensors(os.path.join(a, name)), _state_tensors(os.path.join(b, name))
+        if len(ta) != len(tb) or not all(torch.equal(x, y) for x, y in zip(ta, tb)):
+            return False
+    return True
+
+
+class StopTraining(Exception):
+    pass
+
+
+def cli_path(dev, root: str) -> dict:
+    """The port's command-line program on the card (``CLI``): each half's
+    train-nerf (K4), generate-cors (K1, K2), train-pose and gen-feat (K1,
+    K2), then half 0's serving and registration commands, each through
+    ``cli.main`` in this process with the kernels' launches counted over
+    exactly that command; ``check`` through ``python -m`` in a subprocess;
+    an interrupted and resumed train-nerf against the straight run, and
+    train-pose on a copy of the experiment against the first, bit for bit.
+    Returns {command: launches}."""
+    import numpy as np
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import cli
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment, checkpoint
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils import viz
+
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    log(f"CLI phase: Pillow importable: {have_pil}")
+    c = CLI
+    t_phase = time.perf_counter()
+
+    def base(r, uh):
+        return ["--objid", "1", "--dataset", "tless", "--UH", str(uh), "--root", r, "--synthetic", "--synthetic-views",
+                str(c["views"]), "--act-dtype", "bfloat16", "--field-preset", "full", "--viz-every", "0",
+                "--log-every", "0", *c["flags"]]
+
+    launches, walls = {}, {}
+
+    def run(tag, argv):
+        reset_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        cli.main(argv)
+        sync(dev)
+        walls[tag], launches[tag] = time.perf_counter() - t0, launch_counts()
+        log(f"  cli {tag}: {walls[tag]:.3f} s, launches " + json.dumps(
+            {k: v for k, v in launches[tag].items() if v}))
+
+    exp = lambda r, uh: os.path.join(r, f"{uh}_tless_obj_1")  # noqa: E731
+    main_root, copy_root, cut_root = (os.path.join(root, n) for n in ("main", "copy", "cut"))
+    for uh in (1, 0):
+        run(f"train-nerf UH{uh}", ["train-nerf", *base(main_root, uh), "--steps", str(c["nerf_steps"])])
+    for uh in (1, 0):
+        run(f"generate-cors UH{uh}", ["generate-cors", *base(main_root, uh)])
+        if uh == 0:
+            shutil.copytree(exp(main_root, 0), exp(copy_root, 0))
+        run(f"train-pose UH{uh}", ["train-pose", *base(main_root, uh), "--steps", str(c["pose_steps"])])
+        run(f"gen-feat UH{uh}", ["gen-feat", *base(main_root, uh)])
+    for cmd, extra in (("poses-est", []), ("inference", []), ("rel-poses", ["--cal-gt", "--cal-pred"]),
+                       ("choose-image", []), ("icp", []), ("verify", []), ("check", [])):
+        run(cmd, [cmd, *base(main_root, 0), *extra])
+    if have_pil:
+        run("video", ["video", *base(main_root, 0), "--frames", "4"])
+
+    # the module entry point itself, in a subprocess
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", f"{PKG}.cli", "check", *base(main_root, 0)], capture_output=True,
+                         text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0 or "MISSING" in out.stdout or "vert1_scaled.npy" not in out.stdout:
+        raise AssertionError(f"python -m {PKG}.cli check failed ({out.returncode}): {out.stdout}{out.stderr}")
+    log(f"  cli check through python -m: {time.perf_counter() - t0:.3f} s (a new process)")
+
+    # exact resume: stopped after the mid-run checkpoint, resumed with --cont
+    save_latest = checkpoint.save_latest
+
+    def stop_after(directory, state):
+        save_latest(directory, state)
+        if state.step == c["resume_at"]:
+            raise StopTraining
+
+    checkpoint.save_latest = stop_after
+    try:
+        cli.main(["train-nerf", *base(cut_root, 1), "--steps", str(c["nerf_steps"])])
+        raise AssertionError(f"train-nerf did not stop at its step-{c['resume_at']} checkpoint")
+    except StopTraining:
+        pass
+    finally:
+        checkpoint.save_latest = save_latest
+    run("train-nerf UH1 --cont", ["train-nerf", *base(cut_root, 1), "--steps", str(c["nerf_steps"]), "--cont"])
+    nerf = lambda r: artifacts.nerf_dir(exp(r, 1), 1)  # noqa: E731
+    resumed = same_checkpoints(nerf(main_root), nerf(cut_root), (checkpoint.STATE,))
+
+    # reproducible descriptor training: the same command on a copy
+    run("train-pose UH0 (copy)", ["train-pose", *base(copy_root, 0), "--steps", str(c["pose_steps"])])
+    pose = lambda r: artifacts.pose_dir(exp(r, 0), 1)  # noqa: E731
+    repeat = same_checkpoints(pose(main_root), pose(copy_root),
+                              (checkpoint.STATE, checkpoint.ENCODER, checkpoint.LATEST))
+    repeat &= bool(np.array_equal(np.load(os.path.join(pose(main_root), "negVec.npy")),
+                                  np.load(os.path.join(pose(copy_root), "negVec.npy"))))
+    log(f"CLI phase: train-nerf stopped after step {c['resume_at']} and resumed with --cont equals the straight "
+        f"{c['nerf_steps']}-step run bit for bit: {resumed}; train-pose on a copy of the experiment writes "
+        f"bit-identical checkpoints and negatives: {repeat}")
+
+    if have_pil:
+        banks = os.path.join(root, "banks")
+        g = torch.Generator().manual_seed(0)
+        for i in range(3):
+            img = torch.zeros((64, 80, 3))
+            img[10 + i: 50, 12: 60 + i] = torch.rand((40 - i, 48 + i, 3), generator=g)
+            viz.save_image(os.path.join(banks, f"{i}.png"), img.numpy())
+        bg = augment.load_background_bank(banks, 224)
+        dis_rgb, dis_mask = augment.load_distractor_bank(banks, 224)
+        shutil.copytree(exp(copy_root, 0), exp(os.path.join(root, "banked"), 0))
+        run("train-pose UH0 --bg-dir --distractor-dir", ["train-pose", *base(os.path.join(root, "banked"), 0),
+                                                         "--steps", "3", "--bg-dir", banks, "--distractor-dir", banks])
+        log(f"  banks: backgrounds {tuple(bg.shape)}, distractors {tuple(dis_rgb.shape)} / {tuple(dis_mask.shape)}")
+
+    pred_R = np.load(os.path.join(exp(main_root, 0), "1pred_R.npy"))
+    keys = artifacts.load_keys(pose(main_root))
+    outputs_ok = (pred_R.shape == (c["views"], 3, 3) and np.isfinite(pred_R).all() and keys[0].shape[0] > 0
+                  and np.isfinite(keys[1]).all())
+    log(f"CLI phase: {time.perf_counter() - t_phase:.1f} s in all; per command (s): "
+        + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+    wanted = {"train-nerf UH1": ("bundle_loss",), "train-nerf UH0": ("bundle_loss",),
+              "generate-cors UH1": ("density", "nn_min"), "generate-cors UH0": ("density", "nn_min"),
+              "gen-feat UH1": ("density", "nn_min"), "gen-feat UH0": ("density", "nn_min"),
+              "icp": ("nn_min",), "verify": ("nn_min",), "poses-est": ("corr_argmax",),
+              "inference": ("corr_argmax", "nn_min")}
+    missing = {k: [n for n in names if not launches[k][n]] for k, names in wanted.items()}
+    missing = {k: v for k, v in missing.items() if v}
+    if missing or not (resumed and repeat and outputs_ok):
+        raise AssertionError(f"CLI phase: kernels that never launched {missing}; exact resume {resumed}; "
+                             f"reproducible train-pose {repeat}; finite outputs of the right shapes {outputs_ok}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1669,6 +1844,11 @@ def main(argv=None) -> int:
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
     try:
         pipeline_path(dev, args.seed, out_dir, trained)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cli_path(dev, out_dir)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     counts["bundle_loss"] = train_counts["bundle_loss"]

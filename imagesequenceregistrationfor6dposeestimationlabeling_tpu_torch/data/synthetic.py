@@ -46,6 +46,50 @@ def analytic_color(pts: torch.Tensor) -> torch.Tensor:
     return (base * shade).clamp(0.0, 1.0)
 
 
+def analytic_field(pts: torch.Tensor, view_dirs=None, mode: str = "color"):
+    """Field function of the renderers: (densities (..., 1), colour, or
+    colour and 9 zeros for 'feature')."""
+    dens = analytic_density(pts)
+    if mode == "feature":
+        return dens, torch.cat([analytic_color(pts), torch.zeros(pts.shape[:-1] + (9,), device=pts.device)], -1)
+    return dens, analytic_color(pts)
+
+
+def analytic_features(pts: torch.Tensor) -> torch.Tensor:
+    """A deterministic, injective 12-d descriptor of position: colour, the
+    scaled coordinates and low-frequency waves, normalized to norm 3 (the
+    dot-product argmax of correspondence needs keys of equal norm)."""
+    waves = torch.cat([torch.sin(2.1 * pts), torch.cos(1.3 * pts)], -1)
+    f = torch.cat([analytic_color(pts), 2.0 * pts, waves], -1)
+    return 3.0 * f / torch.linalg.vector_norm(f, dim=-1, keepdim=True)
+
+
+class AnalyticField(torch.nn.Module):
+    """Stand-in for a trained NerfField backed by the analytic object, so
+    every stage after NeRF training runs without one.  It has the calls the
+    stages make on a field (``density``, ``features``, the forward with a
+    mode) and one empty parameter that places it on a device; it has no
+    ``cfg``, so the density kernel never takes it."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.anchor = torch.nn.Parameter(torch.zeros(0, device=resolve_device(device)), requires_grad=False)
+
+    def density(self, pts):
+        return analytic_density(pts)
+
+    def features(self, pts):
+        return analytic_features(pts)
+
+    def forward(self, pts, view_dirs=None, mode: str = "color"):
+        dens = analytic_density(pts)
+        if mode == "feature":
+            return dens, analytic_features(pts)
+        if mode == "color":
+            return dens, analytic_color(pts)
+        return dens, torch.cat([analytic_color(pts), analytic_features(pts)], -1)
+
+
 def analytic_surface_points(n: int, generator: torch.Generator | None = None, which=None, dirs=None,
                             device=None):
     """Points on the blob spheres, and a mask of those on the outer surface,

@@ -37,6 +37,20 @@ def rotvec_to_matrix(rvec: torch.Tensor) -> torch.Tensor:
     return eye + a * K + b * K2
 
 
+def euler_zyx_to_matrix(euler: torch.Tensor) -> torch.Tensor:
+    """rot_z @ rot_y @ rot_x of (..., 3) euler angles (x, y, z)."""
+    x, y, z = euler.unbind(-1)
+    one, zero = torch.ones_like(x), torch.zeros_like(x)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+    rx = mat([(one, zero, zero), (zero, x.cos(), -x.sin()), (zero, x.sin(), x.cos())])
+    ry = mat([(y.cos(), zero, y.sin()), (zero, one, zero), (-y.sin(), zero, y.cos())])
+    rz = mat([(z.cos(), -z.sin(), zero), (z.sin(), z.cos(), zero), (zero, zero, one)])
+    return rz @ ry @ rx
+
+
 def relative_pose_se3(R1, t1, R2, t2):
     """T2 @ inv(T1): (R2 R1^T, t2 - R2 R1^T t1)."""
     rel_R = R2 @ R1.transpose(-1, -2)

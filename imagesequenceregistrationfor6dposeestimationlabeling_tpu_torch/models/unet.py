@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import no_tf32
+
 _GN_EPS = 1e-6
 _GROUPS = 8
 
@@ -123,7 +125,7 @@ class ResNetUNet(nn.Module):
         h = F.interpolate(h, size=(H, W), mode="nearest-exact")
         h = F.relu(self.head_norm(_conv(self.head_conv, h, self.dtype)))
         # the f32 output layer must not drop to TF32 inside cuDNN
-        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled, allow_tf32=False):
+        with no_tf32():
             out = self.out(h)
         return out.permute(0, 2, 3, 1)
 

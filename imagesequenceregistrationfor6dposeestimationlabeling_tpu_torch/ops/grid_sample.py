@@ -4,11 +4,40 @@
 (g = -1 -> pixel 0, g = +1 -> pixel S - 1), on channels-last images as the
 reference keeps them.  Nearest mode rounds half to even, as ``jnp.round``
 and ``torch.round`` both do.
+
+The taps are gathered by ``gather_rows``, whose backward sums the grads of
+a pixel read by several samples in a fixed order (``index_put_`` with
+``accumulate=True``: a sort and a segmented sum on the card), so a step
+that backpropagates through a sample is bit-reproducible; the backward of
+``torch.gather`` adds them with atomics in whatever order the threads
+arrive.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flat, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = flat.shape
+        return torch.gather(flat, 1, idx[..., None].expand(-1, -1, flat.shape[2]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        B, M, C = ctx.shape
+        rows = (idx + M * torch.arange(B, device=idx.device)[:, None]).reshape(-1)
+        out = grad.new_zeros((B * M, C)).index_put_((rows,), grad.reshape(-1, C), accumulate=True)
+        return out.reshape(B, M, C), None
+
+
+def gather_rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, M, C) rows at (B, N) indices -> (B, N, C); its backward sums the
+    grads of repeated rows in a fixed order."""
+    return _GatherRows.apply(flat, idx)
 
 
 def _to_pixel(g: torch.Tensor, size: int, align_corners: bool) -> torch.Tensor:
@@ -29,7 +58,7 @@ def grid_sample(images: torch.Tensor, grid: torch.Tensor, mode: str = "nearest",
     def tap(ix, iy):
         valid = (ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)
         idx = iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)
-        return torch.gather(flat, 1, idx[..., None].expand(B, idx.shape[1], C)) * valid[..., None]
+        return gather_rows(flat, idx) * valid[..., None]
 
     if mode == "nearest":
         return tap(torch.round(gx).long(), torch.round(gy).long())

@@ -1,6 +1,10 @@
-"""Registration finale (counterpart of pipeline/registration.py): Chamfer
-verification of consecutive poses, point-to-point ICP with nearest
-neighbours from kernel K2, and the Chamfer check against the CAD cloud."""
+"""Registration finale (counterpart of pipeline/registration.py):
+relative-pose tensors, the pairwise agreement matrix and the best image,
+Chamfer verification of consecutive poses, point-to-point ICP with nearest
+neighbours from kernel K2, and the Chamfer check against the CAD cloud.
+
+The reference shards the agreement matrix's pairs and the ICP sweeps over a
+device mesh; one card needs none, so the port has no ``mesh`` argument."""
 
 from __future__ import annotations
 
@@ -9,9 +13,50 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import no_tf32
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import rotations
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pointcloud as pc
+
+
+def relative_pose_tensor(R: torch.Tensor, t: torch.Tensor):
+    """(N, 3, 3), (N, 3) -> rel_R (N, N, 3, 3), rel_t (N, N, 3) with
+    rel(i, j) = (R_i^T R_j, t_j - t_i), in f32 without TF32."""
+    with no_tf32():
+        rel_R = torch.einsum("ika,jkb->ijab", R, R)
+    return rel_R, t[None, :, :] - t[:, None, :]
+
+
+@torch.no_grad()
+def agreement_matrix(rel_R_gt, rel_t_gt, rel_R_pred, rel_t_pred, verts, diameter: float, pair_chunk: int = 64):
+    """((N, N) bool, (N, N) errors): per image pair, ADD-S between ``verts``
+    (a subsample of a few hundred points) posed by the GT and by the
+    predicted relative pose, against 0.1 x diameter.  Squared distances
+    are ``|a|^2 + |b|^2 - 2 a.b`` as the reference takes them; the pairs
+    run ``pair_chunk`` at a time."""
+    N = rel_R_gt.shape[0]
+    flat = [x.reshape(N * N, *x.shape[2:]) for x in (rel_R_gt, rel_t_gt, rel_R_pred, rel_t_pred)]
+    errs = []
+    with no_tf32():
+        for i0 in range(0, N * N, pair_chunk):
+            Rg, tg, Rp, tp = (x[i0: i0 + pair_chunk] for x in flat)
+            a = verts @ Rg.transpose(-1, -2) + tg[:, None]          # (P, V, 3)
+            b = verts @ Rp.transpose(-1, -2) + tp[:, None]
+            a2 = (a * a).sum(-1, keepdim=True)
+            b2 = (b * b).sum(-1, keepdim=True)
+            d2 = torch.clamp_min(a2 + b2.transpose(-1, -2) - 2.0 * (a @ b.transpose(-1, -2)), 0.0)
+            errs.append(torch.sqrt(d2.amin(-1).clamp_min(0.0)).mean(-1))
+    errs = torch.cat(errs).reshape(N, N)
+    return errs < 0.1 * diameter, errs
+
+
+def choose_best_image(agree, top_k: int = 50):
+    """The image with the most agreements (argmax of the row sums) and the
+    ``top_k`` images in that order (numpy's default sort, as the
+    reference's, so ties come out in the same order)."""
+    sums = np.asarray(agree).sum(axis=1)
+    order = np.argsort(-sums)
+    return int(order[0]), order[:top_k]
 
 
 class ICPResult(NamedTuple):

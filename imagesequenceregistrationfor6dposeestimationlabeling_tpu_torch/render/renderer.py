@@ -1,7 +1,8 @@
 """Volumetric rendering entry points (counterpart of render/renderer.py):
 the density grid over [-1, 1]^3, the coarse / fine ray renderers of NeRF
-training, evaluated through the field's own color path, and the chunked
-and back-ray renders of the correspondence stage."""
+training, evaluated through the field's own color path, and the chunked,
+full-grid and back-ray renders of the correspondence stage and the
+previews."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device impor
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.cameras import (
     Camera,
     RayBundle,
+    grid_rays,
     monte_carlo_rays,
     ray_points,
 )
@@ -60,6 +62,17 @@ def render_rays_chunked(field_fn: Callable, bundle: RayBundle, mode: str = "feat
         images.append(img)
         weights.append(w)
     return torch.cat(images), torch.cat(weights)
+
+
+def render_grid_chunked(field_fn: Callable, cam: Camera, image_size: int, n_pts: int, min_depth, max_depth,
+                        mode: str = "feature", threshold_mode: bool = True, threshold: float = 0.2,
+                        chunk: int = 32768):
+    """EA render of one camera's full S x S pixel grid, ``chunk`` rays at a
+    time: (images (S*S, C+1), weights (S*S, P), bundle)."""
+    bundle = grid_rays(cam, image_size, n_pts, min_depth, max_depth)
+    images, weights = render_rays_chunked(field_fn, bundle, mode=mode, threshold_mode=threshold_mode,
+                                          threshold=threshold, chunk=chunk)
+    return images, weights, bundle
 
 
 def bundle_chunks(bundle: RayBundle, chunk: int):

@@ -14,13 +14,18 @@ Randomness comes in as an ``AugmentDraws``: each field is what one
 ``jax.random`` call of the reference draws for a view, with a leading batch
 axis (so tests can replay the reference's keys); ``draw_augment`` draws the
 same structure from a ``torch.Generator``.
+
+The image-folder banks (backgrounds, distractor crops) load with Pillow,
+imported where a bank is read.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -371,3 +376,45 @@ def select_ray_samples(xys: torch.Tensor, valid: torch.Tensor, sample_size: int,
     first[:, 0] = 1.0
     w = torch.where(w.sum(-1, keepdim=True) > 0, w, first)
     return torch.multinomial(w, sample_size, replacement=True, generator=generator)
+
+
+def _list_image_files(dir_path: str, max_images: int, kind: str) -> list:
+    """The first ``max_images`` image files of a folder, by name."""
+    exts = (".jpg", ".jpeg", ".png", ".bmp")
+    files = sorted(os.path.join(dir_path, f) for f in os.listdir(dir_path) if f.lower().endswith(exts))[:max_images]
+    if not files:
+        raise ValueError(f"no images found in {kind} dir {dir_path}")
+    return files
+
+
+def _load_image_dir(dir_path: str, size: int, max_images: int, resample, kind: str) -> np.ndarray:
+    """An image folder as (N, size, size, 3) float32 in [0, 1]."""
+    from PIL import Image
+
+    return np.stack([np.asarray(Image.open(f).convert("RGB").resize((size, size), resample), np.float32) / 255.0
+                     for f in _list_image_files(dir_path, max_images, kind)])
+
+
+def load_background_bank(dir_path: str, size: int, max_images: int = 256) -> np.ndarray:
+    """An image folder as an (N, size, size, 3) float32 background bank
+    (bicubic resize); any folder of images works."""
+    from PIL import Image
+
+    return _load_image_dir(dir_path, size, max_images, Image.BICUBIC, "background")
+
+
+def load_distractor_bank(dir_path: str, size: int, max_images: int = 128):
+    """An image folder of masked crops of other objects as a distractor
+    bank: ((N, size, size, 3) rgb, (N, size, size) masks).  A crop's mask
+    is its non-black region, taken at the file's own resolution; the rgb
+    then resizes bicubic and the mask nearest, so its edges stay crisp."""
+    from PIL import Image
+
+    rgbs, masks = [], []
+    for f in _list_image_files(dir_path, max_images, "distractor"):
+        im = Image.open(f).convert("RGB")
+        native = np.asarray(im, np.float32) / 255.0
+        m_native = (native.max(-1) > 1.0 / 255.0).astype(np.uint8) * 255
+        rgbs.append(np.asarray(im.resize((size, size), Image.BICUBIC), np.float32) / 255.0)
+        masks.append(np.asarray(Image.fromarray(m_native).resize((size, size), Image.NEAREST), np.float32) / 255.0)
+    return np.clip(np.stack(rgbs), 0.0, 1.0), np.stack(masks)

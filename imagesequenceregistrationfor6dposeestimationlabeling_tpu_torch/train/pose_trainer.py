@@ -15,7 +15,11 @@
      head at ``lr_mlp`` (AdamW with ``head_weight_decay``), each rate with
      a linear warmup; the rest of the NeRF stays frozen.
 
-f32 matmuls and convolutions run without TF32.  Random draws come from a
+f32 matmuls and convolutions run without TF32.  A step is bit-reproducible
+on the card: cuDNN runs its deterministic algorithms in the step
+(``device.deterministic_cudnn``) and the query read's backward sums in a
+fixed order (``grid_sample.gather_rows``); the rest of the backward has no
+atomics on one stream.  Random draws come from a
 generator seeded with (seed, step), or are passed in (``draws``), so tests
 can replay the reference's ``jax.random`` streams and a resumed run draws
 what the uninterrupted one drew.
@@ -31,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import PoseTrainConfig
-from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import no_tf32, of_module
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import deterministic_cudnn, no_tf32, of_module
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models import fields
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import ResNetUNet
@@ -272,7 +276,7 @@ def pose_train_step(state: PoseTrainState, opt: PoseOptimizer, images, sils, pos
     trained = head_params(field) + list(cnn.parameters())
     for p in trained:
         p.grad = None
-    with torch.enable_grad(), no_tf32():
+    with torch.enable_grad(), no_tf32(), deterministic_cudnn():
         feat_full = cnn(aug.rgb)                                            # (B, S, S, 13)
         queries = grid_sample(feat_full[..., :12], -sel_xys, mode="nearest")
         nce = info_nce_with_neg(queries, field.features(sel_pos), field.features(neg), cfg.infonce_scale,

@@ -1,10 +1,13 @@
 """Kernels K1-K6 on the card against their plain PyTorch versions, at the
-shapes the serving path and the NeRF train steps give them.  Marked ``gpu``:
+shapes the serving path and the NeRF train steps give them; descriptor
+training's bit-reproducibility and the command-line program on the card.  Marked ``gpu``:
 they skip where torch.cuda is unavailable, and build the kernels on first
 use.
 
 Run on a machine with the card:  python -m pytest tests/test_torch_gpu.py -q
 """
+
+import os
 
 import pytest
 import torch
@@ -465,3 +468,107 @@ def test_pose_train_step_on_card_matches_cpu(cuda):
         bar = 1e-6 + rate * torch.clamp(delta * eps / near ** 2, max=2.0)
         assert bool(((b.detach().cpu() - a.detach()).abs() <= bar).all()), n
     assert card_state.step == cpu_state.step == 1
+
+
+def test_train_pose_is_bit_reproducible_on_card(cuda):
+    """Two 5-step descriptor runs from one seed on the card (a full-width
+    bf16 field and ResNetUNet, 4 views at 112 px, the distractor
+    augmentation): bit-identical parameters, Adam moments and losses."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import PoseTrainConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment as aug_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import pose_trainer
+
+    V, S, M = 4, 112, 1024
+    scene = synthetic.make_scene(V, S, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    xys = torch.rand((V, M, 2), generator=g, device=cuda) * 2.0 - 1.0
+    pos = torch.randn((V, M, 3), generator=g, device=cuda) * 0.4
+    valid = torch.ones((V, M), dtype=torch.bool, device=cuda)
+    bank = pose_trainer.RayBank(pos, xys, pos, xys, valid, valid)
+    neg = torch.randn((2000, 3), generator=g, device=cuda) * 0.4
+    field = NerfField(FieldConfig(act_dtype="bfloat16")).reset_parameters(torch.Generator().manual_seed(2)).to(cuda)
+    cfg = PoseTrainConfig(warmup_steps=4, sample_size=256)
+    aug_cfg = aug_lib.AugmentConfig(crop_res=S, min_mask_sum=10.0, p_distractor=0.5)
+
+    def run():
+        state, losses = pose_trainer.train_pose(field, scene.images, scene.sils, bank, neg, cfg=cfg, aug_cfg=aug_cfg,
+                                                n_steps=5, seed=1, device=cuda)
+        opt = state.opt
+        return (list(state.field.parameters()) + list(state.cnn.parameters()) + opt.head_mu + opt.head_nu
+                + opt.cnn_mu + opt.cnn_nu, losses)
+
+    (a, la), (b, lb) = run(), run()
+    assert la == lb and len(la) == 5
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _cli_argv(root, *extra, uh=1):
+    return ["--objid", "1", "--dataset", "ruapc", "--UH", str(uh), "--root", str(root), "--synthetic",
+            "--synthetic-views", "4", "--image-size", "64", "--act-dtype", "bfloat16", "--viz-every", "0",
+            "--log-every", "0", *extra]
+
+
+def test_cli_train_nerf_resumes_exactly_on_card(cuda, tmp_path, monkeypatch):
+    """``train-nerf --act-dtype bfloat16 --steps 40`` on the card (K4 a
+    pass), stopped after its step-20 checkpoint and resumed with ``--cont
+    --steps 40``, equals the straight 40-step run bit for bit."""
+    import functools
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import cli, config
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import checkpoint
+
+    monkeypatch.setattr(config, "NerfTrainConfig", functools.partial(config.NerfTrainConfig, ckpt_every=20))
+    field_kernel.bundle_loss_cuda.launches = 0
+    cli.main(["train-nerf", *_cli_argv(tmp_path / "straight", "--steps", "40")])
+    assert field_kernel.bundle_loss_cuda.launches == 80          # 40 steps x (coarse + fine)
+
+    class Stop(Exception):
+        pass
+
+    save_latest = checkpoint.save_latest
+
+    def stop_at_20(directory, state):
+        save_latest(directory, state)
+        if state.step == 20:
+            raise Stop
+
+    monkeypatch.setattr(checkpoint, "save_latest", stop_at_20)
+    with pytest.raises(Stop):
+        cli.main(["train-nerf", *_cli_argv(tmp_path / "cut", "--steps", "40")])
+    monkeypatch.setattr(checkpoint, "save_latest", save_latest)
+    cli.main(["train-nerf", *_cli_argv(tmp_path / "cut", "--steps", "40", "--cont")])
+    paths = [os.path.join(artifacts.nerf_dir(str(tmp_path / r / "1_ruapc_obj_1"), 1), checkpoint.STATE)
+             for r in ("straight", "cut")]
+    a, b = (torch.load(p, weights_only=True) for p in paths)
+    assert a["step"] == b["step"] == 40 and a["count"] == b["count"] == 40
+    for key in ("coarse", "fine"):
+        assert all(torch.equal(a[key][n], b[key][n]) for n in a[key])
+    for key in ("mu", "nu"):
+        assert all(torch.equal(x, y) for x, y in zip(a[key], b[key]))
+
+
+def test_cli_poses_est_launches_the_correspondence_kernel(cuda, tmp_path):
+    """``poses-est`` on the card (its default device) reads the baked keys
+    and the CNN checkpoint and runs K3."""
+    import numpy as np
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import cli
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import ResNetUNet
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import checkpoint
+
+    exp = str(tmp_path / "0_ruapc_obj_1")
+    pose_d = artifacts.pose_dir(exp, 1)
+    rng = np.random.default_rng(0)
+    for name, width in (("vert1_scaled.npy", 3), ("feat1_scaled.npy", 12), ("normals_scaled.npy", 3)):
+        artifacts.save_array(pose_d, name, rng.normal(size=(1024, width)).astype(np.float32))
+    artifacts.save_array(pose_d, "n_keys.npy", np.asarray([1000]))
+    cnn = ResNetUNet().reset_parameters(torch.Generator().manual_seed(0))
+    checkpoint.save(os.path.join(pose_d, checkpoint.ENCODER), cnn.state_dict(), 3)
+    point_kernels.correspondence_argmax_cuda.launches = 0
+    cli.main(["poses-est", *_cli_argv(tmp_path, uh=0)])
+    assert point_kernels.correspondence_argmax_cuda.launches >= 1
+    pred_R = np.load(os.path.join(exp, "1pred_R.npy"))
+    assert pred_R.shape == (4, 3, 3) and np.isfinite(pred_R).all()

@@ -22,7 +22,8 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import nativ
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import cuda_build
 ref = "imagesequenceregistrationfor6dposeestimationlabeling_tpu"
 loaded = [m for m in sys.modules if m.split(".")[0] == ref]
-print(len(names), "jax" in sys.modules, "flax" in sys.modules, cuda_build.kernels.cache_info().currsize,
+new = {port.__name__ + ".cli", port.__name__ + ".utils.viz", port.__name__ + ".data.bop"}
+print(len(names), new <= set(names), "jax" in sys.modules, "flax" in sys.modules, cuda_build.kernels.cache_info().currsize,
       native._TRIED, len(loaded))
 """
 
@@ -31,8 +32,8 @@ def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=300, check=True).stdout.split()
-    n_modules, jax_loaded, flax_loaded, built, native_tried, n_ref = out
-    assert int(n_modules) >= 20
+    n_modules, has_cli, jax_loaded, flax_loaded, built, native_tried, n_ref = out
+    assert int(n_modules) >= 20 and has_cli == "True"  # the CLI and its helpers are among them
     assert jax_loaded == "False" and flax_loaded == "False"
     assert n_ref == "0"  # no module of the JAX package, not even a jax-free one
     assert built == "0" and native_tried == "False"  # no kernel or library build at import

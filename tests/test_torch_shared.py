@@ -1,9 +1,13 @@
 """What the port keeps its own copy of, held to the JAX package's original:
-the config dataclasses, the on-disk artifact format, marching tetrahedra;
-and the device its entry points take when the caller names none."""
+the config dataclasses, the on-disk artifact format, marching tetrahedra,
+the BOP loader and the CAD wrapper; and the device its entry points take
+when the caller names none."""
 
 import dataclasses
+import functools
 import inspect
+import json
+import os
 
 import numpy as np
 import pytest
@@ -153,6 +157,8 @@ ENTRY_POINTS = {
     "make_scene": lambda: synthetic.make_scene(2, 8),
     "checkpoint.load": lambda: checkpoint.load("never-read"),
     "checkpoint.load_state": lambda: checkpoint.load_state("never-read", tconfig.FieldConfig()),
+    "checkpoint.load_pose_state": lambda: checkpoint.load_pose_state("never-read", tconfig.FieldConfig()),
+    "AnalyticField": lambda: synthetic.AnalyticField(),
     "train_state_from_jax": lambda: convert.train_state_from_jax(None, tconfig.FieldConfig()),
     "depth_edges": lambda: cameras.depth_edges(2.0, 6.0, 4),
     "generate_cors": lambda: generate_cors.generate_cors(None, None, None, None, None, "never-written", 1),
@@ -178,10 +184,112 @@ def test_entry_points_default_device_is_none():
     fns = [nerf_trainer.init_state, nerf_trainer.train_nerf_fused, nerf_trainer.train_nerf,
            registration.register_halves, registration.verify_consecutive, renderer.density_grid,
            synthetic.analytic_surface_points, synthetic.random_bop_poses, synthetic.make_scene, checkpoint.load,
-           checkpoint.load_state, convert.train_state_from_jax, cameras.depth_edges, generate_cors.generate_cors,
+           checkpoint.load_state, checkpoint.load_pose_state, synthetic.AnalyticField, convert.train_state_from_jax, cameras.depth_edges, generate_cors.generate_cors,
            pose_trainer.build_negatives, pose_trainer.load_ray_bank, pose_trainer.init_pose_state,
            pose_trainer.train_pose, convert.pose_state_from_jax]
     assert len(fns) == len(ENTRY_POINTS)
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default is None, fn.__qualname__
     assert synthetic.make_scene(2, 8, device="cpu").images.device.type == "cpu"
+
+
+# ------------------------------------------------- the BOP loader's copy
+
+
+@pytest.fixture(scope="module")
+def bop_tree(tmp_path_factory):
+    """A BOP-style dataset ``ruapc`` of object 1: three 96 x 96 frames of a
+    lit rectangle (noise outside the mask), their masks and visibility
+    masks, GT and cameras, a binary little-endian PLY with extra vertex
+    properties and faces, and an ascii one for object 2."""
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("bop")
+    ds = root / "ruapc"
+    obj = ds / "train" / "000001"
+    for sub in ("rgb", "mask", "mask_visib"):
+        (obj / sub).mkdir(parents=True)
+    rng = np.random.default_rng(3)
+    cams, gts = {}, {}
+    for i in range(3):
+        rgb = rng.integers(0, 255, (96, 96, 3), dtype=np.uint8)
+        mask = np.zeros((96, 96), np.uint8)
+        mask[20 + i: 61 + i, 15 + 2 * i: 70] = 255
+        Image.fromarray(rgb).save(obj / "rgb" / f"{i:06d}.png")
+        for sub in ("mask", "mask_visib"):
+            Image.fromarray(mask).save(obj / sub / f"{i:06d}_000000.png")
+        cams[str(i)] = {"cam_K": [250.0, 0.0, 47.0, 0.0, 251.0, 49.0, 0.0, 0.0, 1.0]}
+        R = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+        gts[str(i)] = [{"cam_R_m2c": list(R.reshape(-1)), "cam_t_m2c": [3.0 * i, -2.0, 420.0], "obj_id": 1}]
+    (obj / "scene_camera.json").write_text(json.dumps(cams))
+    (obj / "scene_gt.json").write_text(json.dumps(gts))
+    models = ds / "models"
+    models.mkdir()
+    (models / "models_info.json").write_text(json.dumps({"1": {"diameter": 61.25}, "2": {"diameter": 10.0}}))
+    verts = rng.normal(size=(700, 3)).astype(np.float32) * 20.0
+    rec = np.zeros(700, [("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4"),
+                         ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+    rec["x"], rec["y"], rec["z"] = verts.T
+    head = ("ply\nformat binary_little_endian 1.0\nelement vertex 700\n"
+            + "".join(f"property float {n}\n" for n in ("x", "y", "z", "nx", "ny", "nz"))
+            + "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+            + "element face 1\nproperty list uchar int vertex_indices\nend_header\n")
+    face = bytes([3]) + np.arange(3, dtype="<i4").tobytes()
+    (models / "obj_000001.ply").write_bytes(head.encode() + rec.tobytes() + face)
+    (models / "obj_000002.ply").write_text("ply\nformat ascii 1.0\nelement vertex 3\nproperty float x\n"
+                                           "property float y\nproperty float z\nend_header\n0 0 0\n1 0.5 0\n0 1 2\n")
+    return str(root), verts
+
+
+def test_bop_loader_copy_matches_reference(bop_tree):
+    """The port's own copy of the BOP loader and the CAD wrapper give the
+    reference's arrays, bit for bit, on one fabricated dataset."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.data import bop as jbop
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.utils import objmesh as jobj
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import bop as tbop
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils import objmesh as tobj
+
+    root, verts = bop_tree
+    ds = os.path.join(root, "ruapc")
+    for dataset in ("ruapc", "tless"):
+        for uh in (0, 1):
+            np.testing.assert_array_equal(tbop.half_sequence_ids(dataset, uh), jbop.half_sequence_ids(dataset, uh))
+    for a, b in zip(tbop.load_bop_samples(ds, 1, [0, 2, 1], max_b=40),
+                    jbop.load_bop_samples(ds, 1, [0, 2, 1], max_b=40)):
+        np.testing.assert_array_equal(a, b)
+    ft, fj = tbop.load_bop_full_frames(ds, 1, [1, 2]), jbop.load_bop_full_frames(ds, 1, [1, 2])
+    for a, b in zip(ft, fj):
+        for x, y in (zip(a, b) if isinstance(a, list) else [(a, b)]):
+            np.testing.assert_array_equal(x, y)
+    assert tbop.load_diameter(ds, 1) == jbop.load_diameter(ds, 1) == 61.25
+    for objid, cap in ((1, 0), (1, 300), (2, 0)):
+        ply = os.path.join(ds, "models", f"obj_{objid:06d}.ply")
+        np.testing.assert_array_equal(tbop.read_ply_vertices(ply, cap), jbop.read_ply_vertices(ply, cap))
+    np.testing.assert_array_equal(tbop.load_cad_points(ds, 1), verts)
+    for objid in (1, 2):
+        a, b = tobj.load_obj(os.path.join(ds, "models"), objid), jobj.load_obj(os.path.join(ds, "models"), objid)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(a.normalize(verts[:5]), b.normalize(verts[:5]))
+
+
+def test_cli_trains_a_nerf_on_a_bop_tree(bop_tree, monkeypatch):
+    """The port's ``train-nerf --steps 2`` reads the BOP tree through its
+    ``load_data`` (the same arrays as the reference CLI's loader) and writes
+    its checkpoints."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu import cli as jcli
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import cli as tcli
+
+    root, _ = bop_tree
+    argv = ["--objid", "1", "--dataset", "ruapc", "--UH", "1", "--bop-root", root, "--root", os.path.join(root, "exp"),
+            "--fsamps", "3", "--image-size", "24", "--field-preset", "small", "--viz-every", "0", "--log-every", "0"]
+    args_j = jcli.build_parser().parse_args(["train-nerf", *argv])
+    args_t = tcli.build_parser().parse_args(["train-nerf", *argv, "--device", "cpu"])
+    for a, b in zip(tcli.load_data(args_t, 24), jcli.load_data(args_j, 24)):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setattr(nerf_trainer, "extract_point_cloud", functools.partial(nerf_trainer.extract_point_cloud,
+                                                                               grid_res=16))
+    tcli.main(["train-nerf", *argv, "--device", "cpu", "--steps", "2"])
+    state = checkpoint.load_state(os.path.join(tart.nerf_dir(tcli.exp_dir(args_t), 1), checkpoint.STATE),
+                                  tcli.field_config(args_t), device="cpu")
+    assert state.step == 2 and state.opt.count == 2
