@@ -72,7 +72,18 @@ Phases (any failure raises, and the script exits non-zero):
    launches; ``check`` once more through ``python -m`` in a subprocess; a
    train-nerf stopped after its step-200 checkpoint and resumed with
    ``--cont`` must equal the straight run bit for bit, and train-pose on a
-   copy of the experiment must write bit-identical checkpoints.
+   copy of the experiment must write bit-identical checkpoints;
+11. the CLI's SurfEmb, full-frame and mesh-scene paths (``SURF``): each
+   half's train-nerf (K4), generate-cors (K1, K2), train-pose and gen-feat
+   on the --synthetic-mesh scene, then half 0's poses-est and inference
+   --use-surf-eval at InferenceConfig() (K2 in the refiner; per image the
+   seconds of the distribution, P3P with pruning, scoring and refinement,
+   the peak device memory, the best score, ADD-S), inference
+   --use-surf-eval again (bit-identical poses), poses-est by argmax-PnP
+   (K3), and inference --full-frames on raw 640 x 480 frames rendered by
+   the port's rasterizer into a BOP tree (K3, K2); K2 at the refiner's
+   launch shapes and K3 at a full frame's against their plain versions,
+   timed; the cdf at 5,476 x 80,000 against an f64 running sum.
 
 Output: one JSON line with the kernels, then the device JSON as the last line.
 """
@@ -182,6 +193,18 @@ PIPELINE = {"nerf_steps": 800, "pose_steps": 200, "neg_loops": 20, "neg_threshol
 # checkpoint every 100), 100 descriptor steps, the CLI's defaults otherwise;
 # the resume check stops its run after the step-200 checkpoint
 CLI = {"views": 8, "nerf_steps": 400, "pose_steps": 100, "resume_at": 200, "flags": []}
+# the CLI's SurfEmb, full-frame and mesh-scene paths (``surf_path``): the
+# --synthetic-mesh scene's 8 views a half (1,280 triangles), the CLI phase's
+# depth (400 NeRF steps a half, 100 descriptor steps), the surf-eval commands
+# at InferenceConfig() (224 px crops: 5,476 cells, 10,000 hypotheses, 1,000
+# scored, 50 BFGS steps), 8 raw 640 x 480 frames of the other half for
+# --full-frames, rendered at the scene's focal length for 224 px crops with
+# the object shifted off-centre (scene units); the cdf checked at a crop's
+# cells x FeatConfig.n_points keys, no draw of the port's cdf may move; the
+# bake gives the mesh scene ~6,000 keys, so one image also runs, and K2 is
+# also checked, at FeatConfig.n_points = 80,000 keys ("full_keys")
+SURF = {"views": 8, "nerf_steps": 400, "pose_steps": 100, "frames": 8, "frame_size": (640, 480), "crop": 224,
+        "shift": (0.9, -0.6), "cdf_shape": (5_476, 80_000), "cdf_moved_max": 0.0, "full_keys": 80_000, "flags": []}
 
 
 def log(msg: str):
@@ -1150,6 +1173,61 @@ def fps_timing(pts, what: str, reps: int = 5):
     return float(np.median(times["graphs"])), float(np.median(times["launches"]))
 
 
+def nn_check(dev, g, n: int, m: int, masked: bool, what: str = ""):
+    """K2 at one shape on random inputs from ``g``: against its plain
+    version and a second launch, bit for bit (raises otherwise), timed as a
+    CUDA graph replay.  Returns (ms, plain ms, bound, inputs, plain
+    result)."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import point_kernels as pk
+
+    q = torch.randn((n, 3), generator=g, device=dev)
+    r = torch.randn((m, 3), generator=g, device=dev)
+    mask = torch.rand((m,), generator=g, device=dev) > 0.1 if masked else None
+    ms, (d_k, i_k) = graph_ms(lambda: pk.nn_min_cuda(q, r, mask))
+    plain_ms, (d_p, i_p) = cuda_ms(lambda: pk.nn_min_plain(q, r, mask), reps=1)
+    d_2, i_2 = pk.nn_min_cuda(q, r, mask)
+    same = torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    again = torch.equal(d_2, d_k) and torch.equal(i_2, i_k)
+    b = nn_bound(n, m, masked)
+    log(f"K2 nn_min {what}{n} x {m}{' masked' if masked else ''} ({pk.launch_plan(n, m, dev, 'nn_min')[0]} splits): "
+        f"bit-identical to plain {same}, second launch {again}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {b[0]:.4f} ms ({b[1]})")
+    if not (same and again):
+        raise AssertionError(f"K2 disagrees with its plain version or itself at {what}{n} x {m}")
+    return ms, plain_ms, b, (q, r, mask), (d_p, i_p)
+
+
+def corr_check(dev, g, n: int, m: int, e: int, what: str = ""):
+    """K3 at one shape on random inputs from ``g``: conf within
+    TOL["corr_argmax"] of its plain version, indices equal but at logit
+    ties, a second launch bit for bit (raises otherwise), timed as a CUDA
+    graph replay.  Returns (conf error, ms, plain ms, bound)."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import point_kernels as pk
+
+    q = torch.randn((n, e), generator=g, device=dev)
+    k = torch.randn((m, e), generator=g, device=dev)
+    ms, (i_k, c_k) = graph_ms(lambda: pk.correspondence_argmax_cuda(q, k))
+    plain_ms, (i_p, c_p) = cuda_ms(lambda: pk.correspondence_argmax_plain(q, k), reps=1)
+    i_2, c_2 = pk.correspondence_argmax_cuda(q, k)
+    err = float((c_k - c_p).abs().max())
+    diff = i_k != i_p
+    tie_gap = float(((q[diff] * k[i_k[diff].long()]).sum(-1)
+                     - (q[diff] * k[i_p[diff].long()]).sum(-1)).abs().max()) if bool(diff.any()) else 0.0
+    again = torch.equal(i_2, i_k) and torch.equal(c_2, c_k)
+    b = corr_bound(n, m, e)
+    log(f"K3 corr {what}{n} x {m} x {e} ({pk.launch_plan(n, m, dev, 'corr_argmax')[0]} splits): conf max_abs_err "
+        f"{err:.3e} (tol {TOL['corr_argmax']}), index mismatches {int(diff.sum())} (logit gap {tie_gap:.2e}), "
+        f"second launch bit-identical {again}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
+        f"({b[1]})")
+    if not (err <= TOL["corr_argmax"] and float(diff.float().mean()) < 1e-3 and tie_gap < 1e-5 and again):
+        raise AssertionError(f"K3 disagrees with its plain version or itself at {what}{n} x {m} x {e}")
+    return err, ms, plain_ms, b
+
+
 def point_kernel_phase(dev, seed: int, shapes: dict):
     """K2 and K3 against their plain versions on random inputs: K2 at every
     launch shape the serve run recorded (``shapes``, from ``serve_path``),
@@ -1169,24 +1247,9 @@ def point_kernel_phase(dev, seed: int, shapes: dict):
     results = {}
 
     inputs, per_shape, want = {}, {}, {}
-    for n, m, masked in sorted(set(shapes["nn_min"])):
-        q = torch.randn((n, 3), generator=g, device=dev)
-        r = torch.randn((m, 3), generator=g, device=dev)
-        mask = torch.rand((m,), generator=g, device=dev) > 0.1 if masked else None
-        inputs[n, m, masked] = (q, r, mask)
-        ms, (d_k, i_k) = graph_ms(lambda: pk.nn_min_cuda(q, r, mask))
-        plain_ms, (d_p, i_p) = cuda_ms(lambda: pk.nn_min_plain(q, r, mask), reps=1)
-        d_2, i_2 = pk.nn_min_cuda(q, r, mask)
-        same = torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
-        again = torch.equal(d_2, d_k) and torch.equal(i_2, i_k)
-        per_shape[n, m, masked] = (ms, plain_ms)
-        want[n, m, masked] = (d_p, i_p)
-        b = nn_bound(n, m, masked)
-        log(f"K2 nn_min {n} x {m}{' masked' if masked else ''} ({pk.launch_plan(n, m, dev, 'nn_min')[0]} splits): "
-            f"bit-identical to plain {same}, second launch {again}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {b[0]:.4f} ms ({b[1]})")
-        if not (same and again):
-            raise AssertionError(f"K2 disagrees with its plain version or itself at {n} x {m}")
+    for s in sorted(set(shapes["nn_min"])):
+        ms, plain_ms, _, inputs[s], want[s] = nn_check(dev, g, *s)
+        per_shape[s] = (ms, plain_ms)
     launches = shapes["nn_min"]
     ms, outs = graph_ms(lambda: [pk.nn_min_cuda(*inputs[s]) for s in launches])
     plain_ms = sum(per_shape[s][1] for s in launches)
@@ -1219,27 +1282,7 @@ def point_kernel_phase(dev, seed: int, shapes: dict):
         raise AssertionError(f"K2 disagrees with its plain version or itself at {n} x {m}")
     del q, r, mask, d_k, i_k, d_p, i_p, d_2, i_2
 
-    corr = {}
-    for n, m, e in sorted(set(shapes["corr_argmax"])) + CORR_SHAPES:
-        q = torch.randn((n, e), generator=g, device=dev)
-        k = torch.randn((m, e), generator=g, device=dev)
-        ms, (i_k, c_k) = graph_ms(lambda: pk.correspondence_argmax_cuda(q, k))
-        plain_ms, (i_p, c_p) = cuda_ms(lambda: pk.correspondence_argmax_plain(q, k), reps=1)
-        i_2, c_2 = pk.correspondence_argmax_cuda(q, k)
-        err = float((c_k - c_p).abs().max())
-        diff = i_k != i_p
-        tie_gap = float(((q[diff] * k[i_k[diff].long()]).sum(-1)
-                         - (q[diff] * k[i_p[diff].long()]).sum(-1)).abs().max()) if bool(diff.any()) else 0.0
-        again = torch.equal(i_2, i_k) and torch.equal(c_2, c_k)
-        b = corr_bound(n, m, e)
-        corr[n, m, e] = (err, ms, plain_ms, b)
-        log(f"K3 corr {n} x {m} x {e} ({pk.launch_plan(n, m, dev, 'corr_argmax')[0]} splits): conf max_abs_err "
-            f"{err:.3e} (tol {TOL['corr_argmax']}), index mismatches {int(diff.sum())} (logit gap {tie_gap:.2e}), "
-            f"second launch bit-identical {again}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
-            f"({b[1]})")
-        if not (err <= TOL["corr_argmax"] and float(diff.float().mean()) < 1e-3 and tie_gap < 1e-5 and again):
-            raise AssertionError(f"K3 disagrees with its plain version or itself at {n} x {m} x {e}")
-        del q, k, i_k, c_k, i_p, c_p, i_2, c_2
+    corr = {s: corr_check(dev, g, *s) for s in sorted(set(shapes["corr_argmax"])) + CORR_SHAPES}
     launches = shapes["corr_argmax"]
     b = (sum(corr[s][3][0] for s in launches), corr[launches[0]][3][1])
     results["corr_argmax"] = result(max(corr[s][0] for s in launches), sum(corr[s][1] for s in launches),
@@ -1792,6 +1835,350 @@ def cli_path(dev, root: str) -> dict:
     return launches
 
 
+def timed_cli(dev, argv) -> tuple:
+    """(wall seconds, kernel launches) of ``cli.main(argv)`` in this process."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import cli
+
+    reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    cli.main(argv)
+    sync(dev)
+    return time.perf_counter() - t0, launch_counts()
+
+
+def write_full_frames(dev, ds: str, ids) -> dict:
+    """A BOP-layout tless object 1 under ``ds`` from the port's own
+    ``render_mesh``: the other half's (UH 1) mesh-scene views of ``ids``
+    rendered again as raw ``SURF["frame_size"]`` frames at the scene's focal
+    length, the object shifted off-centre by ``SURF["shift"]`` (scene
+    units), with rgb, mask and mask_visib PNGs, scene_gt (translations in the
+    loader's units, t x diameter / 1.8, as the trained experiment's baked
+    cloud), scene_camera, models_info (the CAD cloud's diameter) and an
+    ascii PLY of the blob's vertices in those units.  Returns the GT."""
+    import numpy as np
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import mesh_scene
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import rasterize
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils import viz
+
+    c = SURF
+    W, H = c["frame_size"]
+    n = len(ids)
+    # the --synthetic-mesh loader's half 1 (generator seeded with UH), at the
+    # smoke's crop size for its focal length
+    S = c["crop"]
+    scene = mesh_scene.make_mesh_scene(n_views=c["views"], image_size=S,
+                                       generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    scale = scene.diameter / 1.8
+    R = scene.R_bop[:n]
+    t = scene.t_bop[:n] + torch.tensor([*c["shift"], 0.0], device=dev)
+    f = float(scene.K[0, 0, 0])
+    K = torch.tensor([[f, 0.0, W / 2.0], [0.0, f, H / 2.0], [0.0, 0.0, 1.0]], device=dev)
+    verts, faces, colors, normals = (torch.as_tensor(x, device=dev) for x in mesh_scene.blob_mesh())
+    cams = cameras.camera_from_bop(R, t, K.expand(n, 3, 3), W)
+    rgb, sil, _ = rasterize.render_mesh(verts, faces, colors, normals, cams, W, px_chunk=8192)
+    rgb, sil = rgb[:, :H].cpu().numpy(), sil[:, :H].cpu().numpy()
+    obj = os.path.join(ds, "train", "000001")
+    gts, cams_json = {}, {}
+    t_gt = (t * scale).cpu().numpy()
+    for a, i in enumerate(ids):
+        viz.save_image(os.path.join(obj, "rgb", f"{int(i):06d}.png"), rgb[a])
+        for sub in ("mask", "mask_visib"):
+            viz.save_image(os.path.join(obj, sub, f"{int(i):06d}_000000.png"), sil[a])
+        gts[str(int(i))] = [{"cam_R_m2c": R[a].reshape(-1).tolist(), "cam_t_m2c": t_gt[a].tolist(), "obj_id": 1}]
+        cams_json[str(int(i))] = {"cam_K": K.reshape(-1).tolist()}
+    with open(os.path.join(obj, "scene_gt.json"), "w") as fh:
+        json.dump(gts, fh)
+    with open(os.path.join(obj, "scene_camera.json"), "w") as fh:
+        json.dump(cams_json, fh)
+    cad = scene.verts * scale
+    os.makedirs(os.path.join(ds, "models"), exist_ok=True)
+    diameter = float(np.linalg.norm(cad.max(0) - cad.min(0)))
+    with open(os.path.join(ds, "models", "models_info.json"), "w") as fh:
+        json.dump({"1": {"diameter": diameter}}, fh)
+    with open(os.path.join(ds, "models", "obj_000001.ply"), "w") as fh:
+        fh.write(f"ply\nformat ascii 1.0\nelement vertex {len(cad)}\nproperty float x\nproperty float y\n"
+                 f"property float z\nend_header\n" + "".join(f"{x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in cad))
+    area = sil.reshape(n, -1).sum(1)
+    log(f"  full frames: {n} frames {W} x {H}, object pixels {int(area.min())}-{int(area.max())}, CAD diameter "
+        f"{diameter:.4f}")
+    border = sil[:, 0].sum() + sil[:, -1].sum() + sil[:, :, 0].sum() + sil[:, :, -1].sum()
+    if not (area.min() > 5e-3 * W * H and border == 0):
+        raise AssertionError("the full frames do not hold the whole object")
+    return {"R": R.cpu().numpy(), "t": t_gt, "K": K.cpu().numpy(), "diameter": diameter}
+
+
+def cdf_drift(dev, seed: int, n: int, m: int, n_draws: int = 40_000) -> dict:
+    """The SurfEmb cdf at n pixels x m keys (random queries and keys of the
+    trained descriptors' norm, sigmoid mask probabilities, alpha 1.5): the
+    share of ``n_draws`` uniform draws whose index moves, against an f64
+    running sum of the same f32 entries, for the port's two-level f64 cdf
+    and for a single f32 ``torch.cumsum`` (the reference's expression)."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import no_tf32
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_est_surf as pes
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((n, 12), generator=g, device=dev)
+    k = torch.randn((m, 12), generator=g, device=dev)
+    q, k = 3 * q / q.norm(dim=-1, keepdim=True), 3 * k / k.norm(dim=-1, keepdim=True)
+    mask_prob = torch.sigmoid(4 * torch.randn((n,), generator=g, device=dev))
+    u = torch.rand((n_draws,), generator=g, device=dev)
+    _, cdf = pes.correspondence_distribution(q, k, mask_prob, 1.5)
+    got = pes.inverse_cdf(cdf, u)
+    del cdf
+    flat = torch.empty((n, m), device=dev)
+    for r0 in range(0, n, pes.ROW_CHUNK):
+        rows = slice(r0, r0 + pes.ROW_CHUNK)
+        with no_tf32():
+            logits = q[rows] @ k.T
+        flat[rows] = (torch.exp(torch.log_softmax(logits, 1)) * mask_prob[rows, None]) ** 1.5
+    flat = flat.view(-1)
+    c64 = torch.cumsum(flat.double(), 0)
+    want = torch.searchsorted(c64 / c64[-1], u.double()).clamp_max(n * m - 1)
+    del c64
+    c32 = torch.cumsum(flat, 0)
+    f32 = torch.searchsorted(c32 / c32[-1], u).clamp_max(n * m - 1)
+    out = {"port": float((got != want).float().mean()), "f32": float((f32 != want).float().mean()),
+           "f32_total_rel": float((c32[-1].double() - flat.double().sum()).abs() / flat.double().sum())}
+    del flat, c32
+    return out
+
+
+def sharp_features(p):
+    """A high-frequency injective descriptor of surface points, norm 3."""
+    import torch
+
+    f = torch.cat([torch.sin(14.0 * p), torch.cos(11.0 * p), torch.sin(17.0 * p.flip(-1)), 2.0 * p], -1)
+    return 3.0 * f / f.norm(dim=-1, keepdim=True)
+
+
+def ideal_view(pts, S: int):
+    """A planted pose of the blob's points ``pts`` (M, 3), the camera of an S
+    px crop on it and the ideal maps of that view (S, S, 13): the sharp
+    keys of each pixel's nearest point and mask logits (+6 on the object,
+    -6 off it).  Returns (R, t, K, maps) on the points' device."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.rotations import rotvec_to_matrix
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.rasterize import render_object_coords
+
+    dev = pts.device
+    R = rotvec_to_matrix(torch.tensor([0.3, -0.2, 0.4], device=dev))
+    t = torch.tensor([0.05, -0.03, 4.0], device=dev)
+    K = torch.tensor([[2.1 * S, 0.0, S / 2 - 0.5], [0.0, 2.1 * S, S / 2 - 0.5], [0.0, 0.0, 1.0]], device=dev)
+    coords, mask = render_object_coords(pts, R, t, K, S)
+    maps = torch.cat([sharp_features(coords) * mask[..., None], (mask * 12.0 - 6.0)[..., None]], -1)
+    return R, t, K, maps
+
+
+def ideal_cnn(maps):
+    """A CNN stand-in: ``maps`` (S, S, 13) for any image."""
+    import torch
+
+    class IdealMaps(torch.nn.Module):
+        def forward(self, images):
+            return maps[None].expand(images.shape[0], *maps.shape)
+
+    return IdealMaps()
+
+
+def surf_full_width(dev, seed: int, m: int) -> dict:
+    """One SurfEmb image at InferenceConfig() against ``m`` baked keys: the
+    ideal query map and mask of a 224 px view of ``m`` points drawn on the
+    blob mesh (sharp keys), warm, with its stage seconds and peak device
+    memory; returns its stage log and the pose's distance from the planted
+    one."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import mesh_scene
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import inference
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    verts, faces, _, normals = (torch.as_tensor(x, device=dev) for x in mesh_scene.blob_mesh())
+    tri = faces[torch.randint(0, faces.shape[0], (m,), generator=g, device=dev).long()].long()
+    bary = -torch.log(torch.rand((m, 3), generator=g, device=dev))
+    bary = bary / bary.sum(-1, keepdim=True)
+    pts = (bary[..., None] * verts[tri]).sum(1)
+    nrm = (bary[..., None] * normals[tri]).sum(1)
+    nrm = nrm / nrm.norm(dim=-1, keepdim=True)
+    S = 224
+    R, t, K, maps = ideal_view(pts, S)
+    image = torch.zeros((S, S, 3), device=dev)
+    args = (ideal_cnn(maps), image, K, pts, nrm, sharp_features(pts), 1.2)
+    inference.estimate_pose_surfemb(*args, generator=g)
+    inference.STAGE_LOG = []
+    try:
+        R_e, t_e, _ = inference.estimate_pose_surfemb(*args, generator=g)
+        stages = inference.STAGE_LOG[0]
+    finally:
+        inference.STAGE_LOG = None
+    return {**stages, "dR": float((R_e - R).abs().max()), "dt": float((t_e - t).abs().max())}
+
+
+def surf_kernel_checks(dev, seed: int, shapes: dict):
+    """K2 at every launch shape the refiner recorded and K3 at a full
+    frame's launch shape (``nn_check`` / ``corr_check``)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for s in sorted(set(shapes["nn_min"])):
+        nn_check(dev, g, *s, what="at the refiner's shape ")
+    for s in sorted(set(shapes["corr_argmax"])):
+        corr_check(dev, g, *s, what="at a full frame's shape ")
+
+
+def surf_path(dev, root: str) -> dict:
+    """The CLI's SurfEmb, full-frame and mesh-scene paths on the card
+    (``SURF``), through ``cli.main`` in this process: train-nerf,
+    generate-cors, train-pose and gen-feat of each half on the
+    --synthetic-mesh scene (K4, K1, K2); poses-est and inference
+    --use-surf-eval of half 0 at InferenceConfig() (K2 in the refiner),
+    each image's stage seconds, peak device memory, best score and ADD-S,
+    then inference --use-surf-eval again (bit-identical poses) and
+    poses-est without it (argmax-PnP, K3); inference --full-frames on raw
+    frames written by ``write_full_frames`` (K3, K2); then the kernels at
+    the slice's shapes and the cdf at the full shape.  Returns {command:
+    launches}."""
+    import numpy as np
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import cli
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import bop
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import metrics
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts, inference
+
+    c = SURF
+    t_phase = time.perf_counter()
+    main_root, ff_root, bop_root = (os.path.join(root, n) for n in ("main", "ff", "bop"))
+
+    def base(uh):
+        return ["--objid", "1", "--dataset", "tless", "--UH", str(uh), "--root", main_root, "--synthetic-mesh",
+                "--synthetic-views", str(c["views"]), "--act-dtype", "bfloat16", "--field-preset", "full",
+                "--viz-every", "0", "--log-every", "0", *c["flags"]]
+
+    launches, walls = {}, {}
+
+    def run(tag, argv):
+        walls[tag], launches[tag] = timed_cli(dev, argv)
+        log(f"  surf {tag}: {walls[tag]:.3f} s, launches " + json.dumps({k: v for k, v in launches[tag].items() if v}))
+
+    for uh in (1, 0):
+        run(f"train-nerf UH{uh}", ["train-nerf", *base(uh), "--steps", str(c["nerf_steps"])])
+    for uh in (1, 0):
+        run(f"generate-cors UH{uh}", ["generate-cors", *base(uh)])
+        run(f"train-pose UH{uh}", ["train-pose", *base(uh), "--steps", str(c["pose_steps"])])
+        run(f"gen-feat UH{uh}", ["gen-feat", *base(uh)])
+
+    exp = os.path.join(main_root, "0_tless_obj_1")
+    pose_d = artifacts.pose_dir(exp, 1)
+    verts, _, _, n_real = artifacts.load_keys(pose_d, trim=False)
+    args0 = cli.build_parser().parse_args(["inference", *base(0)])
+    _, _, R_gt, t_gt, _, diam = cli.load_other_half(args0, args0.image_size or 224)
+    verts_m = torch.as_tensor(verts[:n_real], dtype=torch.float32, device=dev)
+    log(f"  surf: {verts.shape[0]} keys ({n_real} baked), diameter {diam:.4f}")
+
+    def adds_of(R, t):
+        return [float(metrics.adds_metric(verts_m, *(torch.as_tensor(x, dtype=torch.float32, device=dev)
+                                                     for x in (R_gt[i], t_gt[i], R[i], t[i]))))
+                for i in range(len(R))]
+
+    estimate = inference.estimate_pose_surfemb
+    poses = []
+
+    def recording(*a, **kw):
+        out = estimate(*a, **kw)
+        poses.append((out[0].cpu(), out[1].cpu()))
+        return out
+
+    def surf_eval(tag, argv):
+        inference.STAGE_LOG = []
+        try:
+            run(tag, argv)
+            log_ = inference.STAGE_LOG
+        finally:
+            inference.STAGE_LOG = None
+        return log_
+
+    inference.estimate_pose_surfemb = recording
+    try:
+        with recorded_launches() as refine_shapes:
+            est_log = surf_eval("poses-est --use-surf-eval", ["poses-est", *base(0), "--use-surf-eval"])
+        surf_R = np.load(os.path.join(exp, "1pred_R.npy"))
+        surf_t = np.load(os.path.join(exp, "1pred_t.npy"))
+        inf_log = surf_eval("inference --use-surf-eval", ["inference", *base(0), "--use-surf-eval"])
+        first, poses[:] = list(poses), []
+        surf_eval("inference --use-surf-eval (again)", ["inference", *base(0), "--use-surf-eval"])
+        again = list(poses)
+    finally:
+        inference.estimate_pose_surfemb = estimate
+    run("poses-est (argmax-PnP)", ["poses-est", *base(0)])
+    pnp_R, pnp_t = np.load(os.path.join(exp, "1pred_R.npy")), np.load(os.path.join(exp, "1pred_t.npy"))
+    surf_adds, pnp_adds = adds_of(surf_R, surf_t), adds_of(pnp_R, pnp_t)
+    for tag, stage_log in (("poses-est", est_log), ("inference", inf_log)):
+        for i, st in enumerate(stage_log):
+            log(f"  surf {tag} image {i}: distribution {st['distribution']:.4f} s, P3P + pruning {st['p3p']:.4f} s, "
+                f"scoring {st['scoring']:.4f} s, refinement {st['refinement']:.4f} s, peak device memory "
+                f"{st.get('peak_bytes', 0) / 2 ** 30:.3f} GiB, best score {st['best_score']:.5f}"
+                + (f", ADD-S {surf_adds[i]:.5f} (argmax-PnP {pnp_adds[i]:.5f}; 0.1 x diameter {0.1 * diam:.5f})"
+                   if tag == "poses-est" else ""))
+    same = len(first) == len(again) == c["views"] and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(first, again))
+    log(f"  surf: inference --use-surf-eval repeated from the same seed gives bit-identical poses: {same}; ADD-S < 0.1 "
+        f"x diameter: SurfEmb {sum(a < 0.1 * diam for a in surf_adds)} of {len(surf_adds)}, argmax-PnP "
+        f"{sum(a < 0.1 * diam for a in pnp_adds)} of {len(pnp_adds)}")
+
+    # raw frames of the other half for --full-frames, beside a copy of the experiment
+    ids = bop.half_sequence_ids("tless", 1)[:c["frames"]]
+    write_full_frames(dev, os.path.join(bop_root, "tless"), ids)
+    shutil.copytree(exp, os.path.join(ff_root, "0_tless_obj_1"))
+    ff_args = ["inference", "--objid", "1", "--dataset", "tless", "--UH", "0", "--root", ff_root, "--bop-root",
+               bop_root, "--full-frames", "--fsamps", str(c["frames"]), *c["flags"]]
+    with recorded_launches() as ff_shapes:
+        run("inference --full-frames", ff_args)
+    listed = open(os.path.join(ff_root, "0_tless_obj_1", "1correctly_predicted_list.txt")).read().split()
+    log(f"  surf: inference --full-frames: {len(listed)} of {c['frames']} frames correct")
+
+    shapes = {"nn_min": refine_shapes["nn_min"], "corr_argmax": ff_shapes["corr_argmax"][:1]}
+    # the refiner's queries: every pixel of a crop
+    S_Q = c["crop"] ** 2
+    log(f"  surf: K2 launch shapes of the refiner (queries, references, masked: launches): "
+        f"{ {str(k): shapes['nn_min'].count(k) for k in sorted(set(shapes['nn_min']))} }; K3 of a full frame "
+        f"(queries, keys, width): {shapes['corr_argmax']}")
+    surf_kernel_checks(dev, 0, {"nn_min": shapes["nn_min"] + [(S_Q, c["full_keys"], False)],
+                                "corr_argmax": shapes["corr_argmax"]})
+    full = surf_full_width(dev, 0, c["full_keys"])
+    log(f"  surf: one image against {c['full_keys']} keys (InferenceConfig(), warm): distribution "
+        f"{full['distribution']:.4f} s, P3P + pruning {full['p3p']:.4f} s, scoring {full['scoring']:.4f} s, refinement "
+        f"{full['refinement']:.4f} s, peak device memory {full.get('peak_bytes', 0) / 2 ** 30:.3f} GiB; pose off the "
+        f"planted one by {full['dR']:.2e} in R, {full['dt']:.2e} in t")
+    n, m = c["cdf_shape"]
+    drift = cdf_drift(dev, 0, n, m)
+    log(f"  surf: the cdf at {n} x {m}: share of {40_000} draws whose index moves against an f64 running sum: the "
+        f"port's two-level f64 cdf {drift['port']:.2e}, a single f32 torch.cumsum {drift['f32']:.2e} (its total "
+        f"off by {drift['f32_total_rel']:.2e} relative)")
+
+    log(f"surf phase: {time.perf_counter() - t_phase:.1f} s in all; per command (s): "
+        + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+    finite = all(np.isfinite(x).all() for x in (surf_R, surf_t, pnp_R, pnp_t)) and np.isfinite(surf_adds).all()
+    wanted = {"train-nerf UH1": ("bundle_loss",), "train-nerf UH0": ("bundle_loss",),
+              "generate-cors UH1": ("density", "nn_min"), "generate-cors UH0": ("density", "nn_min"),
+              "gen-feat UH1": ("density", "nn_min"), "gen-feat UH0": ("density", "nn_min"),
+              "poses-est --use-surf-eval": ("nn_min",), "inference --use-surf-eval": ("nn_min",),
+              "poses-est (argmax-PnP)": ("corr_argmax",), "inference --full-frames": ("corr_argmax", "nn_min")}
+    missing = {k: [x for x in names if not launches[k][x]] for k, names in wanted.items()}
+    missing = {k: v for k, v in missing.items() if v}
+    finite &= bool(np.isfinite([full["dR"], full["dt"]]).all())
+    if missing or not (same and finite and drift["port"] <= c["cdf_moved_max"]):
+        raise AssertionError(f"surf phase: kernels that never launched {missing}; repeat bit-identical {same}; "
+                             f"finite poses {finite}; cdf draws moved {drift['port']}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1851,8 +2238,17 @@ def main(argv=None) -> int:
         cli_path(dev, out_dir)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_surf_")
+    try:
+        surf_launches = surf_path(dev, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
     counts["bundle_loss"] = train_counts["bundle_loss"]
     counts.update({k: chunked_counts[k] for k in ("field_color_fwd", "field_color_bwd")})
+    # the surf phase's commands' launches join the paths' counts
+    for per_command in surf_launches.values():
+        for name, n in per_command.items():
+            counts[name] += n
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

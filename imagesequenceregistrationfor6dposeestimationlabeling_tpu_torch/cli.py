@@ -16,13 +16,16 @@ commands, flags, defaults and experiment-directory layout, on the card.
 Stages talk through the on-disk artifacts (pipeline/artifacts.py, the
 reference's npy files) and the port's ``torch.save`` checkpoints under the
 reference's names; ``--root`` selects the experiment root (default '.').
-``--synthetic`` swaps the BOP loader for the analytic scene, so the whole
-pipeline runs without downloaded data.  Every command runs on the card
-(``--device cuda``, the default, raises on a host without one); the CPU
-runs only for ``--device cpu``.  ``--act-dtype bfloat16`` selects the
-field kernels (K1, K4-K6).  Random draws come from ``torch.Generator``s
-seeded as the reference seeds its keys.  ``--use-surf-eval``,
-``--full-frames`` and ``--synthetic-mesh`` are not ported yet.
+``--synthetic`` swaps the BOP loader for the analytic scene and
+``--synthetic-mesh`` for the rasterized blob mesh, so the whole pipeline
+runs without downloaded data.  ``poses-est`` / ``inference
+--use-surf-eval`` estimate poses by SurfEmb hypothesis scoring and
+refinement instead of argmax-PnP, and ``inference --full-frames`` reads
+raw BOP frames and their visibility masks through the SurfEmb crop.  Every
+command runs on the card (``--device cuda``, the default, raises on a host
+without one); the CPU runs only for ``--device cpu``.  ``--act-dtype
+bfloat16`` selects the field kernels (K1, K4-K6).  Random draws come from
+``torch.Generator``s seeded as the reference seeds its keys.
 """
 
 from __future__ import annotations
@@ -38,18 +41,21 @@ import torch
 
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
 
-_NOT_PORTED = "{flag} is not ported yet: it waits for the next slice of the port (ROADMAP.md, A.4)"
-
-
-def _not_ported(flag: str):
-    raise NotImplementedError(_NOT_PORTED.format(flag=flag))
-
 
 def load_data(args, image_size):
     """(images, sils, R, t, K, diameter) of half ``args.UH`` as numpy: the
-    analytic scene (drawn from a generator seeded with UH) or BOP crops."""
+    mesh or the analytic scene (each drawn from a generator seeded with UH)
+    or BOP crops."""
     if getattr(args, "synthetic_mesh", False):
-        _not_ported("--synthetic-mesh")
+        from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import mesh_scene
+
+        dev = resolve_device(args.device)
+        scene = mesh_scene.make_mesh_scene(n_views=args.synthetic_views, image_size=image_size,
+                                           generator=torch.Generator(device=dev).manual_seed(int(args.UH)), device=dev)
+        diam = scene.diameter
+        to_np = lambda x: x.cpu().numpy()  # noqa: E731
+        return (to_np(scene.images), to_np(scene.sils), to_np(scene.R_bop), to_np(scene.t_bop) * (diam / 1.8),
+                to_np(scene.K), diam)
     if args.synthetic:
         from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
 
@@ -372,10 +378,20 @@ def _serving_inputs(args, image_size: int, trim: bool = False):
     pose_d = artifacts.pose_dir(exp, args.objid)
     # padded keys for correspondence; n_real for the trimmed metric cloud
     verts, feats, _, n_real = artifacts.load_keys(pose_d, trim=trim)
-    f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)  # noqa: E731
     other = load_other_half(args, image_size)
     cnn, _ = _load_cnn(os.path.join(pose_d, checkpoint.ENCODER), dev)
-    return dev, exp, (f32(verts), f32(feats), n_real), other, cnn
+    return dev, exp, (_f32(verts, dev), _f32(feats, dev), n_real), other, cnn
+
+
+def _f32(x, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+
+def _surf_normals(args, dev) -> torch.Tensor:
+    """The baked normals (normals_scaled.npy) of the SurfEmb path."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts
+
+    return _f32(artifacts.load_array(artifacts.pose_dir(exp_dir(args), args.objid), "normals_scaled.npy"), dev)
 
 
 def cmd_poses_est(args):
@@ -383,12 +399,16 @@ def cmd_poses_est(args):
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import normalize_image
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import inference
 
-    if args.use_surf_eval:
-        _not_ported("--use-surf-eval")
     dev, exp, (verts, feats, _), (images, sils, R, t, K, diam), cnn = _serving_inputs(args, args.image_size or 224)
     imgs_n = normalize_image(torch.as_tensor(images, dtype=torch.float32, device=dev))
-    # one card needs no device mesh: the unsharded batch loop (seed 1)
-    pred_R, pred_t = inference.run_sequence(cnn, imgs_n, sils, K, verts, feats, seed=1, device=dev)
+    if args.use_surf_eval:
+        # SurfEmb hypothesis scoring and refinement, one image at a time
+        # from one generator (seed 1)
+        pred_R, pred_t, _ = inference.run_sequence_surfemb(cnn, imgs_n, K, verts, _surf_normals(args, dev), feats,
+                                                           diam, seed=1, device=dev)
+    else:
+        # one card needs no device mesh: the unsharded batch loop (seed 1)
+        pred_R, pred_t = inference.run_sequence(cnn, imgs_n, sils, K, verts, feats, seed=1, device=dev)
     np.save(os.path.join(exp, f"{args.objid}pred_R.npy"), pred_R)
     np.save(os.path.join(exp, f"{args.objid}pred_t.npy"), pred_t)
     print(f"saved {pred_R.shape[0]} poses -> {exp}")
@@ -401,28 +421,32 @@ def cmd_inference(args):
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import metrics
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import inference
 
-    if args.use_surf_eval:
-        _not_ported("--use-surf-eval")
     if args.full_frames and not args.synthetic:
-        _not_ported("--full-frames")
+        return _inference_full_frames(args)
     dev, exp, (verts, feats, n_real), (images, sils, R_gt, t_gt, K, diam), cnn = _serving_inputs(
         args, args.image_size or 224)
-    f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)  # noqa: E731
+    f32 = lambda x: _f32(x, dev)  # noqa: E731
     imgs_n = normalize_image(f32(images))
     sils_t, K_t, R_t, t_t = f32(sils), f32(K), f32(R_gt), f32(t_gt)
     ids = range(images.shape[0]) if args.id < 0 else [args.id]
     work_ct = rot_work_ct = tot = 0
     correct_ids = []
-    # the images draw their RANSAC samples from one generator in turn
+    # the images draw their RANSAC (or SurfEmb) samples from one generator in turn
     gen = torch.Generator(device=dev).manual_seed(1)
     symmetric = args.dataset == "tless"
     m = metrics.adds_metric if symmetric else metrics.add_metric
     verts_m = verts[:n_real]  # metric cloud without the cycled pad tail
     zero = torch.zeros(3, device=dev)
+    normals = _surf_normals(args, dev) if args.use_surf_eval else None
     for i in ids:
-        est = inference.estimate_pose_single(cnn, imgs_n[i], sils_t[i], K_t[i], verts, feats, generator=gen)
-        err = float(m(verts_m, R_t[i], t_t[i], est.R[0], est.t[0]))
-        err_r = float(m(verts_m, R_t[i], zero, est.R[0], zero))
+        if args.use_surf_eval:
+            R_i, t_i, _ = inference.estimate_pose_surfemb(cnn, imgs_n[i], K_t[i], verts, normals, feats, diam,
+                                                          generator=gen)
+        else:
+            est = inference.estimate_pose_single(cnn, imgs_n[i], sils_t[i], K_t[i], verts, feats, generator=gen)
+            R_i, t_i = est.R[0], est.t[0]
+        err = float(m(verts_m, R_t[i], t_t[i], R_i, t_i))
+        err_r = float(m(verts_m, R_t[i], zero, R_i, zero))
         tot += 1
         if err < 0.1 * diam:
             work_ct += 1
@@ -435,6 +459,63 @@ def cmd_inference(args):
         for i in correct_ids:
             f.write(f"{i}\n")
     print(f"final: workCT={work_ct} rotWorkCT={rot_work_ct} total={tot}")
+
+
+def _inference_full_frames(args):
+    """``inference --full-frames``: the OTHER half's raw BOP frames (or
+    ``--id``'s) and visibility masks through the SurfEmb crop, ADD (ADD-S
+    against the baked cloud for tless) of the CAD model's points (the baked
+    cloud where no PLY is on disk) against the GT."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import InferenceConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import bop
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import metrics
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts, inference
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import checkpoint
+
+    dev = resolve_device(args.device)
+    exp = exp_dir(args)
+    pose_d = artifacts.pose_dir(exp, args.objid)
+    verts, feats, _, n_real = artifacts.load_keys(pose_d, trim=False)
+    verts, feats = _f32(verts, dev), _f32(feats, dev)
+    cnn, _ = _load_cnn(os.path.join(pose_d, checkpoint.ENCODER), dev)
+    frame_ids = bop.half_sequence_ids(args.dataset, 1 - int(args.UH))
+    if args.fsamps:
+        frame_ids = frame_ids[: args.fsamps]
+    if args.id >= 0:
+        frame_ids = [args.id]
+    ds = os.path.join(args.bop_root, args.dataset)
+    full = bop.load_bop_full_frames(ds, args.objid, frame_ids)
+    diam = bop.load_diameter(ds, args.objid)
+    # the frames draw their RANSAC samples from one generator in turn
+    gen = torch.Generator(device=dev).manual_seed(1)
+    work_ct = tot = 0
+    correct_ids = []
+    verts_m = verts[:n_real]  # metric cloud without the cycled pad tail
+    # the ADD / ADD-S query cloud is the CAD model's vertices; ADD-S's
+    # neighbours are the baked surface cloud
+    try:
+        metric_verts = _f32(bop.load_cad_points(ds, args.objid), dev)
+    except OSError:
+        metric_verts = verts_m  # no CAD ply on disk: the baked cloud
+    if args.dataset == "tless":
+        def m(*pose):
+            return metrics.adds_metric(metric_verts, *pose, surface_points=verts_m)
+    else:
+        def m(*pose):
+            return metrics.add_metric(metric_verts, *pose)
+    for a, i in enumerate(full.ids):
+        est = inference.estimate_pose_full_frame(cnn, full.frames[a], full.masks[a], full.K[a], verts, feats,
+                                                 cfg=InferenceConfig(), generator=gen, device=dev)
+        err = float(m(_f32(full.R[a], dev), _f32(full.t[a], dev), est.R[0], est.t[0]))
+        tot += 1
+        if err < 0.1 * diam:
+            work_ct += 1
+            correct_ids.append(int(i))
+        print(f"img {int(i)}: ADD={err:.3f} (0.1*diam={0.1 * diam:.3f}) workCT={work_ct}/{tot}")
+    with open(os.path.join(exp, f"{args.objid}correctly_predicted_list.txt"), "w") as f:
+        for i in correct_ids:
+            f.write(f"{i}\n")
+    print(f"final: workCT={work_ct} total={tot}")
 
 
 def cmd_rel_poses(args):
@@ -627,7 +708,7 @@ def build_parser():
         sp.add_argument("--cont", action="store_true")
         sp.add_argument("--synthetic", action="store_true")
         sp.add_argument("--synthetic-mesh", action="store_true",
-                        help="mesh-rasterized synthetic data (not ported yet)")
+                        help="mesh-rasterized synthetic data (the rasterized blob mesh)")
         sp.add_argument("--synthetic-views", default=8, type=int)
         sp.add_argument("--fsamps", default=0, type=int)
         sp.add_argument("--steps", default=0, type=int)
@@ -663,12 +744,12 @@ def build_parser():
         if name in ("inference", "poses-est"):
             sp.add_argument("--id", default=-1, type=int)
             sp.add_argument("--use-surf-eval", action="store_true",
-                            help="SurfEmb hypothesis scoring + refinement (not ported yet)")
+                            help="SurfEmb hypothesis scoring + refinement instead of argmax-PnP")
         if name == "video":
             sp.add_argument("--frames", default=36, type=int, help="number of rotating views")
         if name == "inference":
             sp.add_argument("--full-frames", action="store_true",
-                            help="raw frames through the SurfEmb affine crop (not ported yet)")
+                            help="raw rgb / mask_visib frames through the SurfEmb affine crop, camMat = Ms @ K")
     return p
 
 

@@ -21,6 +21,12 @@ def resolve(device=None) -> torch.device:
     return torch.device("cuda" if device is None else device)
 
 
+def sync(dev: torch.device):
+    """Wait for the card's queued work (a host timer's stage boundary)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def of_module(module: torch.nn.Module, device=None) -> torch.device:
     """``resolve(device)`` for an entry point that runs ``module`` where its
     parameters are: raises if they are elsewhere (nothing is moved)."""

@@ -60,6 +60,10 @@ def pixel_to_ndc(xy_pix: torch.Tensor, S) -> torch.Tensor:
     return 1.0 - 2.0 * xy_pix / S
 
 
+def ndc_to_pixel(xy_ndc: torch.Tensor, S) -> torch.Tensor:
+    return (1.0 - xy_ndc) * S / 2.0
+
+
 def ndc_directions(cam: Camera, xys_ndc: torch.Tensor) -> torch.Tensor:
     """World-space unnormalized ray directions with camera z == 1;
     xys_ndc (..., N, 2) against a camera batch (...)."""
@@ -70,6 +74,17 @@ def ndc_directions(cam: Camera, xys_ndc: torch.Tensor) -> torch.Tensor:
     d_cam = torch.cat([dxy, torch.ones_like(dxy[..., :1])], dim=-1)
     # directions carry no translation: d_world = d_cam @ R^T
     return d_cam @ cam.R.transpose(-1, -2)
+
+
+def project_points(cam: Camera, pts_world: torch.Tensor):
+    """World points (..., N, 3) -> (xy_ndc (..., N, 2), z_cam (..., N)) for a
+    camera batch (...)."""
+    x_cam = pts_world @ cam.R + cam.T[..., None, :]
+    z = x_cam[..., 2]
+    S = cam.image_size
+    f_ndc = 2.0 * cam.focal / S
+    p_ndc = 1.0 - 2.0 * cam.principal / S
+    return f_ndc[..., None, :] * x_cam[..., :2] / z[..., None] + p_ndc[..., None, :], z
 
 
 def grid_rays(cam: Camera, image_size: int, n_pts: int, min_depth, max_depth) -> RayBundle:
@@ -149,3 +164,29 @@ def downsample_K(K: torch.Tensor, factor: int) -> torch.Tensor:
     K[..., 0:2, :] /= factor
     K[..., 0:2, 2] -= 0.5
     return K
+
+
+def crop_K(K: torch.Tensor, x2, y2, hs1, hw, hh, square_size, max_b) -> torch.Tensor:
+    """Bounding-box crop and resize of (..., 3, 3) intrinsics: ``x2, y2`` the
+    bbox's top-left, ``hs1`` half the padded square's size, ``hw, hh`` half
+    the bbox's width and height, ``square_size`` the padded square's edge,
+    ``max_b`` the resized edge."""
+    K = K.to(torch.float32).clone()
+    K[..., 0, 2] += -x2 + hs1 - hw
+    K[..., 1, 2] += -y2 + hs1 - hh
+    K = K * (max_b / square_size)
+    K[..., 2, 2] = 1.0
+    return K
+
+
+def surfemb_crop_M(x, y, w, h, crop_res: int = 224, pad: float = 1.2, device=None):
+    """SurfEmb-style affine crop of the box (x, y, w, h): the 2x3 affine M
+    mapping full-frame pixels to the ``crop_res`` crop and its 3x3 form Ms,
+    f32 on ``device`` (the card unless named)."""
+    center_x = x + w / 2.0
+    center_y = y + h / 2.0
+    size = crop_res / max(w, h) / pad
+    Ms = torch.tensor([[size, 0.0, -center_x * size + crop_res / 2.0],
+                       [0.0, size, -center_y * size + crop_res / 2.0],
+                       [0.0, 0.0, 1.0]], dtype=torch.float32, device=resolve_device(device))
+    return Ms[:2], Ms

@@ -47,17 +47,23 @@ def _to_pixel(g: torch.Tensor, size: int, align_corners: bool) -> torch.Tensor:
 
 
 def grid_sample(images: torch.Tensor, grid: torch.Tensor, mode: str = "nearest",
-                align_corners: bool = True) -> torch.Tensor:
-    """images (B, H, W, C); grid (B, N, 2) with (x, y) in [-1, 1] -> (B, N, C);
-    taps outside the image read zero."""
+                align_corners: bool = True, padding_mode: str = "zeros") -> torch.Tensor:
+    """images (B, H, W, C); grid (B, N, 2) with (x, y) in [-1, 1] -> (B, N, C).
+    Taps outside the image read zero (``padding_mode="zeros"``) or the
+    nearest edge pixel (``"border"``: the tap indices are clipped; the
+    bilinear weights stay those of the unclipped taps)."""
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unknown grid_sample padding_mode {padding_mode!r}")
     B, H, W, C = images.shape
     gx = _to_pixel(grid[..., 0], W, align_corners)
     gy = _to_pixel(grid[..., 1], H, align_corners)
     flat = images.reshape(B, H * W, C)
 
     def tap(ix, iy):
-        valid = (ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)
         idx = iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)
+        if padding_mode == "border":
+            return gather_rows(flat, idx)
+        valid = (ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)
         return gather_rows(flat, idx) * valid[..., None]
 
     if mode == "nearest":

@@ -106,6 +106,13 @@ def p3p_grunert(p3d: torch.Tensor, f: torch.Tensor):
     return R, t, valid
 
 
+def solve_p3p_batch(p3d: torch.Tensor, p2d: torch.Tensor, K: torch.Tensor):
+    """Raw P3P of a batch: (H, 3, 3) points and (H, 3, 2) pixels under K
+    (3, 3) -> up to 4 solutions each: R (H, 4, 3, 3), t (H, 4, 3), valid
+    (H, 4)."""
+    return p3p_grunert(p3d, bearings(p2d, K))
+
+
 def reproject(R, t, K, pts):
     """R (..., 3, 3), t (..., 3), K (..., 3, 3), pts (..., N, 3) ->
     pixels (..., N, 2) and depths (..., N)."""

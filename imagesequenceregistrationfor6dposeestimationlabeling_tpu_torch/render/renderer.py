@@ -91,6 +91,26 @@ def back_ray_bundle(front_bundle: RayBundle, front_hits: torch.Tensor, div: floa
     return RayBundle(origins=front_hits, directions=d, lengths=lengths, xys=front_bundle.xys)
 
 
+def masked_ray_indices(silhouette: torch.Tensor, n_rays: int, generator: torch.Generator | None = None,
+                       gumbel: torch.Tensor | None = None) -> torch.Tensor:
+    """``n_rays`` flat pixel indices drawn uniformly, with replacement, from
+    the silhouette's pixels (from all pixels if it has none): the argmax of
+    the mask's logits plus Gumbel noise (n_rays, H*W), which may be passed in
+    as ``gumbel``; otherwise it is drawn from ``generator``."""
+    flat = silhouette.reshape(-1)
+    logits = torch.where(flat > 0.5, 0.0, -1e9)
+    if gumbel is None:
+        tiny = torch.finfo(torch.float32).tiny
+        u = torch.rand((n_rays, flat.shape[0]), generator=generator, device=flat.device).clamp_min(tiny)
+        gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(logits + gumbel.to(flat.device), dim=-1)
+
+
+def render_depth(bundle: RayBundle, weights: torch.Tensor) -> torch.Tensor:
+    """Per-ray depth from the EA weights: the largest length x weight."""
+    return raymarch.surface_depth(bundle.lengths, weights)
+
+
 def render_coarse_fine(coarse_fn: Callable, fine_fn: Callable, cam: Camera, n_rays: int, n_pts_coarse: int,
                        n_pts_fine: int, min_depth: float, max_depth: float, add_input_samples: bool = True,
                        generator: torch.Generator | None = None, draws=None):

@@ -47,6 +47,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render impor
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import checkpoint as tckpt
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer as tnt
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import generate_cors as tgc
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import inference as tinf
 
 torch.set_num_threads(1)
 
@@ -87,7 +88,10 @@ def test_module_entry_point_lists_every_command():
 
 def test_commands_default_to_the_card(tmp_path, monkeypatch):
     """Without --device a command runs on the card and raises on a host
-    with none; the not-yet-ported paths raise NotImplementedError."""
+    with none; with ``--device cpu`` the SurfEmb, full-frame and mesh-scene
+    paths run: ``train-nerf --synthetic-mesh`` (one step), ``poses-est
+    --use-surf-eval`` and ``inference --full-frames`` on fabricated keys and
+    a fresh ResNetUNet checkpoint."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     base = ["--root", str(tmp_path), "--synthetic", "--image-size", "16"]
     for cmd in _subparsers(tcli.build_parser()):
@@ -95,10 +99,18 @@ def test_commands_default_to_the_card(tmp_path, monkeypatch):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 tcli.main([cmd, *base, *device])
     assert not os.listdir(tmp_path)
-    for argv in (["poses-est", "--use-surf-eval"], ["inference", "--full-frames"],
-                 ["train-nerf", "--synthetic-mesh"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcli.main([*argv, "--root", str(tmp_path), "--device", "cpu"])
+    monkeypatch.setattr(tnt, "extract_point_cloud", functools.partial(tnt.extract_point_cloud, grid_res=16))
+    small = ["--objid", "1", "--dataset", "tless", "--UH", "0", "--device", "cpu", "--log-every", "0", "--viz-every",
+             "0", "--image-size", "24"]
+    tcli.main(["train-nerf", *small, "--root", str(tmp_path / "mesh"), "--synthetic-mesh", "--synthetic-views", "2",
+               "--field-preset", "small", "--steps", "1"])
+    assert os.path.exists(jart.nerf_dir(str(tmp_path / "mesh" / "0_tless_obj_1"), 1))
+    root, bop_root, _ = _nocs_experiment(tmp_path, with_unet=True)
+    tcli.main(["poses-est", *small, "--root", root, "--synthetic", "--synthetic-views", "2", "--use-surf-eval"])
+    pred_R = np.load(os.path.join(root, "0_tless_obj_1", "1pred_R.npy"))
+    assert pred_R.shape == (2, 3, 3) and np.isfinite(pred_R).all()
+    tcli.main(["inference", *small, "--root", root, "--bop-root", bop_root, "--full-frames", "--fsamps", "1"])
+    assert os.path.exists(os.path.join(root, "0_tless_obj_1", "1correctly_predicted_list.txt"))
 
 
 # ------------------------------------------------------------ shared scenes
@@ -482,3 +494,428 @@ def test_port_chain_resumes_exactly_and_feeds_the_reference(tmp_path, monkeypatc
     for n, data in ports.items():
         assert (jroot / "0_ruapc_obj_1" / n).read_bytes() == data, n
     _compare_icp(icp_j, tout[0], _scene(0, 64, 4)[5] / 1.8)
+
+
+# ------------------------------------- SurfEmb, full frames and the mesh scene
+
+
+_MEAN, _STD = np.float32([0.485, 0.456, 0.406]), np.float32([0.229, 0.224, 0.225])
+
+
+def _colour_features(c, xp):
+    """Fourier features (12) of colours (..., 3) in [0, 1], whose dot product
+    is largest where the colours meet."""
+    k = xp.asarray(np.pi * np.arange(1, 3, dtype=np.float32))
+    ang = c[..., :, None] * k
+    parts = [xp.cos(ang).reshape(c.shape[:-1] + (6,)), xp.sin(ang).reshape(c.shape[:-1] + (6,))]
+    return torch.cat(parts, -1) if xp is torch else xp.concatenate(parts, -1)
+
+
+class _JaxNocsNet:
+    """The reference CLI's CNN stand-in: colour features of the
+    de-normalized crop, mask logit 0."""
+
+    def apply(self, params, x):
+        f = _colour_features(x * _STD + _MEAN, jnp)
+        return jnp.concatenate([f, jnp.zeros(f.shape[:-1] + (1,))], -1)
+
+
+class _TorchNocsNet(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.anchor = torch.nn.Parameter(torch.zeros(0), requires_grad=False)
+
+    def forward(self, x):
+        f = _colour_features(x * torch.from_numpy(_STD) + torch.from_numpy(_MEAN), torch)
+        return torch.cat([f, torch.zeros(f.shape[:-1] + (1,))], -1)
+
+
+def _write_bop_tree(ds, objid, ids, frames, masks, R, t, K, diameter, cad):
+    """A BOP-layout object folder: rgb, mask and mask_visib PNGs (the
+    reference's inference reads the half's loader crops, through ``mask``,
+    before its full frames), scene_gt, scene_camera, models_info and an
+    ascii PLY of the CAD points."""
+    from PIL import Image
+
+    obj = os.path.join(ds, "train", f"{objid:06d}")
+    for sub in ("rgb", "mask", "mask_visib"):
+        os.makedirs(os.path.join(obj, sub), exist_ok=True)
+    gts, cams = {}, {}
+    for a, i in enumerate(ids):
+        Image.fromarray(np.round(np.clip(frames[a], 0, 1) * 255).astype(np.uint8)).save(
+            os.path.join(obj, "rgb", f"{i:06d}.png"))
+        for sub in ("mask", "mask_visib"):
+            Image.fromarray((masks[a] > 0).astype(np.uint8) * 255).save(os.path.join(obj, sub, f"{i:06d}_000000.png"))
+        gts[str(i)] = [{"cam_R_m2c": R[a].reshape(-1).tolist(), "cam_t_m2c": t[a].tolist(), "obj_id": objid}]
+        cams[str(i)] = {"cam_K": K.reshape(-1).tolist()}
+    with open(os.path.join(obj, "scene_gt.json"), "w") as f:
+        json.dump(gts, f)
+    with open(os.path.join(obj, "scene_camera.json"), "w") as f:
+        json.dump(cams, f)
+    os.makedirs(os.path.join(ds, "models"), exist_ok=True)
+    with open(os.path.join(ds, "models", "models_info.json"), "w") as f:
+        json.dump({str(objid): {"diameter": float(diameter)}}, f)
+    head = (f"ply\nformat ascii 1.0\nelement vertex {len(cad)}\nproperty float x\nproperty float y\n"
+            "property float z\nend_header\n")
+    with open(os.path.join(ds, "models", f"obj_{objid:06d}.ply"), "w") as f:
+        f.write(head + "".join(f"{x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in cad))
+
+
+def _nocs_experiment(tmp_path, with_unet=False, n_frames=2, size=(120, 90)):
+    """Experiment 0 of tless object 1 with baked keys of the blob mesh
+    (20,000 points drawn on its triangles, scale 40, their NOCS colours'
+    features as keys) and, with ``with_unet``, a fresh ResNetUNet
+    checkpoint; and a BOP tree of ``n_frames`` frames of the other half's
+    first ids: the blob rendered off-centre in its NOCS colours (no shading:
+    a pixel's colour is its surface point's, so every correspondence lands
+    within a key's spacing of the truth) at ``size``.  Returns (root, bop
+    root, the frames' GT)."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import mesh_scene as tms
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import ResNetUNet
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import rasterize as tras
+
+    scale = 40.0
+    verts, faces, colors, normals = tms.blob_mesh(3)
+    diameter = float(np.linalg.norm(verts.max(0) - verts.min(0))) * scale
+    root, bop_root = str(tmp_path / "exp"), str(tmp_path / "bop")
+    pose_d = jart.pose_dir(os.path.join(root, "0_tless_obj_1"), 1)
+    rng = np.random.default_rng(4)
+    bary = rng.dirichlet(np.ones(3), size=20000)
+    tri = rng.integers(0, len(faces), size=20000)
+    pts = np.einsum("nk,nkd->nd", bary, verts[faces[tri]])
+    pts_colors = np.einsum("nk,nkd->nd", bary, colors[faces[tri]])
+    pts_normals = np.einsum("nk,nkd->nd", bary, normals[faces[tri]])
+    for name, arr in (("vert1_scaled.npy", pts * scale), ("feat1_scaled.npy", _colour_features(pts_colors, np)),
+                      ("normals_scaled.npy", pts_normals), ("n_keys.npy", np.asarray([len(pts)]))):
+        jart.save_array(pose_d, name, np.asarray(arr, np.float32) if name != "n_keys.npy" else arr)
+    if with_unet:
+        tckpt.save(os.path.join(pose_d, tckpt.ENCODER),
+                   ResNetUNet().reset_parameters(torch.Generator().manual_seed(0)).state_dict(), 1)
+    W, H = size
+    K = np.float32([[150.0, 0, W / 2 + 0.5], [0, 152.0, H / 2 - 0.5], [0, 0, 1]])
+    Rs = np.stack([_rot(rng) for _ in range(n_frames)]).astype(np.float32)
+    ts = np.stack([[0.5 + 0.1 * a, -0.3, 5.5] for a in range(n_frames)]).astype(np.float32)
+    cam = tcam.camera_from_bop(torch.from_numpy(Rs), torch.from_numpy(ts), torch.from_numpy(K).expand(n_frames, 3, 3),
+                               W)
+    rgb, sil, _ = tras.render_mesh(*(torch.from_numpy(x) for x in (verts, faces, colors, normals)), cam, W,
+                                   ambient=1.0, diffuse=0.0)
+    ids = np.asarray(_tless_ids(1)[:n_frames])
+    _write_bop_tree(os.path.join(bop_root, "tless"), 1, ids, rgb.numpy()[:, :H], sil.numpy()[:, :H], Rs, ts * scale,
+                    K, diameter, verts * scale)
+    return root, bop_root, (Rs, ts * scale)
+
+
+def _tless_ids(uh):
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import bop
+
+    return bop.half_sequence_ids("tless", uh)
+
+
+def _rot(rng):
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))
+    return q * np.linalg.det(q)
+
+
+def _printed_adds(text):
+    return [float(ln.split("ADD=")[1].split()[0]) for ln in text.splitlines() if ln.startswith("img ")]
+
+
+def test_inference_full_frames_matches_reference(tmp_path, monkeypatch, capsys):
+    """``inference --full-frames`` of both CLIs on one fabricated BOP tree
+    (two 120 x 90 frames, the object off-centre), each CLI's CNN replaced by
+    a colour-feature stand-in, the port handed the reference's RANSAC draws
+    (its key path: PRNGKey(1) split once a frame, then ops/pnp.py's split
+    and categorical over the confidence mask): the printed ADD-S (tless:
+    CAD points against the baked cloud) to 3e-3 of the diameter, the
+    correct list equal, and every frame correct.  The crops and confidence
+    masks are equal; a correspondence at RANSAC's 2 px inlier threshold
+    flips (inlier counts 1 apart), which moves the refit pose by ~2e-3 in
+    R and ~0.05 in t."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.models import unet as junet
+
+    root, bop_root, _ = _nocs_experiment(tmp_path)
+    monkeypatch.setattr(junet, "ResNetUNet", _JaxNocsNet)
+    monkeypatch.setattr(tcli, "_load_cnn", lambda path, dev: (_TorchNocsNet(), 0))
+    keys = []
+    key = jax.random.PRNGKey(1)
+    for _ in range(2):
+        key, sub = jax.random.split(key)
+        keys.append(jax.random.split(sub, 2)[0])
+    orig = tinf.estimate_pose_full_frame
+
+    def with_reference_draws(*a, **kw):
+        conf = orig(*a, **kw).conf_mask[0]
+        logits = jnp.log(jnp.maximum(jnp.asarray(conf.numpy(), jnp.float32), 1e-12))
+        samples = np.asarray(jax.random.categorical(keys.pop(0), logits, shape=(500, 4)))
+        return orig(*a, **{**kw, "samples": torch.from_numpy(samples[None])})
+
+    monkeypatch.setattr(tinf, "estimate_pose_full_frame", with_reference_draws)
+    argv = ["inference", "--objid", "1", "--dataset", "tless", "--UH", "0", "--root", root, "--bop-root", bop_root,
+            "--full-frames", "--fsamps", "2"]
+    listed = os.path.join(root, "0_tless_obj_1", "1correctly_predicted_list.txt")
+    jcli.main(argv)
+    want, want_list = _printed_adds(capsys.readouterr().out), open(listed).read()
+    tcli.main([*argv, "--device", "cpu"])
+    got, got_list = _printed_adds(capsys.readouterr().out), open(listed).read()
+    diameter = json.load(open(os.path.join(bop_root, "tless", "models", "models_info.json")))["1"]["diameter"]
+    assert len(got) == len(want) == 2
+    np.testing.assert_allclose(got, want, atol=3e-3 * diameter)
+    assert got_list == want_list == "".join(f"{i}\n" for i in _tless_ids(1)[:2])
+
+
+def _ideal_maps(uh, size, views, features):
+    """Per view of the reference's synthetic half: the ideal query map (the
+    ``features`` of each pixel's surface point, 0 off the object) and mask
+    logits, (V, S, S, 13)."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.geometry import cameras as jcam
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.render import raymarch as jrm
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.render import renderer as jrend
+
+    images, sils, R, t, K, diam = _scene(uh, size, views)
+    t = t / (diam / 1.8)
+    cams = jcam.camera_from_bop(jnp.asarray(R), jnp.asarray(t), jnp.asarray(K), size)
+    z = np.abs(t[:, 2])
+    maps = []
+    for v in range(views):
+        _, w, b = jrend.render_grid_chunked(lambda p, d, m: jsyn.analytic_field(p, d, m), cams[v], size, 96,
+                                            float(z.min() - 2), float(z.max() + 2), mode="feature",
+                                            threshold_mode=True, threshold=0.5, chunk=size * size)
+        pos = jrm.surface_points(b.origins, b.directions, b.lengths, w)
+        q = np.asarray(features(pos)).reshape(size, size, 12) * (sils[v] > 0.5)[..., None]
+        maps.append(np.concatenate([q, (sils[v] * 12.0 - 6.0)[..., None]], -1))
+    return np.stack(maps).astype(np.float32), images
+
+
+class _JaxIdeal:
+    """The reference CLI's CNN stand-in: the ideal map of whichever of the
+    half's images it is shown."""
+
+    def __init__(self, maps, images):
+        self.maps, self.imgs = jnp.asarray(maps), jnp.asarray((images - _MEAN) / _STD)
+
+    def apply(self, params, x):
+        return self.maps[jnp.argmin(((x[:, None] - self.imgs[None]) ** 2).sum((2, 3, 4)), axis=1)]
+
+
+class _TorchIdeal(torch.nn.Module):
+    def __init__(self, maps, images):
+        super().__init__()
+        self.maps, self.imgs = torch.from_numpy(maps), torch.from_numpy(((images - _MEAN) / _STD).astype(np.float32))
+        self.anchor = torch.nn.Parameter(torch.zeros(0), requires_grad=False)
+
+    def forward(self, x):
+        return self.maps[torch.argmin(((x[:, None] - self.imgs[None]) ** 2).sum((2, 3, 4)), dim=1)]
+
+
+def _surf_keys(n):
+    """Each image's SurfEmb key as both CLIs derive it, in image order:
+    poses-est's split(PRNGKey(1), n) and inference's PRNGKey(1) split once an
+    image."""
+    img_keys, key = [], jax.random.PRNGKey(1)
+    for _ in range(n):
+        key, sub = jax.random.split(key)
+        img_keys.append(sub)
+    return {"poses-est": list(jax.random.split(jax.random.PRNGKey(1), n)), "inference": img_keys}
+
+
+def _well_posed_surf_draws(maps, K, verts, feats, key, max_poses, reference_p3p):
+    """One image's SurfEmb draws from its key, moved off the two causes of
+    divergence as ``test_torch_surfemb.well_posed_draws`` does: ((k_samp,
+    u), (k_sol, pick)) for the reference and the port's ``SurfEmbDraws``."""
+    from test_torch_surfemb import well_posed_draws
+
+    k_est, k_ref = jax.random.split(key)
+    scene = dict(mask_lgts=maps[..., 12], qmap=maps[..., :12], feats=feats, verts=verts, K=K.astype(np.float32))
+    u, pick, _ = well_posed_draws(scene, k_est, max_poses, reference_p3p=reference_p3p)
+    k_samp, k_sol = jax.random.split(k_est)
+    sel = np.array(jax.random.permutation(k_ref, verts.shape[0]))
+    return ((k_samp, u), (k_sol, pick)), tinf.SurfEmbDraws(torch.from_numpy(u), torch.from_numpy(pick),
+                                                         torch.from_numpy(sel))
+
+
+def _uniforms_by_key(monkeypatch, table):
+    """``jax.random.uniform`` of the reference replaced: a draw of a key in
+    ``table`` [(key, values)] returns its values (a lookup that traces, so
+    it holds inside the reference's jitted sequence program too)."""
+    keys = jnp.stack([k for k, _ in table])
+    assert len({tuple(np.asarray(k)) for k in keys}) == len(table)
+    vals = jnp.asarray(np.stack([v for _, v in table]))
+    orig = jax.random.uniform
+
+    def uniform(key, shape=(), *a, **kw):
+        if tuple(shape) != vals.shape[1:]:
+            return orig(key, shape, *a, **kw)
+        return vals[jnp.argmax(jnp.all(keys == key, axis=-1))]
+
+    monkeypatch.setattr(jax.random, "uniform", uniform)
+
+
+def _unjitted_batch_estimator(cnn, cfg, diameter, refine=True, refine_steps=50, translation_only=False, mesh=None,
+                              group=None):
+    """The reference's ``make_batch_surfemb_estimator`` as a loop of its
+    ``_surfemb_core`` over the batch's images and keys, without jit."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.pipeline import inference as jinf
+
+    def batch_fn(cnn_params, images, cam_Ks, verts, normals, feats, keys):
+        outs = [jinf._surfemb_core(cnn, cnn_params, image, K, verts, normals, feats, diameter, key, cfg, refine,
+                                   refine_steps, translation_only) for image, K, key in zip(images, cam_Ks, keys)]
+        return tuple(jnp.stack([jnp.asarray(x) for x in part]) for part in zip(*outs))
+
+    return batch_fn
+
+
+def test_surf_eval_commands_match_reference(tmp_path, same_scene, monkeypatch, capsys):
+    """``poses-est`` and ``inference --use-surf-eval`` of both CLIs on 4
+    views of the reference's synthetic half 1 at 48 px, with baked analytic
+    keys and each CLI's CNN replaced by the ideal query maps of a sharp
+    descriptor, both estimators at InferenceConfig(max_poses=512,
+    max_pose_evaluations=128).
+
+    Both CLIs get each image's draws from its key (poses-est: key i of
+    split(PRNGKey(1), n); inference: PRNGKey(1) split once an image), moved
+    off the cdf's bin edges and the ill-posed P3P triples as
+    tests/test_torch_surfemb.py does.  Unrefined (the refiner turned off in
+    both), the saved poses agree to 1e-3 (f32 Grunert), the printed ADD to
+    1e-3 of the diameter (its 3 printed decimals) and the correct lists are
+    equal.  Refined (4 BFGS steps): the refiner carries the two CLIs'
+    unrefined poses' 1e-3 apart, so the port CLI's refinement is held to
+    the reference's ``refine_pose`` from the port CLI's own starts.  Each
+    image's refiner starts from that command's unrefined best pose
+    (poses-est: the saved poses, exactly), is handed the permutation the
+    reference draws from the image's key, and lands on the reference's R
+    and t to 1e-5 (1e-5 of |t0| for t, as tests/test_torch_surfemb.py holds
+    ``refine_pose``); the saved poses are the refiner's.  Four steps: from
+    these 8 starts the two refiners agree to 2e-6 in R through step 4; by
+    step 10 the f32 sums' drift through the BFGS updates reaches 8.5e-4 at
+    one start, and at another an Armijo trial near its bound branches
+    (7e-3)."""
+    from test_torch_surfemb import sharp_features
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.config import InferenceConfig as JCfg
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.models import unet as junet
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.ops import pnp as jpnp
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.pipeline import inference as jinf
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.pipeline import pose_est_surf as jpes
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu.pipeline import pose_refine as jpr
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_refine as tpr
+
+    S, V, P = 48, 4, 512
+    maps, images = _ideal_maps(1, S, V, sharp_features)
+    pts, ok = jsyn.analytic_surface_points(1500, jax.random.PRNGKey(3))
+    pts_n = np.asarray(pts)[np.asarray(ok)]
+    K, diam = _scene(1, S, V)[4:]
+    verts = (pts_n * diam / 1.8).astype(np.float32)
+    feats = np.asarray(sharp_features(jnp.asarray(pts_n)), np.float32)
+    for root in (tmp_path / "jax", tmp_path / "port"):
+        pose_d = jart.pose_dir(str(root / "0_ruapc_obj_1"), 1)
+        jart.save_array(pose_d, "vert1_scaled.npy", verts)
+        jart.save_array(pose_d, "feat1_scaled.npy", feats)
+        jart.save_array(pose_d, "normals_scaled.npy", (pts_n / np.linalg.norm(pts_n, axis=-1, keepdims=True)))
+    monkeypatch.setattr(junet, "ResNetUNet", lambda: _JaxIdeal(maps, images))
+    monkeypatch.setattr(tcli, "_load_cnn", lambda path, dev: (_TorchIdeal(maps, images), 0))
+    # per command: poses-est's key i is inference's key i - 1
+    p3p = jax.jit(jpnp.solve_p3p_batch)
+    ref_draws, port_draws = {}, {}
+    for cmd, keys in _surf_keys(V).items():
+        ref_draws[cmd], port_draws[cmd] = [], []
+        for i, key in enumerate(keys):
+            ref, port = _well_posed_surf_draws(maps[i], K[i], verts, feats, key, P, p3p)
+            ref_draws[cmd] += ref
+            port_draws[cmd].append(port)
+    # the hypotheses op by op (P3P compiled), as the draws were checked
+    # against: compiled whole, XLA sums the cdf in another order; the
+    # reference's sequence program (one jit of lax.map over vmapped images)
+    # becomes a loop of its per-image core over the same keys
+    monkeypatch.setattr(jpes, "estimate_pose", jpes.estimate_pose.__wrapped__)
+    monkeypatch.setattr(jpnp, "solve_p3p_batch", p3p)
+    monkeypatch.setattr(jinf, "make_batch_surfemb_estimator", _unjitted_batch_estimator)
+    small = dict(max_poses=P, max_pose_evaluations=128)
+
+    def configure(mp, refine):
+        kw = dict(refine=refine, refine_steps=4)
+        for mod, cfg in ((jinf, JCfg(**small)), (tinf, tconfig.InferenceConfig(**small))):
+            for fn in ("run_sequence_surfemb", "estimate_pose_surfemb"):
+                mp.setattr(mod, fn, functools.partial(getattr(mod, fn), cfg=cfg, **kw))
+        mp.setattr(tinf, "run_sequence_surfemb",
+                   functools.partial(tinf.run_sequence_surfemb, draws=port_draws["poses-est"]))
+        per_image = iter(port_draws["inference"])
+        one = tinf.estimate_pose_surfemb
+        mp.setattr(tinf, "estimate_pose_surfemb", lambda *a, generator=None, **kw: one(*a, draws=next(per_image), **kw))
+
+    extra = ["--synthetic-views", str(V), "--image-size", str(S), "--use-surf-eval"]
+
+    def run(cli_mod, root, port):
+        capsys.readouterr()
+        for cmd in ("poses-est", "inference"):
+            _uniforms_by_key(monkeypatch, ref_draws[cmd])
+            cli_mod.main([cmd, *_base(root, port=port, extra=extra)])
+        exp = root / "0_ruapc_obj_1"
+        return (np.load(exp / "1pred_R.npy"), np.load(exp / "1pred_t.npy"), _printed_adds(capsys.readouterr().out),
+                (exp / "1correctly_predicted_list.txt").read_text())
+
+    with monkeypatch.context() as mp:
+        configure(mp, refine=False)
+        Rj, tj, addj, listj = run(jcli, tmp_path / "jax", False)
+        Rt, tt, addt, listt = run(tcli, tmp_path / "port", True)
+    assert Rt.shape == (V, 3, 3) and len(addt) == len(addj) == V
+    np.testing.assert_allclose(Rt, Rj, atol=1e-3)
+    np.testing.assert_allclose(tt, tj, atol=1e-3 * np.abs(tj).max())
+    np.testing.assert_allclose(addt, addj, atol=1e-3 * diam)
+    assert listt == listj
+    configure(monkeypatch, refine=True)
+    calls, refine = [], tpr.refine_pose
+
+    def recording(*a, **kw):
+        calls.append((a, kw, refine(*a, **kw)))
+        return calls[-1][2]
+
+    monkeypatch.setattr(tpr, "refine_pose", recording)
+    Rr, tr, addr, _ = run(tcli, tmp_path / "port", True)
+    assert np.isfinite(addr).all() and len(addr) == V and len(calls) == 2 * V
+    starts = {"poses-est": calls[:V], "inference": calls[V:]}
+    for cmd, keys in _surf_keys(V).items():
+        for i, (a, kw, (R1, t1, _)) in enumerate(starts[cmd]):
+            R0, t0 = a[0].numpy(), a[1].numpy()
+            k_ref = jax.random.split(keys[i])[1]
+            assert kw["n_steps"] == 4 and not kw["translation_only"]
+            np.testing.assert_array_equal(kw["sel"].numpy(), np.asarray(jax.random.permutation(k_ref, len(verts))))
+            Rj, tj, _ = jpr.refine_pose(*(jnp.asarray(x.numpy()) for x in a[:6]), k_ref, n_steps=4)
+            np.testing.assert_allclose(R1.numpy(), np.asarray(Rj), atol=1e-5)
+            np.testing.assert_allclose(t1.numpy(), np.asarray(tj), atol=1e-5 * np.abs(t0).max())
+            assert np.abs(t1.numpy() - t0).max() > 0
+            if cmd == "poses-est":
+                np.testing.assert_array_equal(R0, Rt[i])
+                np.testing.assert_array_equal(t0, tt[i])
+                np.testing.assert_array_equal(Rr[i], R1.numpy())
+                np.testing.assert_array_equal(tr[i], t1.numpy())
+
+
+def test_synthetic_mesh_load_data_matches_reference(monkeypatch):
+    """``--synthetic-mesh``'s load_data, the port handed the reference's pose
+    draws of PRNGKey(UH): poses to 1e-5 (the uniforms' scaling rounds once
+    in either order), translations in the loader's units (t x diam / 1.8),
+    K and the diameter equal; images and silhouettes differ on at most
+    0.5 % of pixels (triangle-edge pixels, tests/test_torch_mesh_scene.py
+    bounds them by that cause) and by 1e-4 elsewhere."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import mesh_scene as tms
+
+    orig = tms.make_mesh_scene
+
+    def reference_poses(*a, generator=None, **kw):
+        ks = jax.random.split(jax.random.PRNGKey(generator.initial_seed()), 3)
+        n = kw["n_views"]
+        return orig(*a, uniforms=np.stack([np.asarray(jax.random.uniform(k, (n,))) for k in ks]), **kw)
+
+    monkeypatch.setattr(tms, "make_mesh_scene", reference_poses)
+    for uh in (0, 1):
+        argv = ["--UH", str(uh), "--synthetic-mesh", "--synthetic-views", "3"]
+        want = jcli.load_data(jcli.build_parser().parse_args(["train-nerf", *argv]), 32)
+        got = tcli.load_data(tcli.build_parser().parse_args(["train-nerf", *argv, "--device", "cpu"]), 32)
+        images, sils, R, t, K, diam = got
+        assert diam == want[5] and images.shape == (3, 32, 32, 3) and sils.shape == (3, 32, 32)
+        np.testing.assert_allclose(R, np.asarray(want[2]), atol=1e-5)
+        np.testing.assert_allclose(t, np.asarray(want[3]), atol=1e-5)
+        np.testing.assert_array_equal(K, np.asarray(want[4]))
+        bad = (sils != np.asarray(want[1])) | (np.abs(images - np.asarray(want[0])).max(-1) > 1e-4)
+        assert bad.mean() <= 5e-3

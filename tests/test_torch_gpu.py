@@ -572,3 +572,134 @@ def test_cli_poses_est_launches_the_correspondence_kernel(cuda, tmp_path):
     assert point_kernels.correspondence_argmax_cuda.launches >= 1
     pred_R = np.load(os.path.join(exp, "1pred_R.npy"))
     assert pred_R.shape == (4, 3, 3) and np.isfinite(pred_R).all()
+
+
+# ------------------------------------------- SurfEmb inference and the mesh scene
+
+
+def _surf_scene(S: int, subdivisions: int):
+    """The blob's vertices as baked points (sharp keys, its normals), a
+    planted pose, the crop camera of an S px crop and the ideal maps of
+    that view (``chip_smoke.ideal_view``): CPU tensors."""
+    import chip_smoke
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import mesh_scene
+
+    verts, _, _, normals = (torch.as_tensor(x) for x in mesh_scene.blob_mesh(subdivisions))
+    R, t, K, maps = chip_smoke.ideal_view(verts, S)
+    return dict(verts=verts, normals=normals, feats=chip_smoke.sharp_features(verts), R=R, t=t, K=K, maps=maps)
+
+
+def test_estimate_pose_surfemb_on_card_matches_cpu(cuda):
+    """One 96 px view of the blob (2,562 keys), 2,000 hypotheses, 200
+    scored, the same draws on the card and on the CPU: the distribution
+    draws the same correspondences (99 % of the 8,000 draws or more; a
+    draw that moves lies within 1e-6 of an edge of its CPU bin: the f32
+    entries round differently on the card), the CPU's hypotheses score the
+    same on the card (mask scores to 1e-5; coord scores to 1e-3 on 99 % of
+    them: a z-buffer winner flips at a rounding edge), and
+    ``estimate_pose_surfemb`` with 10 BFGS steps lands within 0.1 of the
+    planted rotation and 5 % of its distance on both.  The hypotheses themselves are not compared slot
+    for slot: on random draws many P3P triples are ill-posed, and f32
+    Grunert under the card's rounding moves their roots by up to 0.2
+    (ROADMAP C, P3P conditioning)."""
+    import chip_smoke
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import InferenceConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.cameras import downsample_K
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import inference, pose_est_surf
+
+    sc = _surf_scene(96, 4)
+    cfg = InferenceConfig(max_poses=2000, max_pose_evaluations=200)
+    g = torch.Generator().manual_seed(0)
+    draws = inference.SurfEmbDraws(torch.rand((2000, 4), generator=g), torch.rand((2000, 4), generator=g),
+                                   torch.randperm(sc["verts"].shape[0], generator=g))
+    hyp = pose_est_surf.estimate_pose(sc["maps"][..., 12], sc["maps"][..., :12], sc["verts"], sc["normals"],
+                                      sc["feats"], 1.2, sc["K"], max_poses=2000, max_pose_evaluations=200,
+                                      draws=pose_est_surf.HypothesisDraws(draws.u, draws.pick))
+    res = {}
+    for dev in ("cpu", cuda):
+        on = {k: v.to(dev) for k, v in sc.items()}
+        mlp, nmlp, mp = pose_est_surf.mask_terms(on["maps"][..., 12], 3)
+        q = pose_est_surf._avg_pool(on["maps"][..., :12], 3).reshape(32 * 32, -1)
+        corr_log, cdf = pose_est_surf.correspondence_distribution(q, on["feats"], mp, 1.5)
+        idx = pose_est_surf.inverse_cdf(cdf, draws.u.to(dev))
+        flat_cdf = cdf.view(-1).cpu()
+        pose_est_surf._max_pool_3x3_keys(corr_log, 32)
+        scores = pose_est_surf.score_poses(hyp.R.to(dev), hyp.t.to(dev), downsample_K(on["K"], 3), on["verts"],
+                                           corr_log, mlp, nmlp, 32)
+        est = inference.estimate_pose_surfemb(chip_smoke.ideal_cnn(on["maps"]), torch.zeros((96, 96, 3), device=dev),
+                                              on["K"], on["verts"], on["normals"], on["feats"], 1.2, cfg=cfg,
+                                              refine_steps=10, draws=inference.SurfEmbDraws(*(x.to(dev) for x in draws)))
+        res[str(dev)] = idx.cpu(), [x.cpu() for x in scores], [torch.as_tensor(x).cpu() for x in est], flat_cdf
+    (ic, sc_c, ec, cdf_c), (ig, sc_g, eg, _) = res["cpu"], res[str(cuda)]
+    moved = ic != ig
+    assert moved.float().mean() <= 0.01
+    u = draws.u.double()[moved]
+    lo = torch.where(ic[moved] > 0, cdf_c[(ic[moved] - 1).clamp_min(0)], torch.zeros_like(u))
+    assert (torch.minimum((u - lo).abs(), (cdf_c[ic[moved]] - u).abs()) < 1e-6).all()
+    valid = hyp.valid & torch.isfinite(sc_c[1])
+    assert int(valid.sum()) >= 50
+    torch.testing.assert_close(sc_g[0], sc_c[0], atol=1e-5, rtol=0)
+    assert ((sc_g[1] - sc_c[1]).abs()[valid] < 1e-3).float().mean() >= 0.99
+    for R, t, _ in (ec, eg):
+        assert float((R - sc["R"]).abs().max()) < 0.1 and float((t - sc["t"]).abs().max()) < 0.05 * 4.0
+
+
+def test_refine_pose_through_k2_matches_plain(cuda, monkeypatch):
+    """The refiner's key lookup at its full shape (a 224 px query image:
+    50,176 queries, 10,242 keys) through K2 and through K2's plain version
+    on the card: the refined pose and objective bit for bit, K2 launched."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.rotations import rotvec_to_matrix
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_refine
+
+    sc = {k: v.to(cuda) for k, v in _surf_scene(224, 5).items()}
+    R0 = rotvec_to_matrix(torch.tensor([0.02, -0.015, 0.02], device=cuda)) @ sc["R"]
+    t0 = sc["t"] + torch.tensor([0.01, -0.01, 0.05], device=cuda)
+    sel = torch.randperm(sc["verts"].shape[0], generator=torch.Generator().manual_seed(1)).to(cuda)
+    args = (R0, t0, sc["maps"][..., :12], sc["K"], sc["verts"], sc["feats"])
+    point_kernels.nn_min_cuda.launches = 0
+    got = pose_refine.refine_pose(*args, n_steps=10, sel=sel)
+    assert point_kernels.nn_min_cuda.launches >= 1
+    monkeypatch.setattr(point_kernels, "nn_min_cuda", point_kernels.nn_min_plain)
+    want = pose_refine.refine_pose(*args, n_steps=10, sel=sel)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float((got[1] - t0).abs().max()) > 0
+
+
+def test_surfemb_cdf_at_full_shape(cuda):
+    """The SurfEmb cdf at a 224 px crop's 5,476 cells x 80,000 keys: no
+    draw of 40,000 moves against an f64 running sum of the same entries
+    (the port's two-level f64 cdf); a single f32 torch.cumsum is reported
+    (chip_smoke.cdf_drift)."""
+    import chip_smoke
+
+    drift = chip_smoke.cdf_drift(cuda, 0, 5_476, 80_000)
+    print(f"moved draws: port {drift['port']:.2e}, f32 cumsum {drift['f32']:.2e}")
+    assert drift["port"] == 0.0
+
+
+def test_render_mesh_on_card_matches_cpu(cuda):
+    """Eight 64 px views of the blob (1,280 triangles), flat and textured:
+    the silhouettes differ on at most 0.5 % of pixels (pixel centres on a
+    triangle's edge), rgb and depth to 1e-4 on the rest."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import mesh_scene, synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import rasterize
+
+    S = 64
+    mesh = [torch.as_tensor(x) for x in mesh_scene.blob_mesh(3)]
+    R, t = synthetic.random_bop_poses(8, torch.Generator().manual_seed(2), device="cpu")
+    K = torch.tensor([[2.1 * S, 0.0, S / 2], [0.0, 2.1 * S, S / 2], [0.0, 0.0, 1.0]]).expand(8, 3, 3)
+    for albedo_fn in (None, mesh_scene.procedural_albedo):
+        out = {}
+        for dev in ("cpu", cuda):
+            cams = cameras.camera_from_bop(R.to(dev), t.to(dev), K.to(dev), S)
+            out[str(dev)] = [x.cpu() for x in rasterize.render_mesh(*(x.to(dev) for x in mesh), cams, S,
+                                                                     albedo_fn=albedo_fn)]
+        (rc, sc, dc), (rg, sg, dg) = out["cpu"], out[str(cuda)]
+        both = (sc > 0) & (sg > 0)
+        bad = ((sc != sg) | ((rc - rg).abs().amax(-1) > 1e-4)
+               | (torch.where(both, (dc - dg).abs(), torch.zeros_like(dc)) > 1e-4 * 4))
+        assert float(sc.mean()) > 0.05 and float(bad.float().mean()) <= 5e-3

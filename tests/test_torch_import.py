@@ -22,7 +22,8 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import nativ
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import cuda_build
 ref = "imagesequenceregistrationfor6dposeestimationlabeling_tpu"
 loaded = [m for m in sys.modules if m.split(".")[0] == ref]
-new = {port.__name__ + ".cli", port.__name__ + ".utils.viz", port.__name__ + ".data.bop"}
+new = {port.__name__ + "." + m for m in ("cli", "utils.viz", "data.bop", "data.mesh_scene", "data.scene_cache",
+                                         "ops.rasterize", "pipeline.pose_est_surf", "pipeline.pose_refine")}
 print(len(names), new <= set(names), "jax" in sys.modules, "flax" in sys.modules, cuda_build.kernels.cache_info().currsize,
       native._TRIED, len(loaded))
 """

@@ -19,11 +19,11 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu.pipeline import ar
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu.train import pose_trainer as jpt
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import config as tconfig
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import convert
-from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import mesh_scene, scene_cache, synthetic
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import mcubes as tmcubes
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts as tart
-from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import generate_cors, registration
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import generate_cors, inference, registration
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import renderer
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import checkpoint, nerf_trainer, pose_trainer
 
@@ -168,6 +168,12 @@ ENTRY_POINTS = {
     "init_pose_state": lambda: pose_trainer.init_pose_state(None, tconfig.PoseTrainConfig()),
     "train_pose": lambda: pose_trainer.train_pose(None, None, None, None, None),
     "pose_state_from_jax": lambda: convert.pose_state_from_jax(None, tconfig.FieldConfig(), None),
+    "make_mesh_scene": lambda: mesh_scene.make_mesh_scene(2, 8),
+    "load_scene_cached": lambda: scene_cache.load_scene_cached(0, 2, 8, cache_dir="never-written"),
+    "run_sequence_surfemb": lambda: inference.run_sequence_surfemb(None, None, None, None, None, None, 1.0),
+    "surfemb_crop": lambda: inference.surfemb_crop(None, None, None),
+    "estimate_pose_full_frame": lambda: inference.estimate_pose_full_frame(None, None, None, None, None, None),
+    "surfemb_crop_M": lambda: cameras.surfemb_crop_M(0, 0, 4, 4),
 }
 
 
@@ -186,7 +192,9 @@ def test_entry_points_default_device_is_none():
            synthetic.analytic_surface_points, synthetic.random_bop_poses, synthetic.make_scene, checkpoint.load,
            checkpoint.load_state, checkpoint.load_pose_state, synthetic.AnalyticField, convert.train_state_from_jax, cameras.depth_edges, generate_cors.generate_cors,
            pose_trainer.build_negatives, pose_trainer.load_ray_bank, pose_trainer.init_pose_state,
-           pose_trainer.train_pose, convert.pose_state_from_jax]
+           pose_trainer.train_pose, convert.pose_state_from_jax, mesh_scene.make_mesh_scene,
+           scene_cache.load_scene_cached, inference.run_sequence_surfemb, inference.surfemb_crop,
+           inference.estimate_pose_full_frame, cameras.surfemb_crop_M]
     assert len(fns) == len(ENTRY_POINTS)
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default is None, fn.__qualname__
