@@ -83,7 +83,16 @@ Phases (any failure raises, and the script exits non-zero):
    (K3), and inference --full-frames on raw 640 x 480 frames rendered by
    the port's rasterizer into a BOP tree (K3, K2); K2 at the refiner's
    launch shapes and K3 at a full frame's against their plain versions,
-   timed; the cdf at 5,476 x 80,000 against an f64 running sum.
+   timed; the cdf at 5,476 x 80,000 against an f64 running sum;
+12. the chain of phase 9 with the softplus MLP feature head (``NOSIREN``,
+   ``FieldConfig(siren=False)``, 360 -> 256 -> 12): a SIREN and a
+   non-SIREN field from the same trunk, density and colour weights trained
+   50 steps on the same draws end with bit-identical non-feature
+   parameters; 400 NeRF steps a half (K4), the head bit-identical after
+   them; generate_cors (K1, K2), negatives (K1, K2), 100 descriptor steps
+   (the loss must fall), the bake (K1, K2), inference (K3), verification
+   and ICP (K2); the baked keys strictly inside (0, 1); stage times, warm
+   ms a descriptor step (``utils.profiling.StepTimer``) and ADD.
 
 Output: one JSON line with the kernels, then the device JSON as the last line.
 """
@@ -184,8 +193,8 @@ CORR_SHAPES = [(5_625, 80_000, 12), (45_000, 80_000, 12)]
 # steps (seed 1, warmup 100) with the round-5 augmentation (jitter x 2,
 # distractors p 0.5: the batch's rolled views), then the serving stages on
 # the trained field and CNN; NeRF training is TRAIN's at 800 steps
-PIPELINE = {"nerf_steps": 800, "pose_steps": 200, "neg_loops": 20, "neg_threshold": 0.2, "neg_seed": 0,
-            "pose_seed": 1, "cors": {"density_threshold": 0.2}, "pose": {"warmup_steps": 100},
+PIPELINE = {"nerf_steps": 800, "pose_steps": 200, "timed_pose_steps": 12, "neg_loops": 20, "neg_threshold": 0.2,
+            "neg_seed": 0, "pose_seed": 1, "cors": {"density_threshold": 0.2}, "pose": {"warmup_steps": 100},
             "aug": {"crop_res": 224, "min_mask_sum": 10.0, "p_distractor": 0.5, "scale_jitter": 0.15,
                     "trans_frac": 0.2}}
 # the command-line program's phase: the synthetic scene's 8 views a half, a
@@ -205,6 +214,12 @@ CLI = {"views": 8, "nerf_steps": 400, "pose_steps": 100, "resume_at": 200, "flag
 # also checked, at FeatConfig.n_points = 80,000 keys ("full_keys")
 SURF = {"views": 8, "nerf_steps": 400, "pose_steps": 100, "frames": 8, "frame_size": (640, 480), "crop": 224,
         "shift": (0.9, -0.6), "cdf_shape": (5_476, 80_000), "cdf_moved_max": 0.0, "full_keys": 80_000, "flags": []}
+# the chain with the softplus MLP feature head (FieldConfig(siren=False), 360
+# -> 256 -> 12 at full width): the synthetic scene of bench.py:239-254 (8 views
+# a half at 224 px, 3 cams x 400 rays), the CLI phase's depth (400 NeRF steps a
+# half, warmup min(300, 400 // 3), 100 descriptor steps), the pipeline phase's
+# settings otherwise; the head's no-effect check trains both heads 50 steps
+NOSIREN = {"nerf_steps": 400, "warmup": 133, "pose_steps": 100, "same_steps": 50}
 
 
 def log(msg: str):
@@ -396,13 +411,14 @@ def reset_launch_counts():
 
 
 def profile_run(run, path: str, what: str):
-    """``run()`` once more under torch.profiler: device time by kernel to
+    """``run()`` once more under torch.profiler (``utils.profiling.trace``,
+    its Chrome trace into ``path``.trace/): device time by kernel to
     ``path``, and the card's busy share of the wall seconds ``run`` returns."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
 
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils import profiling
+
+    with profiling.trace(path + ".trace") as prof:
         wall_s = run()
     events = prof.key_averages()
     # device-side events only (kernels, copies): CPU ops repeat their kernels' time
@@ -414,15 +430,13 @@ def profile_run(run, path: str, what: str):
         f"({100 * busy_ms / (1e3 * wall_s):.1f}%), kernel table in {path}")
 
 
-def train_inputs(dev, seed: int):
-    """The two synthetic halves at the bench's NeRF size, stacked on a
-    leading half axis, on the card."""
+def train_inputs(dev, seed: int, halves=None):
+    """The two synthetic halves at the bench's NeRF size (``halves``, or
+    ``synthetic_halves`` of ``seed``), stacked on a leading half axis, on
+    the card."""
     import torch
 
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
-
-    halves = [synthetic.make_scene(TRAIN["n_views"], TRAIN["image_size"],
-                                   torch.Generator(device=dev).manual_seed(seed + uh), device=dev) for uh in (0, 1)]
+    halves = halves or synthetic_halves(dev, seed)
     return {f: torch.stack([getattr(h, f) for h in halves]) for f in ("images", "sils", "R_bop", "t_bop", "K")}
 
 
@@ -549,12 +563,14 @@ def kernel_step_vs_plain_step(states, data, dev, seed: int, render, train, tag: 
     weights, and the inverse cdf magnifies their differences where a cdf
     segment is thin, which is rare at a fresh init and common on a trained
     surface: ``whole_step`` holds the loss, the fine grads and the updated
-    params to the bars as well; otherwise they are reported."""
+    params to the bars as well; otherwise they are reported.  The fine pass
+    itself is held on the depths resampled from K4's coarse weights: K4
+    against its plain version there on the fine fields (``compare_bundle``).
+    Returns the largest grad error held (max err / tensor max |g|)."""
     import copy
 
     import torch
 
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import raymarch
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
@@ -585,7 +601,7 @@ def kernel_step_vs_plain_step(states, data, dev, seed: int, render, train, tag: 
                 err[which] = max(err[which], g)
                 param_err = max(param_err, float((pa.detach() - pb.detach()).abs().max()))
     # what the fine pass saw: depths resampled from each version's coarse weights
-    cfg = FieldConfig(**FIELD)
+    cfg = states[0].coarse.cfg
     pts = (r["o"][:, :, None] + r["d"][:, :, None] * r["lengths"][..., None]).contiguous()
     weights = tuple(torch.stack(x) for x in zip(*(fk.loss_weights(st.coarse) for st in states)))
     fm = torch.from_numpy(fk.fmat_of(cfg)).to(dev)
@@ -593,6 +609,12 @@ def kernel_step_vs_plain_step(states, data, dev, seed: int, render, train, tag: 
     z = [raymarch.importance_resample(r["lengths"], op(pts, *rest)[2], render.n_pts_fine, u=r["u_pdf"])
          for op in (fk.bundle_loss_cuda, fk.bundle_loss_plain)]
     dz = (z[0] - z[1]).abs()
+    fine_pts = (r["o"][:, :, None] + r["d"][:, :, None] * z[0][..., None]).contiguous()
+    fine_w = tuple(torch.stack(x) for x in zip(*(fk.loss_weights(st.fine) for st in states)))
+    fine_rest = (*rest[:3], fine_w, *rest[4:-1], False)
+    fine_own = compare_bundle(f"{tag} state's fine pass on K4's resampled depths",
+                              *(op(fine_pts, *fine_rest) for op in (fk.bundle_loss_cuda, fk.bundle_loss_plain,
+                                                                     fk.bundle_loss_cuda)))
     log(f"train step at the {tag} state, K4 vs plain from the same state and draws: loss {loss_a.tolist()} vs "
         f"{loss_b.tolist()} (max rel err {loss_rel:.2e}); grad max err / tensor max |g|: coarse fields "
         f"{err['coarse']:.2e}, fine fields {err['fine']:.2e}; params after the step max abs diff {param_err:.2e} "
@@ -603,6 +625,7 @@ def kernel_step_vs_plain_step(states, data, dev, seed: int, render, train, tag: 
         ok = ok and loss_rel <= TOL["loss_rel"] and err["fine"] <= TOL["grad_scaled"] and param_err <= 2.01 * lr
     if not ok:
         raise AssertionError(f"the train step through K4 disagrees with the step through its plain version ({tag})")
+    return max(fine_own, *(err.values() if whole_step else [err["coarse"]]))
 
 
 def train_path(dev, seed: int, n_steps: int, profile: str | None = None):
@@ -1408,7 +1431,8 @@ def cors_kernel_checks(dev, field, scene, cors: str, cfg, S: int, shapes: dict, 
     """K1 and K2 against their plain versions at the shapes the cors stage
     gave them: K1 at view 0's front pass (its silhouette's rays x
     ``grid_pts_per_ray`` points, one launch), K2 at view 0's front mesh
-    filter (those rays' hits against the unpadded a1), bit-identical."""
+    filter (those rays' hits against the unpadded a1), bit-identical.
+    Returns each kernel's max abs error."""
     import torch
 
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
@@ -1437,7 +1461,8 @@ def cors_kernel_checks(dev, field, scene, cors: str, cfg, S: int, shapes: dict, 
         f"fine field): max_abs_err {float(err.max()):.3e} (tol {TOL['density']}), share > 1e-4 {share:.2e} (tol "
         f"{TOL['density_share']}), points on the other side of the threshold {flips}; second launch bit-identical "
         f"{same}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b1[0]:.3f} ms ({b1[1]})")
-    if not (float(err.max()) <= TOL["density"] and share < TOL["density_share"] and same):
+    err_max = float(err.max())
+    if not (err_max <= TOL["density"] and share < TOL["density_share"] and same):
         raise AssertionError("K1 disagrees with its plain version at the cors stage's front pass")
     del pts, got, want, err
 
@@ -1454,6 +1479,7 @@ def cors_kernel_checks(dev, field, scene, cors: str, cfg, S: int, shapes: dict, 
         f"bit-identical to plain {same2}; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b2[0]:.4f} ms ({b2[1]})")
     if not same2:
         raise AssertionError("K2 disagrees with its plain version at the cors stage's mesh filter")
+    return {"density": float(err_max), "nn_min": float((d_k - d_p).abs().max())}
 
 
 def threshold_flips(field, cam, pix, S: int, cfg, lo: float, hi: float, back_hits) -> "torch.Tensor":
@@ -1537,56 +1563,68 @@ def cors_vs_plain(dev, field, scene, cors: str, cfg, S: int, out_dir: str):
     return n_same, n_diff
 
 
-def pipeline_path(dev, seed: int, out_dir: str, trained=None):
-    """The bench's chain on the card: NeRF training of both halves (or
-    ``trained`` = (states, wall seconds, launch counts) of that run), then
-    generate_cors of each half, negatives, descriptor training, and the
-    serving stages on the trained feature head and CNN.  Each stage's
-    launches are counted over exactly that stage."""
+def synthetic_halves(dev, seed: int):
+    """The bench's two synthetic halves (``TRAIN``'s views and size) on the card."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+
+    return [synthetic.make_scene(TRAIN["n_views"], TRAIN["image_size"],
+                                 torch.Generator(device=dev).manual_seed(seed + uh), device=dev) for uh in (0, 1)]
+
+
+def train_halves(dev, halves, cfg, n_steps: int, warmup: int, init_states=None):
+    """``train_nerf_fused`` of both halves at ``TRAIN``'s settings (seed 1):
+    (states, wall seconds, launch counts of exactly that run)."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import NerfTrainConfig, RenderConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    data = train_inputs(dev, 0, halves)
+    train = NerfTrainConfig(warmup_steps=warmup, batch_size=TRAIN["batch"])
+    reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    states, _ = nerf_trainer.train_nerf_fused(*data.values(), cfg, RenderConfig(n_rays_per_image=TRAIN["n_rays"]), train,
+                                              n_steps=n_steps, seed=TRAIN["seed"], device=dev,
+                                              init_states=init_states)
+    sync(dev)
+    return states, time.perf_counter() - t0, launch_counts()
+
+
+def chain_stages(dev, seed: int, out_dir: str, halves, fields_, pose_steps: int, stages: dict, counts: dict,
+                 tag: str) -> dict:
+    """The bench's chain after NeRF training on the trained fine fields
+    ``fields_`` (one a half): generate_cors of each half, negatives,
+    descriptor training, and the serving stages on the trained feature head
+    and CNN.  Each stage's wall seconds go into ``stages``, its launches
+    into ``counts`` and the launch shapes of K1 / K2 / K3 into the returned
+    "shapes" (``recorded_launches``, per stage).  Warm ms a descriptor step
+    comes from a separate short run with each step timed by
+    ``profiling.StepTimer`` (a device sync a step), so ``pose_s`` holds no
+    sync of its own.  The gates (hits on the mesh, the loss falls, only the
+    head moves, finite outputs, every stage's kernels launch) raise."""
+    import dataclasses
+
     import numpy as np
     import torch
 
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
-        CorsConfig,
-        FieldConfig,
-        NerfTrainConfig,
-        PoseTrainConfig,
-        RenderConfig,
-    )
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import (
-        artifacts,
-        generate_cors,
-        surface_sampling,
-    )
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment, nerf_trainer, pose_trainer
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import CorsConfig, PoseTrainConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts, generate_cors
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment, pose_trainer
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils import profiling
 
     P, S, V = PIPELINE, TRAIN["image_size"], TRAIN["n_views"]
-    halves = [synthetic.make_scene(V, S, torch.Generator(device=dev).manual_seed(seed + uh), device=dev)
-              for uh in (0, 1)]
-    stages, counts = {}, {}
-    if trained is not None:
-        states, stages["nerf_s"], counts["nerf"] = trained
-    else:
-        stacked = [torch.stack([getattr(h, f) for h in halves]) for f in ("images", "sils", "R_bop", "t_bop", "K")]
-        cfg = FieldConfig(**FIELD)
-        train = NerfTrainConfig(warmup_steps=TRAIN["warmup"], batch_size=TRAIN["batch"])
-        reset_launch_counts()
-        sync(dev)
-        t0 = time.perf_counter()
-        states, _ = nerf_trainer.train_nerf_fused(*stacked, cfg, RenderConfig(n_rays_per_image=TRAIN["n_rays"]), train,
-                                                  n_steps=P["nerf_steps"], seed=TRAIN["seed"], device=dev)
-        sync(dev)
-        stages["nerf_s"], counts["nerf"] = time.perf_counter() - t0, launch_counts()
-
     cors_cfg = CorsConfig(**P["cors"])
     timing = os.environ.get("CORS_TIMING")
     os.environ["CORS_TIMING"] = "1"
     reset_launch_counts()
+    shapes = {}
     try:
-        with recorded_launches() as shapes:
+        with recorded_launches() as shapes["cors"]:
             t0 = time.perf_counter()
-            cors_dirs = [generate_cors.generate_cors(states[uh].fine, h.R_bop, h.t_bop, h.K, h.sils,
+            cors_dirs = [generate_cors.generate_cors(fields_[uh], h.R_bop, h.t_bop, h.K, h.sils,
                                                      os.path.join(out_dir, f"{uh}_synth_obj_1"), 1, cors_cfg,
                                                      grid_res=SERVE["grid_res"], image_size=S, device=dev)
                          for uh, h in enumerate(halves)]
@@ -1609,10 +1647,12 @@ def pipeline_path(dev, seed: int, out_dir: str, trained=None):
     reset_launch_counts()
     sync(dev)
     t0 = time.perf_counter()
-    neg = pose_trainer.build_negatives(states[0].fine, h0.R_bop, h0.t_bop, h0.K, h0.sils, a1, pose_cfg,
-                                       image_size=S, n_loops=P["neg_loops"], threshold=P["neg_threshold"],
-                                       generator=torch.Generator(device=dev).manual_seed(P["neg_seed"]), device=dev)
-    sync(dev)
+    with recorded_launches() as shapes["neg"]:
+        neg = pose_trainer.build_negatives(fields_[0], h0.R_bop, h0.t_bop, h0.K, h0.sils, a1, pose_cfg,
+                                           image_size=S, n_loops=P["neg_loops"], threshold=P["neg_threshold"],
+                                           generator=torch.Generator(device=dev).manual_seed(P["neg_seed"]),
+                                           device=dev)
+        sync(dev)
     stages["neg_s"], counts["neg"] = time.perf_counter() - t0, launch_counts()
     log(f"neg_s {stages['neg_s']:.3f} s: n_neg {neg.shape[0]} (surface-hit loops {P['neg_loops']}, a1 "
         f"{a1.shape[0]} points)")
@@ -1620,59 +1660,205 @@ def pipeline_path(dev, seed: int, out_dir: str, trained=None):
     aug_cfg = augment.AugmentConfig(**P["aug"])
     bank = pose_trainer.load_ray_bank(cors_dirs[0], S, V, device=dev)
 
-    def run_pose(n: int):
+    def run_pose(n: int, timer=None):
+        """``n`` descriptor steps; with ``timer``, a checkpoint hook after
+        every step closes the timer's step and opens the next."""
+        cfg, hook = pose_cfg, None
+        if timer is not None:
+            cfg = dataclasses.replace(pose_cfg, ckpt_every=1)
+
+            def hook(state, step):
+                timer.__exit__(None, None, None)
+                timer.__enter__()
+
         sync(dev)
         t = time.perf_counter()
-        out = pose_trainer.train_pose(states[0].fine, h0.images, h0.sils, bank, neg, cfg=pose_cfg, aug_cfg=aug_cfg,
-                                      n_steps=n, seed=P["pose_seed"], device=dev)
+        if timer is not None:
+            timer.__enter__()
+        out = pose_trainer.train_pose(fields_[0], h0.images, h0.sils, bank, neg, cfg=cfg, aug_cfg=aug_cfg,
+                                      n_steps=n, seed=P["pose_seed"], on_checkpoint=hook, device=dev)
         sync(dev)
         return out, time.perf_counter() - t
 
     _, cold_s = run_pose(1)
+    timer = profiling.StepTimer(device=dev)
+    run_pose(P["timed_pose_steps"], timer)
     reset_launch_counts()
-    (pstate, losses), stages["pose_s"] = run_pose(P["pose_steps"])
+    (pstate, losses), stages["pose_s"] = run_pose(pose_steps)
     counts["pose"] = launch_counts()
     losses = np.asarray(losses)
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
-    trunk_same = torch.equal(pstate.field.trunk1.weight, states[0].fine.trunk1.weight)
-    head_moved = not torch.equal(pstate.field.feature_layer.out.weight, states[0].fine.feature_layer.out.weight)
-    log(f"pose_s {stages['pose_s']:.3f} s: {P['pose_steps']} descriptor steps ({min(pose_cfg.batch_size, V)} views x "
-        f"{pose_cfg.sample_size} samples, {bank.pos_vec.shape[1]} bank rows a view), warm "
-        f"{1e3 * stages['pose_s'] / P['pose_steps']:.2f} ms per step, cold first step {1e3 * cold_s:.1f} ms; mean "
-        f"loss of the first 10 steps {first:.6f}, of the last 10 {last:.6f}; NeRF trunk unchanged {trunk_same}, "
-        f"feature head moved {head_moved}")
+    trunk_same = torch.equal(pstate.field.trunk1.weight, fields_[0].trunk1.weight)
+    # the head's output weight: SIREN's feature_layer.out, or feat2
+    head_moved = not torch.equal(pose_trainer.head_params(pstate.field)[-2], pose_trainer.head_params(fields_[0])[-2])
+    log(f"pose_s {stages['pose_s']:.3f} s: {pose_steps} descriptor steps ({min(pose_cfg.batch_size, V)} views x "
+        f"{pose_cfg.sample_size} samples, {bank.pos_vec.shape[1]} bank rows a view), "
+        f"{1e3 * stages['pose_s'] / pose_steps:.2f} ms a step; warm {timer.mean_ms():.2f} ms a step in a separate "
+        f"{P['timed_pose_steps']}-step run (StepTimer, {len(timer.steady)} steps after {timer.skip_first}), "
+        f"cold first step {1e3 * cold_s:.1f} ms; mean loss of the first 10 steps {first:.6f}, of the last 10 "
+        f"{last:.6f}; NeRF trunk unchanged {trunk_same}, feature head moved {head_moved}")
     if not (np.isfinite(losses).all() and last < first and trunk_same and head_moved):
         raise AssertionError("descriptor training: losses not finite or not falling, or the wrong parameters moved")
 
     reset_launch_counts()
-    served = serve_stages(dev, seed, pstate.field, pstate.cnn, h0, h1, os.path.join(out_dir, "serve"),
-                          "the trained chain")
+    with recorded_launches() as shapes["serve"]:
+        served = serve_stages(dev, seed, pstate.field, pstate.cnn, h0, h1, os.path.join(out_dir, "serve"), tag)
     counts["serve"] = launch_counts()
     stages.update({k: served["stages"][k] for k in ("bake_s", "infer_s", "icp_s")})
     diam, scale = h0.diameter, h0.diameter / 1.8
     adds = served["adds"]
     quality = {"pose_correct": int((adds < 0.1 * diam * scale).sum()), "median_add": float(np.median(adds)),
                "chamfer": float(served["out"]["chamfer"]), "cors_rays": cors_rays, "n_neg": int(neg.shape[0]),
-               "n_keys": int(served["n_real"])}
-    log("pipeline stages (s): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
-    log("pipeline outputs: " + json.dumps(quality))
+               "n_keys": int(served["n_real"]), "pose_warm_ms": timer.mean_ms()}
+    log(f"{tag} stages (s): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    log(f"{tag} outputs: " + json.dumps(quality))
     if not (np.isfinite(adds).all() and np.isfinite(served["pred_R"]).all() and np.isfinite(quality["chamfer"])
             and np.isfinite(served["feats"]).all()):
-        raise AssertionError("the trained chain produced non-finite outputs")
+        raise AssertionError(f"{tag}: non-finite outputs")
     wanted = {"nerf": ("bundle_loss",), "cors": ("density", "nn_min"), "neg": ("density", "nn_min"),
               "serve": ("density", "nn_min", "corr_argmax")}
-    log("launches per stage: " + json.dumps({k: {n: v[n] for n in names} for k, (names, v) in
-                                             ((k, (names, counts[k])) for k, names in wanted.items())}))
+    log(f"{tag} launches per stage: " + json.dumps({k: {n: counts[k][n] for n in names} for k, names in
+                                                  wanted.items()}))
     for stage, names in wanted.items():
         if not all(counts[stage][n] > 0 for n in names):
-            raise AssertionError(f"a kernel of the {stage} stage never launched: {counts[stage]}")
+            raise AssertionError(f"{tag}: a kernel of the {stage} stage never launched: {counts[stage]}")
+    return dict(cors_dirs=cors_dirs, cors_cfg=cors_cfg, shapes=shapes, served=served, quality=quality)
 
+
+def pipeline_path(dev, seed: int, out_dir: str, trained=None):
+    """The bench's chain on the card: NeRF training of both halves (or
+    ``trained`` = (states, wall seconds, launch counts) of that run), then
+    ``chain_stages``; then K1 / K2 at the cors stage's shapes, FPS, and
+    generate_cors through K1 / K2's plain versions."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import surface_sampling
+
+    P, S = PIPELINE, TRAIN["image_size"]
+    halves = synthetic_halves(dev, seed)
+    stages, counts = {}, {}
+    if trained is not None:
+        states, stages["nerf_s"], counts["nerf"] = trained
+    else:
+        states, stages["nerf_s"], counts["nerf"] = train_halves(dev, halves, FieldConfig(**FIELD), P["nerf_steps"],
+                                                                TRAIN["warmup"])
+    out = chain_stages(dev, seed, out_dir, halves, [st.fine for st in states], P["pose_steps"], stages, counts,
+                       "pipeline")
+    h0 = halves[0]
     hits = surface_sampling.sample_surface_hits(
         states[0].fine, h0.R_bop, h0.t_bop, h0.K, h0.sils, n_loops=P["neg_loops"], rays_per_image=50, image_size=S,
         threshold=P["neg_threshold"], generator=torch.Generator(device=dev).manual_seed(P["neg_seed"]))
     fps_timing(hits, "the negatives' surface hits", reps=3)
-    cors_kernel_checks(dev, states[0].fine, h0, cors_dirs[0], cors_cfg, S, shapes, counts["cors"])
-    cors_vs_plain(dev, states[0].fine, h0, cors_dirs[0], cors_cfg, S, out_dir)
+    cors_kernel_checks(dev, states[0].fine, h0, out["cors_dirs"][0], out["cors_cfg"], S, out["shapes"]["cors"],
+                       counts["cors"])
+    cors_vs_plain(dev, states[0].fine, h0, out["cors_dirs"][0], out["cors_cfg"], S, out_dir)
+
+
+def nosiren_path(dev, seed: int, out_dir: str) -> dict:
+    """The chain of ``pipeline_path`` with the softplus MLP feature head
+    (``NOSIREN``): the head does not change NeRF training (a SIREN and a
+    non-SIREN field from the same trunk, density and colour weights and
+    the same draws train to bit-identical non-feature parameters), K4
+    leaves the head bit-identical, then ``chain_stages``; the baked keys
+    lie strictly inside (0, 1).  Then K1-K4 against their plain versions
+    at this phase's own shapes: K1 / K2 at the cors stage's
+    (``cors_kernel_checks``), K2 at every launch shape of the negatives and
+    serving stages and K3 at the serving stage's (``nn_check`` /
+    ``corr_check``), K4 in a train step at the fresh and the trained
+    non-SIREN states (``kernel_step_vs_plain_step``).  Returns (each
+    stage's launch counts, each kernel's largest error in those checks)."""
+    import numpy as np
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
+        FieldConfig,
+        NerfTrainConfig,
+        RenderConfig,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import NON_FEATURE_MODULES
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    N = NOSIREN
+    cfg = FieldConfig(**FIELD, siren=False)
+    halves = synthetic_halves(dev, seed)
+    train = NerfTrainConfig(warmup_steps=N["warmup"], batch_size=TRAIN["batch"])
+
+    def is_head(name: str) -> bool:
+        return name.split(".")[0] not in NON_FEATURE_MODULES
+
+    def inits(field_cfg, like=None):
+        """Fresh states of both halves; ``like``'s non-feature weights copied in."""
+        states = [nerf_trainer.init_state(field_cfg, train, torch.Generator().manual_seed(TRAIN["seed"] + h),
+                                          device=dev) for h in (0, 1)]
+        for st, src in zip(states, like or ()):
+            for f, g in ((st.coarse, src.coarse), (st.fine, src.fine)):
+                f.load_state_dict({k: v for k, v in g.state_dict().items() if not is_head(k)}, strict=False)
+        return states
+
+    def body(states):
+        return [(n, p) for st in states for f in (st.coarse, st.fine) for n, p in f.state_dict().items()
+                if not is_head(n)]
+
+    siren_states = inits(FieldConfig(**FIELD))
+    plain = inits(cfg, like=siren_states)
+    if not all(torch.equal(a, b) for (_, a), (_, b) in zip(body(siren_states), body(plain))):
+        raise AssertionError("the SIREN and non-SIREN fields do not start from the same weights")
+    siren_states, _, _ = train_halves(dev, halves, FieldConfig(**FIELD), N["same_steps"], N["warmup"], siren_states)
+    plain, _, _ = train_halves(dev, halves, cfg, N["same_steps"], N["warmup"], plain)
+    same = sum(torch.equal(a, b) for (_, a), (_, b) in zip(body(siren_states), body(plain)))
+    log(f"nosiren: after {N['same_steps']} NeRF steps from the same weights and draws, {same} of "
+        f"{len(body(plain))} non-feature tensors of the SIREN and the non-SIREN fields are bit-identical")
+    if same != len(body(plain)):
+        raise AssertionError("the feature head changed NeRF training")
+
+    states = inits(cfg)
+    heads = [(n, p.clone()) for st in states for f in (st.coarse, st.fine) for n, p in f.state_dict().items()
+             if is_head(n)]
+    stages, counts = {}, {}
+    states, stages["nerf_s"], counts["nerf"] = train_halves(dev, halves, cfg, N["nerf_steps"], N["warmup"], states)
+    after = [p for st in states for f in (st.coarse, st.fine) for n, p in f.state_dict().items() if is_head(n)]
+    head_same = all(torch.equal(a, b) for (_, a), b in zip(heads, after))
+    log(f"nosiren nerf_s {stages['nerf_s']:.3f} s: {N['nerf_steps']} steps a half, "
+        f"{1e3 * stages['nerf_s'] / N['nerf_steps']:.2f} ms a step; feature head ({sorted({n for n, _ in heads})}) "
+        f"bit-identical after training: {head_same}")
+    if not head_same:
+        raise AssertionError("NeRF training (K4) moved the feature head")
+    out = chain_stages(dev, seed, out_dir, halves, [st.fine for st in states], N["pose_steps"], stages, counts,
+                       "nosiren")
+    feats = out["served"]["feats"]
+    log(f"nosiren baked keys: {feats.shape}, min {float(feats.min()):.6f}, max {float(feats.max()):.6f}; ADD per "
+        f"image {np.round(out['served']['adds'], 4).tolist()} (no bar)")
+    if not (np.isfinite(feats).all() and feats.min() > 0.0 and feats.max() < 1.0):
+        raise AssertionError("the non-SIREN head's baked keys are not strictly inside (0, 1)")
+
+    # K1-K4 against their plain versions at this phase's shapes (these
+    # launches come after the stages' counts were read)
+    shapes = out["shapes"]
+    errs = cors_kernel_checks(dev, states[0].fine, halves[0], out["cors_dirs"][0], out["cors_cfg"],
+                              TRAIN["image_size"], shapes["cors"], counts["cors"])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for stage in ("neg", "serve"):
+        nn = shapes[stage]["nn_min"]
+        log(f"nosiren {stage} stage's K2 launch shapes (queries, references, masked: launches): "
+            f"{ {str(k): nn.count(k) for k in sorted(set(nn))} }")
+        for s in sorted(set(nn)):
+            nn_check(dev, g, *s, what=f"at the nosiren {stage} stage's shape ")
+    corr = shapes["serve"]["corr_argmax"]
+    log(f"nosiren serve stage's K3 launch shapes (queries, keys, width): {corr}")
+    errs["corr_argmax"] = max((corr_check(dev, g, *s, what="at the nosiren serve stage's shape ")[0]
+                               for s in sorted(set(corr))), default=0.0)
+    # the step's fine grads are not held: a non-SIREN field's fine weights
+    # differ from the SIREN one's (init_state draws the fine field after the
+    # coarse head), and the fine pass's depths, resampled from each
+    # version's coarse weights, move them; its fine pass is held on K4's
+    # own depths instead
+    data, render = train_inputs(dev, 0, halves), RenderConfig(n_rays_per_image=TRAIN["n_rays"])
+    errs["bundle_loss"] = max(
+        kernel_step_vs_plain_step(st, data, dev, seed + 100, render, train, f"nosiren {tag}", whole_step=False)
+        for st, tag in ((inits(cfg), "initial"), (states, f"step-{N['nerf_steps']}")))
+    log("nosiren kernels against their plain versions at the phase's shapes, largest error: " + json.dumps(errs))
+    return counts, errs
 
 
 def _state_tensors(path: str) -> list:
@@ -2183,7 +2369,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", metavar="PATH",
-                        help="also profile one serve run (kernel table to PATH) and 20 training steps (PATH.train.txt)")
+                        help="also profile one serve run (kernel table to PATH) and 20 training steps (PATH.train.txt); "
+                             "Chrome traces in PATH*.trace/")
     parser.add_argument("--nerf-steps", type=int, default=PIPELINE["nerf_steps"],
                         help="NeRF training steps (the bench's 800; the pipeline phase reuses the trained fields when "
                              "it is 800, and trains its own 800 steps otherwise)")
@@ -2243,12 +2430,22 @@ def main(argv=None) -> int:
         surf_launches = surf_path(dev, out_dir)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_nosiren_")
+    try:
+        t0 = time.perf_counter()
+        nosiren_launches, nosiren_errs = nosiren_path(dev, args.seed, out_dir)
+        log(f"nosiren phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
     counts["bundle_loss"] = train_counts["bundle_loss"]
     counts.update({k: chunked_counts[k] for k in ("field_color_fwd", "field_color_bwd")})
-    # the surf phase's commands' launches join the paths' counts
-    for per_command in surf_launches.values():
-        for name, n in per_command.items():
+    # the surf phase's commands' and the nosiren phase's stages' launches join the paths' counts
+    for per_stage in (*surf_launches.values(), *nosiren_launches.values()):
+        for name, n in per_stage.items():
             counts[name] += n
+    # the error column covers the nosiren phase's checks at its own shapes too
+    for name, err in nosiren_errs.items():
+        phases[name]["max_abs_err"] = max(phases[name]["max_abs_err"], err)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

@@ -3,13 +3,14 @@
 The port's own copy of the reference's frozen dataclasses, with the same
 names, fields and defaults (the reference's scripts hard-code them; its
 ``config.py`` gathers them with their sources, cited beside each field).
-Only the configurations the port's stages read are here.  A test holds
-them equal to the reference's field for field.
+A test holds them equal to the reference's field for field.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +151,41 @@ class RegistrationConfig:
     agreement_metric: str = "adds"          # ADD-S < 0.1*diam
     agreement_frac: float = 0.1
     top_k_choices: int = 50
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """generate_bop_realsamples (cowrendersynth.py:610-747)."""
+
+    dataset: str = "ruapc"
+    objid: int = 1
+    crop_offset: int = 5                    # offset=5 in every script of the reference
+    max_b: int = 200
+    diam_scaling: float = 1.8               # trainNerfFine.py:97
+    # first/second half split (trainNerfFine.py:71-80)
+    ruapc_total: int = 2561
+    tless_total: int = 1001
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    field: FieldConfig = dataclasses.field(default_factory=FieldConfig)
+    render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
+    nerf_train: NerfTrainConfig = dataclasses.field(default_factory=NerfTrainConfig)
+    pose_train: PoseTrainConfig = dataclasses.field(default_factory=PoseTrainConfig)
+    cors: CorsConfig = dataclasses.field(default_factory=CorsConfig)
+    feat: FeatConfig = dataclasses.field(default_factory=FeatConfig)
+    inference: InferenceConfig = dataclasses.field(default_factory=InferenceConfig)
+    registration: RegistrationConfig = dataclasses.field(default_factory=RegistrationConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+    def experiment_dir(self, root: str, uh: int) -> str:
+        """Directory convention '{UH}_{dataset}_obj_{objid}' (trainNerfFine.py:44)."""
+        return os.path.join(root, f"{uh}_{self.data.dataset}_obj_{self.data.objid}")
+
+
+def to_json(cfg) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2)
 
 
 def replace(cfg, **kw):

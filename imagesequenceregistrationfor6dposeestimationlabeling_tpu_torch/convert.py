@@ -47,8 +47,12 @@ def _gn(prefix: str, node) -> dict:
     return {f"{prefix}.weight": _t(node["scale"]), f"{prefix}.bias": _t(node["bias"])}
 
 
-def _feature_head_state(fl) -> dict:
-    """The SIREN feature head's entries from its flax subtree."""
+def _feature_head_state(p) -> dict:
+    """The feature head's entries from a field's flax tree (its ``params``
+    level): the SIREN's, or ``feat1`` / ``feat2``'s for ``siren=False``."""
+    if "feature_layer" not in p:
+        return {**_dense("feat1", p["feat1"]), **_dense("feat2", p["feat2"])}
+    fl = p["feature_layer"]
     sd = {}
     n_layers = sum(k.startswith("SirenLayer_") for k in fl)
     for i in range(n_layers):
@@ -61,7 +65,7 @@ def _field_state(p) -> dict:
     sd = {}
     for name in ("trunk1", "trunk2", "density_layer", "color1", "color2"):
         sd.update(_dense(name, p[name]))
-    sd.update(_feature_head_state(p["feature_layer"]))
+    sd.update(_feature_head_state(p))
     return sd
 
 
@@ -170,7 +174,7 @@ def pose_state_from_jax(state, cfg: FieldConfig, cnn, device=None):
     names = [n for n, _ in field.named_parameters() if labels[n] == "train"]   # head_params' order
 
     def head(moments):
-        sd = _feature_head_state(moments[0]["params"]["feature_layer"])
+        sd = _feature_head_state(moments[0]["params"])
         return [sd[n].to(device) for n in names]
 
     def unet(moments):
@@ -212,13 +216,15 @@ def planted_field_params(cfg: FieldConfig = FieldConfig(), seed: int = 0) -> dic
     density is a closed blob of radius ~0.5 around the origin.
 
     Every weight is drawn from ``seed`` with the reference's initializer
-    distributions; then trunk unit 0 is routed by hand from the cos
-    columns at frequency 1.6 into trunk-2 unit 0 and the density head,
-    whose other inputs are zeroed.  Color and feature heads stay random.
-    Needs ``n_harmonic_functions > 4``."""
+    distributions (the feature head drawn last: SIREN's uniform scheme, or
+    lecun-normal ``feat1`` / ``feat2`` with zero biases for ``siren=False``);
+    then trunk unit 0 is routed by hand from the cos columns at frequency
+    1.6 into trunk-2 unit 0 and the density head, whose other inputs are
+    zeroed.  Color and feature heads stay random.  Needs
+    ``n_harmonic_functions > 4``."""
     H, nh = cfg.n_harmonic_functions, cfg.n_hidden
-    if H <= _PLANT_FREQ or not cfg.siren:
-        raise ValueError("planted field needs n_harmonic_functions > 4 and a SIREN feature head")
+    if H <= _PLANT_FREQ:
+        raise ValueError("planted field needs n_harmonic_functions > 4")
     rng = np.random.default_rng(seed)
     emb = 6 * H
     z = lambda n: np.zeros((n,), np.float32)  # noqa: E731
@@ -233,16 +239,20 @@ def planted_field_params(cfg: FieldConfig = FieldConfig(), seed: int = 0) -> dic
         "color1": dense(nh + emb, nh),
         "color2": dense(nh, 3),
     }
-    siren = {}
-    dims = [3, nh, nh, nh]
-    for i in range(3):
-        bound = 1.0 / dims[i] if i == 0 else np.sqrt(6.0 / dims[i]) / 30.0
-        siren[f"SirenLayer_{i}"] = {"Dense_0": {"kernel": _uniform(rng, (dims[i], nh), bound),
-                                                "bias": _uniform(rng, (nh,), bound)}}
-    bound = np.sqrt(6.0 / nh) / 30.0
-    siren["Dense_0"] = {"kernel": _uniform(rng, (nh, cfg.feature_dim), bound),
-                        "bias": _uniform(rng, (cfg.feature_dim,), bound)}
-    p["feature_layer"] = siren
+    if cfg.siren:
+        siren = {}
+        dims = [3, nh, nh, nh]
+        for i in range(3):
+            bound = 1.0 / dims[i] if i == 0 else np.sqrt(6.0 / dims[i]) / 30.0
+            siren[f"SirenLayer_{i}"] = {"Dense_0": {"kernel": _uniform(rng, (dims[i], nh), bound),
+                                                    "bias": _uniform(rng, (nh,), bound)}}
+        bound = np.sqrt(6.0 / nh) / 30.0
+        siren["Dense_0"] = {"kernel": _uniform(rng, (nh, cfg.feature_dim), bound),
+                            "bias": _uniform(rng, (cfg.feature_dim,), bound)}
+        p["feature_layer"] = siren
+    else:
+        p["feat1"] = dense(emb, nh)
+        p["feat2"] = dense(nh, cfg.feature_dim)
 
     t1 = p["trunk1"]
     t1["kernel"][:, 0] = 0.0

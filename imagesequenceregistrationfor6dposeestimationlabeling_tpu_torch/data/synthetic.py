@@ -81,6 +81,10 @@ class AnalyticField(torch.nn.Module):
     def features(self, pts):
         return analytic_features(pts)
 
+    def custom_forward(self, pts):
+        f = analytic_features(pts)
+        return torch.cat([f, torch.zeros_like(f[..., :1])], -1)
+
     def forward(self, pts, view_dirs=None, mode: str = "color"):
         dens = analytic_density(pts)
         if mode == "feature":

@@ -37,6 +37,31 @@ def rotvec_to_matrix(rvec: torch.Tensor) -> torch.Tensor:
     return eye + a * K + b * K2
 
 
+def matrix_to_rotvec(R: torch.Tensor) -> torch.Tensor:
+    """Log-map, (..., 3, 3) -> (..., 3); near pi the axis comes from the
+    diagonal of (R + I) / 2, its signs from the off-diagonals of the row of
+    the largest axis component."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos(((trace - 1.0) / 2.0).clamp(-1.0, 1.0))
+    w = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]], -1)
+    scale_generic = theta / (2.0 * torch.sin(theta)).clamp_min(1e-12)
+    scale = torch.where(theta < 1e-4, 0.5 + theta * theta / 12.0, scale_generic)
+    generic = w * scale[..., None]
+
+    A = (R + torch.eye(3, dtype=R.dtype, device=R.device)) / 2.0
+    axis_sq = torch.diagonal(A, dim1=-2, dim2=-1).clamp(0.0, 1.0)
+    axis = torch.sqrt(axis_sq)
+    idx = axis_sq.argmax(-1)
+    s01, s02, s12 = torch.sign(A[..., 0, 1]), torch.sign(A[..., 0, 2]), torch.sign(A[..., 1, 2])
+    a0, a1, a2 = axis.unbind(-1)
+    candidates = torch.stack([torch.stack([a0, a1 * s01, a2 * s02], -1),
+                              torch.stack([a0 * s01, a1, a2 * s12], -1),
+                              torch.stack([a0 * s02, a1 * s12, a2], -1)], -2)       # (..., 3, 3)
+    pi_axis = torch.gather(candidates, -2, idx[..., None, None].expand(*idx.shape, 1, 3))[..., 0, :]
+    near_pi = theta > (torch.pi - 1e-3)
+    return torch.where(near_pi[..., None], pi_axis * theta[..., None], generic)
+
+
 def euler_zyx_to_matrix(euler: torch.Tensor) -> torch.Tensor:
     """rot_z @ rot_y @ rot_x of (..., 3) euler angles (x, y, z)."""
     x, y, z = euler.unbind(-1)
@@ -49,6 +74,11 @@ def euler_zyx_to_matrix(euler: torch.Tensor) -> torch.Tensor:
     ry = mat([(y.cos(), zero, y.sin()), (zero, one, zero), (-y.sin(), zero, y.cos())])
     rz = mat([(z.cos(), -z.sin(), zero), (z.sin(), z.cos(), zero), (zero, zero, one)])
     return rz @ ry @ rx
+
+
+def relative_pose(R1, t1, R2, t2):
+    """(R1^T R2, t2 - t1)."""
+    return R1.transpose(-1, -2) @ R2, t2 - t1
 
 
 def relative_pose_se3(R1, t1, R2, t2):
@@ -85,3 +115,8 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor | None = 
     R = V @ D @ U.transpose(-1, -2)
     t = mu_d - (R @ mu_s[..., None])[..., 0]
     return R, t
+
+
+def transform_points(R, t, pts):
+    """x -> R x + t for row points: pts (..., N, 3) @ R^T + t."""
+    return pts @ R.transpose(-1, -2) + t[..., None, :]

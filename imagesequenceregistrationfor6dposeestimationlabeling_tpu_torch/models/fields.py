@@ -12,7 +12,10 @@ Same architecture and numerics as the reference's flax ``NerfField``:
 * density head in f32: ``1 - exp(-softplus(h @ wd + bd))``;
 * color head: ``DirSplitDense`` over ``[h | dir-sin | dir-cos]`` with the
   direction part computed once per ray, then Linear(3) + sigmoid;
-* feature head: SIREN(3 -> n_hidden x 2 -> feature_dim) in f32.
+* feature head: SIREN(3 -> n_hidden x 2 -> feature_dim) in f32, or with
+  ``siren=False`` ``sigmoid(feat2(softplus(feat1(embed(xyz)))))``: both
+  products on the compute dtype, the softplus and the sigmoid in f32, and
+  the softplus not stored in ``act_dtype`` (flax's rounding points).
 
 Weights are stored in torch layout (``Linear.weight`` is (out, in));
 ``convert.params_from_jax`` maps the reference's flax trees onto them.
@@ -26,6 +29,7 @@ import torch
 from torch import nn
 
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import no_tf32
 
 _DTYPES = ("float32", "bfloat16")
 
@@ -160,8 +164,6 @@ class NerfField(nn.Module):
         super().__init__()
         if cfg.compute_dtype not in _DTYPES or cfg.act_dtype not in _DTYPES:
             raise ValueError(f"unsupported dtypes {cfg.compute_dtype}/{cfg.act_dtype}")
-        if not cfg.siren:
-            raise ValueError("the port implements the SIREN feature head (FieldConfig.siren=True) only")
         self.cfg = cfg
         nh = cfg.n_hidden
         emb = 6 * cfg.n_harmonic_functions
@@ -170,19 +172,30 @@ class NerfField(nn.Module):
         self.density_layer = nn.Linear(nh, 1)
         self.color1 = DirSplitDense(nh, emb, nh, bf16=cfg.compute_dtype == "bfloat16")
         self.color2 = nn.Linear(nh, 3)
-        self.feature_layer = Siren(3, nh, 2, cfg.feature_dim)
+        if cfg.siren:
+            self.feature_layer = Siren(3, nh, 2, cfg.feature_dim)
+        else:
+            self.feat1 = nn.Linear(emb, nh)
+            self.feat2 = nn.Linear(nh, cfg.feature_dim)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Init following the reference's flax initializers: lecun-normal
         Dense kernels, zero biases, density bias ``cfg.density_bias``,
-        SIREN's uniform scheme for the feature head."""
+        SIREN's uniform scheme for a SIREN feature head.  The feature head
+        draws last, so the other heads' weights do not depend on ``siren``
+        (flax folds its init keys by module name)."""
         for lin in (self.trunk1, self.trunk2, self.density_layer, self.color2):
             _lecun_normal_(lin.weight, lin.in_features, generator)
             nn.init.zeros_(lin.bias)
         _lecun_normal_(self.color1.weight, self.color1.weight.shape[1], generator)
         nn.init.zeros_(self.color1.bias)
         nn.init.constant_(self.density_layer.bias, self.cfg.density_bias)
-        self.feature_layer.reset_parameters(generator)
+        if self.cfg.siren:
+            self.feature_layer.reset_parameters(generator)
+        else:
+            for lin in (self.feat1, self.feat2):
+                _lecun_normal_(lin.weight, lin.in_features, generator)
+                nn.init.zeros_(lin.bias)
         return self
 
     # -- the reference's bf16 compute/storage discipline
@@ -220,8 +233,12 @@ class NerfField(nn.Module):
         return torch.sigmoid(self._matmul(x, self.color2))
 
     def features(self, pts):
-        """feature_dim-d descriptor keys per point (SIREN on xyz)."""
-        return self.feature_layer(pts)
+        """feature_dim-d descriptor keys per point: SIREN on xyz, or the
+        softplus MLP on the embedding (its softplus kept in f32)."""
+        if self.cfg.siren:
+            return self.feature_layer(pts)
+        h = softplus_beta(self._matmul(self.embed(pts), self.feat1), self.cfg.softplus_beta)
+        return torch.sigmoid(self._matmul(h, self.feat2))
 
     def forward(self, pts, view_dirs=None, mode: str = "color"):
         """Densities (..., 1) and per-point channels: 'color' -> rgb,
@@ -235,11 +252,21 @@ class NerfField(nn.Module):
             feats = torch.cat([self.color(pts, view_dirs), self.features(pts)], dim=-1)
         return dens, feats
 
+    def density_and_features(self, pts):
+        """Density and feature head without view dirs."""
+        return self.density(pts), self.features(pts)
+
+    def custom_forward(self, pts):
+        """The feature head's keys with a zero opacity channel appended."""
+        f = self.features(pts)
+        return torch.cat([f, torch.zeros_like(f[..., :1])], dim=-1)
+
 
 @torch.no_grad()
 def eval_features(field: NerfField, pts: torch.Tensor) -> torch.Tensor:
-    """Feature-head keys for points."""
-    return field.features(pts)
+    """Feature-head keys for points (f32 products in f32, not TF32)."""
+    with no_tf32():
+        return field.features(pts)
 
 
 # Explicit module partition for freeze_spec: every top-level NerfField

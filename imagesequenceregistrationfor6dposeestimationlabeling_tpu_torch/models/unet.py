@@ -139,3 +139,10 @@ def normalize_image(img: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(_MEAN, dtype=img.dtype, device=img.device)
     std = torch.tensor(_STD, dtype=img.dtype, device=img.device)
     return (img - mean) / std
+
+
+def denormalize_image(img: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``normalize_image``."""
+    mean = torch.tensor(_MEAN, dtype=img.dtype, device=img.device)
+    std = torch.tensor(_STD, dtype=img.dtype, device=img.device)
+    return img * std + mean

@@ -31,18 +31,33 @@ def threshold_densities(densities: torch.Tensor, threshold: float) -> torch.Tens
     return (densities > threshold).to(densities.dtype)
 
 
+def weight_mode_densities(densities: torch.Tensor, threshold: float, eps: float = 1e-10,
+                          surface_thickness: int = 1) -> torch.Tensor:
+    """1 at the samples of largest EA weight along each ray that have
+    density > threshold, 0 elsewhere; densities (..., P)."""
+    above = (densities > threshold).to(densities.dtype)
+    w = ea_weights(densities, eps, surface_thickness)
+    top = (w - w.amax(-1, keepdim=True) >= 0).to(densities.dtype)
+    return top * above
+
+
 def composite(
     densities: torch.Tensor,
     features: torch.Tensor,
     eps: float = 1e-10,
     surface_thickness: int = 1,
     threshold_mode: bool = False,
+    weight_mode: bool = False,
     threshold: float = 0.03,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """densities (..., P), features (..., P, C) ->
-    (features+opacity (..., C+1), weights (..., P))."""
+    (features+opacity (..., C+1), weights (..., P)).  ``threshold_mode``
+    binarizes the densities at ``threshold``; else ``weight_mode`` keeps
+    only each ray's top-weight sample above it."""
     if threshold_mode:
         densities = threshold_densities(densities, threshold)
+    elif weight_mode:
+        densities = weight_mode_densities(densities, threshold, eps, surface_thickness)
     weights = ea_weights(densities, eps, surface_thickness)
     feat = (weights[..., None] * features).sum(-2)
     opacity = 1.0 - torch.prod(1.0 - densities, dim=-1, keepdim=True)
@@ -106,3 +121,17 @@ def huber(x: torch.Tensor, y: torch.Tensor, scaling: float = 0.1) -> torch.Tenso
     """Smooth-L1 loss: (sqrt(1 + (x - y)^2 / s^2) - 1) * s."""
     diff_sq = (x - y) ** 2
     return (torch.sqrt(torch.clamp(1.0 + diff_sq / (scaling**2), min=1e-4)) - 1.0) * scaling
+
+
+def mip360_distortion(lengths: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """mip-NeRF-360 distortion loss over rays of depths ``lengths`` and EA
+    weights ``weights`` (both (..., P)), the depths normalized to [0, 1]
+    per ray; the mean over rays.  Not used by training."""
+    w = weights[..., :-1]
+    t = lengths - lengths[..., 0:1]
+    t = t / t.amax(-1, keepdim=True)
+    ut = (t[..., 1:] + t[..., :-1]) / 2
+    dut = (ut[..., :, None] - ut[..., None, :]).abs()
+    loss_inter = (w * (w[..., None, :] * dut).sum(-1)).sum(-1)
+    loss_intra = (w**2 * (t[..., 1:] - t[..., :-1])).sum(-1) / 3
+    return (loss_inter + loss_intra).mean()

@@ -44,12 +44,13 @@ def density_grid_cached(field, grid_res: int = 128, chunk: int = 262144) -> torc
 
 
 def render_bundle(field_fn: Callable, bundle: RayBundle, mode: str = "color", threshold_mode: bool = False,
-                  threshold: float = 0.03, eps: float = 1e-10):
+                  weight_mode: bool = False, threshold: float = 0.03, eps: float = 1e-10):
     """Evaluate ``field_fn(points, view_dirs, mode) -> (densities (..., P, 1),
     feats)`` along the rays and EA-composite: (images (..., C+1), weights
     (..., P))."""
     dens, feats = field_fn(ray_points(bundle), bundle.directions, mode)
-    return raymarch.composite(dens[..., 0], feats, eps=eps, threshold_mode=threshold_mode, threshold=threshold)
+    return raymarch.composite(dens[..., 0], feats, eps=eps, threshold_mode=threshold_mode, weight_mode=weight_mode,
+                              threshold=threshold)
 
 
 def render_rays_chunked(field_fn: Callable, bundle: RayBundle, mode: str = "feature", threshold_mode: bool = True,
@@ -125,3 +126,18 @@ def render_coarse_fine(coarse_fn: Callable, fine_fn: Callable, cam: Camera, n_ra
                                           add_input_samples=add_input_samples)
     fine_img, _ = render_bundle(fine_fn, bundle._replace(lengths=z_fine))
     return coarse_img, fine_img, bundle.xys
+
+
+def freeze_fine_bundle(coarse_fn: Callable, cam: Camera, n_rays: int, n_pts_coarse: int, n_pts_fine: int,
+                       min_depth: float, max_depth: float, add_input_samples: bool = True,
+                       generator: torch.Generator | None = None, draws=None) -> RayBundle:
+    """The fine bundle ``render_coarse_fine`` would render from the same
+    draws, returned to be rendered again on later calls (frozen rays): the
+    coarse pass runs without grad.  ``draws`` = (xys, u, u_pdf) as there."""
+    xys, u, u_pdf = draws if draws is not None else (None, None, None)
+    bundle = monte_carlo_rays(cam, n_rays, n_pts_coarse, min_depth, max_depth, generator, xys, u)
+    with torch.no_grad():
+        _, coarse_w = render_bundle(coarse_fn, bundle)
+    z_fine = raymarch.importance_resample(bundle.lengths, coarse_w, n_pts_fine, generator, u_pdf,
+                                          add_input_samples=add_input_samples)
+    return bundle._replace(lengths=z_fine)

@@ -365,6 +365,23 @@ def augment_view(rgb: torch.Tensor, mask: torch.Tensor, cfg: AugmentConfig, draw
     return Augmented(normalize_image(out), mask_full_w, mask_out, A, d.trans)
 
 
+def nocs_map(xys: torch.Tensor, pos_vec: torch.Tensor, valid: torch.Tensor, res: int = 224) -> torch.Tensor:
+    """(res, res, 3) NOCS image: each valid ray's 3D hit ``pos_vec`` (N, 3)
+    written into the pixel its NDC ``xys`` (N, 2) lands on, zeros
+    elsewhere.  Where rays share a pixel the last one writes, as the
+    reference's scatter does on the CPU (a fixed choice on the card too)."""
+    px = ((1.0 - xys[:, 0]) * 0.5 * (res - 1)).to(torch.int64)
+    py = ((1.0 - xys[:, 1]) * 0.5 * (res - 1)).to(torch.int64)
+    in_b = (px >= 0) & (px < res) & (py >= 0) & (py < res) & valid
+    flat = torch.where(in_b, py * res + px, res * res)
+    order = torch.arange(flat.shape[0], device=flat.device)
+    last = torch.full((res * res + 1,), -1, dtype=torch.int64, device=flat.device)
+    last = last.scatter_reduce(0, flat, order, "amax")[:-1]
+    img = torch.where((last >= 0)[:, None], pos_vec[last.clamp_min(0)], torch.zeros((), dtype=pos_vec.dtype,
+                                                                                     device=pos_vec.device))
+    return img.reshape(res, res, 3)
+
+
 def select_ray_samples(xys: torch.Tensor, valid: torch.Tensor, sample_size: int,
                        generator: torch.Generator | None = None) -> torch.Tensor:
     """(B, sample_size) ray indices drawn with replacement, uniformly over

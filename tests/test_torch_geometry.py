@@ -127,3 +127,22 @@ def test_synthetic_scene_match():
     close(st.images, sj.images, 1e-4)   # 96-sample cumprod composite, f32 order
     assert (st.sils.numpy() != np.asarray(sj.sils)).mean() < 1e-3
     assert st.diameter == sj.diameter
+
+
+def test_matrix_to_rotvec_and_point_helpers(rng):
+    R, rv = _rotations(rng, 6)
+    R2, _ = _rotations(rng, 6)
+    # the small-angle branch, the generic one and both sides of the near-pi branch
+    ax = np.float32([0.48, -0.6, 0.64])
+    extra = np.stack([np.float32([1e-5, 0.0, 0.0]), ax * np.float32(np.pi - 5e-4), ax * np.float32(np.pi - 2e-3),
+                      np.float32([0.0, 0.0, np.pi])])
+    R = np.concatenate([R, np.asarray(jrot.rotvec_to_matrix(jnp.asarray(extra)))])
+    got, want = trot.matrix_to_rotvec(T(R)), jrot.matrix_to_rotvec(jnp.asarray(R))
+    close(got, want, 1e-5)
+    close(trot.rotvec_to_matrix(got[:7]), R[:7], 1e-5)   # away from pi, a round trip back to the matrices
+    t1, t2 = rng.normal(size=(2, 6, 3)).astype(np.float32)
+    for a, b in zip(trot.relative_pose(T(R[:6]), T(t1), T(R2), T(t2)),
+                    jrot.relative_pose(*map(jnp.asarray, (R[:6], t1, R2, t2)))):
+        close(a, b, 1e-6)
+    pts = rng.normal(size=(6, 11, 3)).astype(np.float32)
+    close(trot.transform_points(T(R2), T(t2), T(pts)), jrot.transform_points(*map(jnp.asarray, (R2, t2, pts))), 1e-5)

@@ -225,7 +225,16 @@ def test_pose_checkpoint_round_trip(tmp_path):
     both groups' moments, the count and the step come back bit for bit;
     the field and the CNN are also readable alone, and moments of another
     architecture are refused."""
-    cfg = tconfig.FieldConfig(n_harmonic_functions=8, n_hidden=48)
+    _check_pose_checkpoint(tmp_path, tconfig.FieldConfig(n_harmonic_functions=8, n_hidden=48))
+
+
+def test_pose_checkpoint_round_trip_nosiren(tmp_path):
+    """The same with the softplus MLP head (siren=False): feat1 / feat2 and
+    their moments."""
+    _check_pose_checkpoint(tmp_path, tconfig.FieldConfig(n_harmonic_functions=8, n_hidden=48, siren=False))
+
+
+def _check_pose_checkpoint(tmp_path, cfg):
     field = NerfField(cfg).reset_parameters(torch.Generator().manual_seed(1))
     state = pose_trainer.init_pose_state(field, tconfig.PoseTrainConfig(),
                                          _small_cnn().reset_parameters(torch.Generator().manual_seed(2)), device="cpu")
@@ -237,6 +246,7 @@ def test_pose_checkpoint_round_trip(tmp_path):
     checkpoint.save_pose_latest(str(tmp_path), state)
     back = checkpoint.load_pose_state(str(tmp_path / checkpoint.STATE), cfg, _small_cnn(), device="cpu")
     assert back.step == 9 and back.opt.count == 7
+    assert [p.shape for p in pose_trainer.head_params(back.field)] == [m.shape for m in back.opt.head_mu]
     for mod in ("field", "cnn"):
         for (n, a), (_, b) in zip(getattr(state, mod).state_dict().items(), getattr(back, mod).state_dict().items()):
             assert torch.equal(a, b), n
@@ -264,3 +274,10 @@ def test_gather_rows_backward_matches_gather():
     (torch.gather(flat, 1, idx[..., None].expand(-1, -1, 12)) * w).sum().backward()
     torch.testing.assert_close(got, flat.grad, rtol=1e-6, atol=1e-6)
     assert torch.equal(grid_sample.gather_rows(flat, idx), torch.gather(flat, 1, idx[..., None].expand(-1, -1, 12)))
+
+
+def test_analytic_field_custom_forward_matches_reference():
+    pts = np.random.default_rng(6).uniform(-1.0, 1.0, (5, 4, 3)).astype(np.float32)
+    got = tsyn.AnalyticField("cpu").custom_forward(_t(pts))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jsyn.AnalyticField().custom_forward(pts)), atol=2e-6)
+    assert got.shape == (5, 4, 13) and not got[..., -1].any()

@@ -175,3 +175,98 @@ def test_render_coarse_fine_with_reference_draws(scene):
     # both are the field's own (flax-numerics) colour path on the same depths
     np.testing.assert_allclose(c.numpy(), np.asarray(ref_c), atol=1e-4)
     np.testing.assert_allclose(f.numpy(), np.asarray(ref_f), atol=1e-4)
+
+
+def test_weight_mode_and_distortion_match_reference():
+    rng = np.random.default_rng(3)
+    dens = rng.uniform(size=(5, 7, 16)).astype(np.float32)
+    dens[0, 0] = 0.05                                  # a ray with nothing above the threshold
+    feats = rng.uniform(size=(5, 7, 16, 4)).astype(np.float32)
+    got = trm.weight_mode_densities(_t(dens), 0.5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jrm.weight_mode_densities(jnp.asarray(dens), 0.5)))
+    assert not got[0, 0].any() and set(np.unique(got.numpy())) <= {0.0, 1.0}
+    for tm, wm in ((False, True), (True, True), (False, False)):
+        (it, wt), (ij, wj) = (trm.composite(_t(dens), _t(feats), threshold_mode=tm, weight_mode=wm, threshold=0.5),
+                              jrm.composite(jnp.asarray(dens), jnp.asarray(feats), threshold_mode=tm,
+                                            weight_mode=wm, threshold=0.5))
+        np.testing.assert_allclose(it.numpy(), np.asarray(ij), atol=1e-6)
+        np.testing.assert_allclose(wt.numpy(), np.asarray(wj), atol=1e-6)
+    lengths = np.sort(rng.uniform(2.0, 6.0, size=(5, 7, 16)).astype(np.float32), -1)
+    w = np.asarray(jrm.ea_weights(jnp.asarray(dens)))
+    np.testing.assert_allclose(float(trm.mip360_distortion(_t(lengths), _t(w))),
+                               float(jrm.mip360_distortion(jnp.asarray(lengths), jnp.asarray(w))), rtol=1e-5)
+
+
+def test_render_bundle_weight_mode_matches_reference(scene):
+    _, jc, tc = scene
+    cfg = FieldConfig(n_harmonic_functions=8, n_hidden=48)
+    jf = jfields.NerfField(cfg)
+    params = jfields.init_field(jf, jax.random.PRNGKey(3))
+    tf = tfields.NerfField(cfg)
+    tf.load_state_dict(convert.params_from_jax(jax.tree.map(np.asarray, params)))
+    xys = np.random.default_rng(4).uniform(-0.5, 0.5, (9, 2)).astype(np.float32)
+    u = np.full((9, 12), 0.5, np.float32)
+    tb = tcam.monte_carlo_rays(tc[0], 9, 12, 2.0, 6.0, None, _t(xys), _t(u))
+    bundle_j = jcam.RayBundle(*(jnp.asarray(x.numpy()) for x in tb))      # the same rays
+    for wm in (False, True):
+        ij, wj = jrend.render_bundle(lambda x, d, m: jf.apply(params, x, d, m), bundle_j, mode="feature",
+                                     weight_mode=wm, threshold=0.2)
+        with torch.no_grad():
+            it, wt = trend.render_bundle(tf, tb, mode="feature", weight_mode=wm, threshold=0.2)
+        np.testing.assert_allclose(it.numpy(), np.asarray(ij), atol=1e-5)
+        np.testing.assert_allclose(wt.numpy(), np.asarray(wj), atol=1e-5)
+
+
+def _toy_field(pts, dirs, mode):
+    """The reference test's analytic blob: density peaks at the origin, constant colour."""
+    dens = torch.exp(-4.0 * (pts**2).sum(-1, keepdim=True))
+    return dens, torch.tensor([0.2, 0.5, 0.8]).expand(*pts.shape[:-1], 3)
+
+
+def _toy_field_jax(pts, dirs, mode):
+    dens = jnp.exp(-4.0 * jnp.sum(pts**2, axis=-1, keepdims=True))
+    return dens, jnp.broadcast_to(jnp.asarray([0.2, 0.5, 0.8]), pts.shape[:-1] + (3,))
+
+
+def test_freeze_fine_bundle_matches_reference():
+    """The frozen bundle is the fine bundle ``render_coarse_fine`` renders
+    from the same draws (the reference's draws, replayed), its coarse pass
+    without grad; rendering it again is bit-identical."""
+    S = 16
+    R, t = np.eye(3, dtype=np.float32)[None], np.float32([[0.0, 0.0, 3.0]])
+    K = np.float32([[[2.0 * S, 0.0, S / 2], [0.0, 2.0 * S, S / 2], [0.0, 0.0, 1.0]]])
+    cam_j = jcam.camera_from_bop(jnp.asarray(R), jnp.asarray(t), jnp.asarray(K), S)
+    cam_t = tcam.camera_from_bop(_t(R), _t(t), _t(K), S)
+    key = jax.random.PRNGKey(0)
+    n_rays, Pc, Pf = 32, 8, 16
+    frozen_j = jrend.freeze_fine_bundle(_toy_field_jax, cam_j, key, n_rays, Pc, Pf, 2.0, 4.0)
+    k_rays, k_pdf = jax.random.split(key)
+    k_xy, k_z = jax.random.split(k_rays)
+    draws = tuple(_t(x) for x in (jax.random.uniform(k_xy, (1, n_rays, 2), minval=-1.0, maxval=1.0),
+                                  jax.random.uniform(k_z, (1, n_rays, Pc)),
+                                  jax.random.uniform(k_pdf, (1, n_rays, Pf), maxval=1.0 - 1e-6)))
+    pts_grad = []
+
+    def coarse(p, d, m):
+        pts_grad.append(torch.is_grad_enabled())
+        return _toy_field(p, d, m)
+
+    frozen = trend.freeze_fine_bundle(coarse, cam_t, n_rays, Pc, Pf, 2.0, 4.0, draws=draws)
+    assert pts_grad == [False] and frozen.lengths.shape[-1] == Pc + Pf
+    np.testing.assert_array_equal(frozen.xys.numpy(), np.asarray(frozen_j.xys))
+    # the frozen depths: the coarse ones and the resampled ones, sorted; the
+    # resampled ones agree with the reference's up to the inversion's conditioning
+    bundle = tcam.monte_carlo_rays(cam_t, n_rays, Pc, 2.0, 4.0, None, draws[0], draws[1])
+    _, w = trend.render_bundle(_toy_field, bundle)
+    z_mid = 0.5 * (bundle.lengths[..., 1:] + bundle.lengths[..., :-1])
+    ours = trm.sample_pdf(z_mid, w[..., 1:-1], Pf, u=draws[2])
+    np.testing.assert_array_equal(frozen.lengths.numpy(), torch.sort(torch.cat([bundle.lengths, ours], -1)).values)
+    ref = jrm.sample_pdf(jnp.asarray(z_mid.numpy()), jnp.asarray(w[..., 1:-1].numpy()), Pf, k_pdf)
+    _close_to_conditioning(ours.numpy()[0], np.asarray(ref)[0], z_mid.numpy()[0], w[0, :, 1:-1].numpy(),
+                           draws[2].numpy()[0])
+    _, fine, _ = trend.render_coarse_fine(_toy_field, _toy_field, cam_t, n_rays, Pc, Pf, 2.0, 4.0, draws=draws)
+    img1, _ = trend.render_bundle(_toy_field, frozen)
+    np.testing.assert_array_equal(img1.numpy(), fine.numpy())
+    np.testing.assert_array_equal(trend.render_bundle(_toy_field, frozen)[0].numpy(), img1.numpy())
+    ref, _ = jrend.render_bundle(_toy_field_jax, frozen_j, mode="color")
+    np.testing.assert_allclose(img1.numpy(), np.asarray(ref), atol=1e-5)

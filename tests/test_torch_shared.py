@@ -30,7 +30,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import
 torch.set_num_threads(1)
 
 CONFIGS = ["FieldConfig", "RenderConfig", "NerfTrainConfig", "PoseTrainConfig", "CorsConfig", "FeatConfig",
-           "InferenceConfig", "RegistrationConfig"]
+           "InferenceConfig", "RegistrationConfig", "DataConfig", "PipelineConfig"]
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -40,13 +40,26 @@ def test_config_matches_reference(name):
     assert ours.__dataclass_params__.frozen and theirs.__dataclass_params__.frozen
 
     def spec(cls):
-        return [(f.name, str(f.type), f.default, f.default_factory) for f in dataclasses.fields(cls)]
+        # a nested config's factory is each package's own class: compare by name
+        return [(f.name, str(f.type), f.default, getattr(f.default_factory, "__name__", f.default_factory))
+                for f in dataclasses.fields(cls)]
 
     assert spec(ours) == spec(theirs)
     assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
     changed = tconfig.replace(ours(), **{dataclasses.fields(ours)[0].name: 3})
     assert dataclasses.asdict(changed) == dataclasses.asdict(jconfig.replace(theirs(), **{
         dataclasses.fields(theirs)[0].name: 3}))
+
+
+def test_pipeline_config_helpers_match_reference():
+    changed = {"data": tconfig.DataConfig(dataset="tless", objid=7), "field": tconfig.FieldConfig(siren=False)}
+    ours = tconfig.PipelineConfig(**changed)
+    theirs = jconfig.PipelineConfig(data=jconfig.DataConfig(dataset="tless", objid=7),
+                                    field=jconfig.FieldConfig(siren=False))
+    for uh in (0, 1):
+        assert ours.experiment_dir("runs", uh) == theirs.experiment_dir("runs", uh) == f"runs/{uh}_tless_obj_7"
+    assert tconfig.to_json(ours) == jconfig.to_json(theirs)
+    assert json.loads(tconfig.to_json(ours))["field"]["siren"] is False
 
 
 def _write_bake(art, exp, rng):

@@ -37,9 +37,13 @@ TRAIN = NerfTrainConfig(batch_size=2, warmup_steps=4)
 SEED = 1
 
 
-def _cfg(fused_kernel=True, embed="direct"):
+def _cfg(fused_kernel=True, embed="direct", siren=True):
     return FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16", embed_method=embed,
-                       fused_kernel=fused_kernel)
+                       fused_kernel=fused_kernel, siren=siren)
+
+
+def _is_head(name: str) -> bool:
+    return name.split(".")[0] in tfields.FEATURE_HEAD_MODULES
 
 
 def _t(x):
@@ -210,10 +214,18 @@ def test_bundle_loss_dispatch_on_cpu():
 
 
 def test_freeze_spec_partition():
-    f = tfields.NerfField(_cfg())
+    _check_freeze_spec(_cfg(), "feature_layer.")
+
+
+def test_nosiren_freeze_spec_partition():
+    _check_freeze_spec(_cfg(siren=False), ("feat1.", "feat2."))
+
+
+def _check_freeze_spec(cfg, head_prefix):
+    f = tfields.NerfField(cfg)
     labels = tfields.freeze_spec(train_feature_head=False)(f)
     assert {n for n, lab in labels.items() if lab == "freeze"} == {n for n, _ in f.named_parameters()
-                                                                   if n.startswith("feature_layer.")}
+                                                                   if n.startswith(head_prefix)}
     flipped = tfields.freeze_spec(train_feature_head=True)(f)
     assert all((labels[n] == "train") != (flipped[n] == "train") for n in labels)
     f.extra = torch.nn.Linear(2, 2)
@@ -271,10 +283,10 @@ def _optax_rate(train):
 # ---------------------------------------------------------------- train steps
 
 
-def _one_step(scene, fused_kernel, render=RENDER, ray_chunk=tnt.RAY_CHUNK):
+def _one_step(scene, fused_kernel, render=RENDER, ray_chunk=tnt.RAY_CHUNK, siren=True):
     """One step of both halves in each package from the same reference
     init, batch and draws."""
-    cfg = _cfg(fused_kernel)
+    cfg = _cfg(fused_kernel, siren=siren)
     jf = jfields.NerfField(cfg)
     tx = jnt.make_optimizer(TRAIN)
     step = jnt.make_train_step(jf, tx, render, TRAIN, scene["min_d"], scene["max_d"], ray_chunk)
@@ -305,10 +317,11 @@ def _compare_step(jnew, jloss, tnew, tloss, loss_rtol, grad_atol):
         for i, (f, jp) in enumerate(((st.coarse, jst.params_coarse), (st.fine, jst.params_fine))):
             ref_p = convert.params_from_jax(jp)
             # first moment after one update = 0.1 * grad: the reference's grads
+            head = {k: v for k, v in jp["params"].items() if k in tfields.FEATURE_HEAD_MODULES}
             ref_g = {n: v / np.float32(0.1) for n, v in convert._field_state(
-                {**adam.mu[i]["params"], "feature_layer": jp["params"]["feature_layer"]}).items()}
+                {**adam.mu[i]["params"], **head}).items()}
             for n, p in f.named_parameters():
-                if n.startswith("feature_layer"):
+                if _is_head(n):
                     assert p.grad is None
                     np.testing.assert_array_equal(p.detach().numpy(), ref_p[n].numpy())
                     continue
@@ -332,6 +345,21 @@ def test_autograd_step_matches_reference_flax_step(scene):
     # both take the field's own differentiable path: flax's autodiff and
     # torch's autograd round the cotangents of the bf16 casts alike
     jnew, jloss, _, tnew, tloss, _ = _one_step(scene, fused_kernel=None)
+    _compare_step(jnew, jloss, tnew, tloss, loss_rtol=1e-4, grad_atol=3e-2)
+
+
+def test_nosiren_train_step_matches_reference_kernel_step(scene):
+    """A field with the softplus MLP head (siren=False) through the plain K4
+    step: the head is frozen (no grad, unchanged) and the rest matches as
+    for the SIREN field."""
+    jnew, jloss, jaux, tnew, tloss, taux = _one_step(scene, fused_kernel=True, siren=False)
+    _compare_step(jnew, jloss, tnew, tloss, loss_rtol=1e-4, grad_atol=1e-2)
+    np.testing.assert_allclose(taux["color"].numpy(), np.asarray(jaux["color"]), rtol=1e-4)
+    _check_round_trip(jax.tree.map(lambda x: np.asarray(x[1]), jnew), _cfg(True, siren=False))
+
+
+def test_nosiren_autograd_step_matches_reference_flax_step(scene):
+    jnew, jloss, _, tnew, tloss, _ = _one_step(scene, fused_kernel=None, siren=False)
     _compare_step(jnew, jloss, tnew, tloss, loss_rtol=1e-4, grad_atol=3e-2)
 
 
@@ -432,9 +460,14 @@ def test_train_state_from_jax_round_trip(fused_runs):
     mapped back to the flax layout it is bit-identical."""
     r = fused_runs
     jst = _np_tree(r["jstates"][1])
-    st = convert.train_state_from_jax(jst, r["cfg"], device="cpu")
+    assert int(jst.step) == N_STEPS
+    _check_round_trip(jst, r["cfg"])
+
+
+def _check_round_trip(jst, cfg):
+    st = convert.train_state_from_jax(jst, cfg, device="cpu")
     adam, sched = jst.opt_state.inner_states["train"].inner_state
-    assert st.step == int(jst.step) == N_STEPS and st.opt.count == int(adam.count) == int(sched.count) == N_STEPS
+    assert st.step == int(jst.step) and st.opt.count == int(adam.count) == int(sched.count) == int(jst.step)
     names = [n for n, _ in tnt.trainable(st.coarse)]
     for i, (f, jp) in enumerate(((st.coarse, jst.params_coarse), (st.fine, jst.params_fine))):
         for n, p in f.state_dict().items():

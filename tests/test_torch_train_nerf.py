@@ -101,7 +101,19 @@ def test_train_nerf_resume_is_exact(half, tmp_path):
 
 
 def test_checkpoint_round_trips_and_overwrites_latest(tmp_path):
-    cfg = _cfg(True)
+    _check_checkpoint(tmp_path, _cfg(True))
+
+
+def test_checkpoint_round_trips_nosiren(tmp_path):
+    """A field with the softplus MLP head (siren=False): its frozen feat1 /
+    feat2 travel in the fields' state dicts, with no moments."""
+    cfg = _cfg(True, siren=False)
+    st = _check_checkpoint(tmp_path, cfg)
+    assert {n for n, _ in st.fine.named_parameters()} - {n for n, _ in tnt.trainable(st.fine)} == {
+        "feat1.weight", "feat1.bias", "feat2.weight", "feat2.bias"}
+
+
+def _check_checkpoint(tmp_path, cfg):
     st = tnt.init_state(cfg, TRAIN, torch.Generator().manual_seed(0), device="cpu")
     for i, (m, v) in enumerate(zip(st.opt.mu, st.opt.nu)):
         m.fill_(0.5 + i)
@@ -127,6 +139,9 @@ def test_checkpoint_round_trips_and_overwrites_latest(tmp_path):
     torch.save(obj, os.path.join(d, "bad"))
     with pytest.raises(ValueError, match="Adam mu"):
         checkpoint.load_state(os.path.join(d, "bad"), cfg, device="cpu")
+    for f, g in ((back.coarse, st.coarse), (back.fine, st.fine)):
+        assert all(torch.equal(a, b) for a, b in zip(f.state_dict().values(), g.state_dict().values()))
+    return back
 
 
 def test_extract_point_cloud_matches_reference():
