@@ -92,7 +92,29 @@ Phases (any failure raises, and the script exits non-zero):
    them; generate_cors (K1, K2), negatives (K1, K2), 100 descriptor steps
    (the loss must fall), the bake (K1, K2), inference (K3), verification
    and ICP (K2); the baked keys strictly inside (0, 1); stage times, warm
-   ms a descriptor step (``utils.profiling.StepTimer``) and ADD.
+   ms a descriptor step (``utils.profiling.StepTimer``) and ADD;
+13. the multi-device layer (``MESH``, ``parallel/mesh.py``): on a mesh of
+   the one card twice, or of every card where there are several, each
+   entry point that takes a mesh against the same call without one, each
+   stage's wall seconds both ways and its launches on the mesh by kernel
+   and device (every kernel of a stage on every device, at the count its
+   split gives): 4 fused NeRF steps, each run on the mesh from the
+   unsharded run's state before it (summed grads, loss and params against
+   the unsharded step's), then ``train_nerf_fused`` 100 steps (K4 on each
+   entry's rays) and K4 on each entry's share of one step against its
+   plain version on that entry's device; 2 such forced chunked steps, K5 /
+   K6 on each entry's chunks against their plain versions there, then
+   chunked ``train_nerf`` 10 steps; ``generate_cors`` of half 0
+   (bit-identical artifacts; K1, K2 per entry); ``nn_query`` at its mesh
+   filter's shape (bit-identical); ``verify_consecutive`` and
+   ``register_halves`` (K2); ``run_sequence`` on 8 images (UNet, K3 and
+   RANSAC per entry), then K3 on each entry's share against its plain
+   version; 20 ``train_pose`` steps, twice on the mesh bit-identical, and
+   2 forced descriptor steps on 4 views over 3 entries (2 + 1 + 1); one
+   SurfEmb image's hypotheses with ``hyp_mesh``.
+
+Phases 1-12 measure one card: inside them ``mesh="auto"`` resolves to no
+mesh, on a host with several cards too.
 
 Output: one JSON line with the kernels, then the device JSON as the last line.
 """
@@ -220,6 +242,50 @@ SURF = {"views": 8, "nerf_steps": 400, "pose_steps": 100, "frames": 8, "frame_si
 # half, warmup min(300, 400 // 3), 100 descriptor steps), the pipeline phase's
 # settings otherwise; the head's no-effect check trains both heads 50 steps
 NOSIREN = {"nerf_steps": 400, "warmup": 133, "pose_steps": 100, "same_steps": 50}
+
+# the mesh phase (``mesh_path``): the entry points that take a device mesh,
+# each run on the mesh and unsharded from the same inputs.  With one card
+# the mesh holds it twice (every shard's launches on it), with k >= 2 cards
+# it is ``make_mesh(k)``.  NeRF training at TRAIN's settings (both halves,
+# 3 cams x 400 rays: 4 forced steps, then 100 steps), the chunked step at
+# CHUNKED's (4,800 rays: 2 forced steps, then 10 steps), generate_cors of
+# half 0 on the train phase's field, K2 at its mesh-filter shape,
+# verification and ICP, 8 images of inference, 20 descriptor steps at the
+# chain's settings and 2 forced steps on 4 views over 3 entries (2 + 1 +
+# 1), and one SurfEmb image's hypotheses at InferenceConfig() against
+# 6,144 keys.  A forced step runs on the mesh from the unsharded run's
+# state before it (``forced_steps``), so each sharded step is held to one
+# unsharded step whatever the steps before it did
+MESH = {"nerf_steps": 100, "forced_steps": 4, "forced_chunk_steps": 2, "forced_pose_steps": 2, "chunk_steps": 10,
+        "pose_steps": 20, "n_infer": 8, "icp_iters": 20, "surf_keys": 6_144}
+# the reference's bars for its sharded-against-single checks
+# (tests/test_parallel_pipeline.py): NeRF losses rtol 1e-4, params rtol 1e-3
+# / atol 2e-5, descriptor losses rtol 5e-3, poses rtol 1e-4 / atol 1e-5,
+# ICP 1e-4.  A forced step's loss is held to rtol 1e-4, its summed grads to
+# 1e-4 of each tensor's max |g| plus 1e-5 of every grad's max (the shards
+# sum in another f32 order than one launch; a shard weighted wrongly moves
+# its whole share), and its params to the reference's bar but where the
+# unsharded grad is within the grads' bar of 0: Adam's update (~ the rate
+# times sign(g) early on) may go the other way there, so those elements
+# are held to twice the step's rate (``step_matches``).  A forced step
+# moves a param by about its rate (2e-5 at NeRF's first step, 1.5e-7 at
+# the descriptor's), at or under the reference's atol, so the grads carry
+# most of the check.  The forced descriptor steps run the full-width CNN
+# in f32: in bf16 it convolves 1, 2 or 4 views per entry, cuDNN picks its
+# algorithm by shape, and the bf16 roundings part the summed grads by
+# 6.2e-2 and 1.3e-1 of a tensor's max at steps 1 and 2 (one H100, the
+# losses 1e-8 apart), more than a share weighted wrongly (1/3 for 1/2 or
+# 1/4) would show against.  The whole runs: the sign flips
+# feed the fine pass's resampled depths and the runs part step by step
+# (the losses of a free 4-step run by 1.4e-4 rel at step 4 on 4 cards,
+# against the reference's 1e-4 bar, and by 10.3 of a ~300 loss within 100
+# steps, as K5 / K6 and their plain versions part in the chunked phase): a
+# run is held by its first loss, the mean of its last steps (within 10 %)
+# and Adam's bound on its params (within 2.01 x the summed rates), and the
+# step where its losses part and the share of params outside the
+# reference's bar are reported
+MESH_TOL = {"loss": 1e-4, "param_rtol": 1e-3, "param_atol": 2e-5, "last_mean": 0.1, "rates": 2.01, "grad": 1e-4,
+            "pose_loss": 5e-3, "pose_R": 1e-5, "pose_t": 1e-4, "icp": 1e-4}
 
 
 def log(msg: str):
@@ -386,28 +452,24 @@ def density_phase(dev, seed: int):
     return result(float(err.max()), ms, plain_ms, b)
 
 
-def launch_counts():
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, which counts its launches, by kernel name."""
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel, point_kernels
 
-    return {
-        "density": field_kernel.density_cuda.launches,
-        "nn_min": point_kernels.nn_min_cuda.launches,
-        "corr_argmax": point_kernels.correspondence_argmax_cuda.launches,
-        "bundle_loss": field_kernel.bundle_loss_cuda.launches,
-        "field_color_fwd": field_kernel.field_color_fwd_cuda.launches,
-        "field_color_bwd": field_kernel.field_color_bwd_cuda.launches,
-    }
+    return {"density": field_kernel.density_cuda, "nn_min": point_kernels.nn_min_cuda,
+            "corr_argmax": point_kernels.correspondence_argmax_cuda, "bundle_loss": field_kernel.bundle_loss_cuda,
+            "field_color_fwd": field_kernel.field_color_fwd_cuda, "field_color_bwd": field_kernel.field_color_bwd_cuda}
+
+
+def launch_counts():
+    return {name: w.launches for name, w in kernel_wrappers().items()}
 
 
 def reset_launch_counts():
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel, point_kernels
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import cuda_build
 
-    field_kernel.density_cuda.launches = 0
-    point_kernels.nn_min_cuda.launches = 0
-    point_kernels.correspondence_argmax_cuda.launches = 0
-    field_kernel.bundle_loss_cuda.launches = 0
-    field_kernel.field_color_fwd_cuda.launches = 0
-    field_kernel.field_color_bwd_cuda.launches = 0
+    for w in kernel_wrappers().values():
+        cuda_build.reset(w)
 
 
 def profile_run(run, path: str, what: str):
@@ -690,6 +752,63 @@ def chunk_rays(dev, R: int, P: int, seed: int):
     return pts, (d / d.norm(dim=-1, keepdim=True)).contiguous()
 
 
+def field_color_pair(fwd, g, what: str, reps: int = 10):
+    """K5 on ``fwd`` (its wrapper's arguments) against its plain version
+    and a second launch, then K6 on K5's own records and outputs with
+    random cotangents from ``g`` likewise; raises unless both are within
+    their bounds.  Returns (K5's dens / rgb max abs err, K6's grad max err
+    / block max |g|, (K5 ms, plain ms), (K6 ms, plain ms), (dens, rgb))."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
+
+    dn, fm, weights, ladder, beta = fwd[1:]
+    ms, (dk, rk, res_k) = cuda_ms(lambda: fk.field_color_fwd_cuda(*fwd), reps=reps)
+    plain_ms, (dp, rp, res_p) = cuda_ms(lambda: fk.field_color_fwd_plain(*fwd), reps=1)
+    dk2, rk2, res_k2 = fk.field_color_fwd_cuda(*fwd)
+    err = max(float((dk - dp).abs().max()), float((rk - rp).abs().max()))
+    res_share = max(float((res_k[k] != res_p[k]).float().mean()) for k in fk.RESIDUALS)
+    # each head reads one rounded residual (dens h1, rgb c1): from K5's own
+    # it must agree to f32 sums, and move by more than 1e-4 only where that
+    # residual differs from the plain version's
+    own_heads = fk.field_color_heads(res_k, weights, beta)
+    heads = {"dens": (dk, dp, "h1", own_heads[0]), "rgb": (rk, rp, "c1", own_heads[1])}
+    off, flip, own, unexplained = {}, {}, {}, 0
+    for name, (got, want, src, from_own) in heads.items():
+        moved = ((got - want).abs() > 1e-4).any(-1)
+        flipped = (res_k[src] != res_p[src]).any(-1)
+        off[name], flip[src] = float(moved.float().mean()), float(flipped.float().mean())
+        own[name] = float((got - from_own).abs().max())
+        unexplained += int((moved & ~flipped).sum())
+    del heads, own_heads, moved, flipped, from_own
+    same = (torch.equal(dk, dk2) and torch.equal(rk, rk2)
+            and all(torch.equal(res_k[k], res_k2[k]) for k in fk.RESIDUALS))
+    del dp, rp, res_p, dk2, rk2, res_k2
+    log(f"K5 field_color_fwd {what} (dens std {float(dk.std()):.3f}): dens / rgb max abs err {err:.3e} (tol "
+        f"{TOL['color_abs']}); residuals not bit-equal {res_share:.2e} (tol {TOL['res_share']}); points off > 1e-4: "
+        f"dens {off['dens']:.2e}, rgb {off['rgb']:.2e}; points whose h1 / c1 is not bit-equal {flip['h1']:.2e} / "
+        f"{flip['c1']:.2e}; off where the residual is equal: {unexplained}; dens / rgb from K5's own h1 / c1 max abs "
+        f"err {own['dens']:.2e} / {own['rgb']:.2e} (tol {TOL['head_own']}); second launch bit-identical: {same}; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if not (err <= TOL["color_abs"] and res_share <= TOL["res_share"] and same
+            and max(own.values()) <= TOL["head_own"] and unexplained == 0 and float(dk.std()) > 1e-3):
+        raise AssertionError(f"K5 disagrees with its plain version ({what})")
+    bwd = (dn, fm, weights, res_k, dk, rk, torch.randn(dk.shape, generator=g, device=dk.device),
+           torch.randn(rk.shape, generator=g, device=dk.device), ladder, beta)
+    bms, gk = cuda_ms(lambda: fk.field_color_bwd_cuda(*bwd), reps=reps)
+    plain_bms, gp = cuda_ms(lambda: fk.field_color_bwd_plain(*bwd), reps=1)
+    gk2 = fk.field_color_bwd_cuda(*bwd)
+    errs = {name: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3)
+            for name, a, b in zip(fk.LOSS_BLOCKS, gk, gp)}
+    bad = max(errs, key=errs.get)
+    same = all(torch.equal(a, b) for a, b in zip(gk, gk2))
+    log(f"K6 field_color_bwd {what}: grad max err / block max |g| {errs[bad]:.2e} ({bad}, tol "
+        f"{TOL['grad_scaled']}); second launch bit-identical: {same}; kernel {bms:.3f} ms, plain {plain_bms:.3f} ms")
+    if not (errs[bad] <= TOL["grad_scaled"] and same):
+        raise AssertionError(f"K6 disagrees with its plain version ({what})")
+    return err, errs[bad], (ms, plain_ms), (bms, plain_bms), (dk, rk)
+
+
 def field_color_phase(dev, seed: int):
     """K5 and K6 against their plain versions at a chunk's shapes
     (``FIELD_COLOR_SHAPES``, one half), full-width random fields (density
@@ -717,54 +836,10 @@ def field_color_phase(dev, seed: int):
         for R, P in FIELD_COLOR_SHAPES:
             pts, dn = chunk_rays(dev, R, P, seed + R + P)
             fwd = (pts, dn, fm, weights, ladder, beta)
-            ms, (dk, rk, res_k) = cuda_ms(lambda: fk.field_color_fwd_cuda(*fwd), reps=10)
-            plain_ms, (dp, rp, res_p) = cuda_ms(lambda: fk.field_color_fwd_plain(*fwd), reps=1)
-            dk2, rk2, res_k2 = fk.field_color_fwd_cuda(*fwd)
-            err = max(float((dk - dp).abs().max()), float((rk - rp).abs().max()))
-            res_share = max(float((res_k[k] != res_p[k]).float().mean()) for k in fk.RESIDUALS)
-            # each head reads one rounded residual (dens h1, rgb c1): from
-            # K5's own it must agree to f32 sums, and move by more than 1e-4
-            # only where that residual differs from the plain version's
-            own_heads = fk.field_color_heads(res_k, weights, beta)
-            heads = {"dens": (dk, dp, "h1", own_heads[0]), "rgb": (rk, rp, "c1", own_heads[1])}
-            off, flip, own, unexplained = {}, {}, {}, 0
-            for name, (got, want, src, from_own) in heads.items():
-                moved = ((got - want).abs() > 1e-4).any(-1)
-                flipped = (res_k[src] != res_p[src]).any(-1)
-                off[name], flip[src] = float(moved.float().mean()), float(flipped.float().mean())
-                own[name] = float((got - from_own).abs().max())
-                unexplained += int((moved & ~flipped).sum())
-            del heads, own_heads, moved, flipped, from_own
-            same = (torch.equal(dk, dk2) and torch.equal(rk, rk2)
-                    and all(torch.equal(res_k[k], res_k2[k]) for k in fk.RESIDUALS))
-            del dp, rp, res_p, dk2, rk2, res_k2
-            log(f"K5 field_color_fwd {embed} {R} rays x {P} points (dens std {float(dk.std()):.3f}): dens / rgb max abs "
-                f"err {err:.3e} (tol {TOL['color_abs']}); residuals not bit-equal {res_share:.2e} (tol "
-                f"{TOL['res_share']}); points off > 1e-4: dens {off['dens']:.2e}, rgb {off['rgb']:.2e}; points whose "
-                f"h1 / c1 is not bit-equal {flip['h1']:.2e} / {flip['c1']:.2e}; off where the residual is equal: "
-                f"{unexplained}; dens / rgb from K5's own h1 / c1 max abs err {own['dens']:.2e} / {own['rgb']:.2e} "
-                f"(tol {TOL['head_own']}); second launch bit-identical: {same}; kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms")
-            if not (err <= TOL["color_abs"] and res_share <= TOL["res_share"] and same
-                    and max(own.values()) <= TOL["head_own"] and unexplained == 0 and float(dk.std()) > 1e-3):
-                raise AssertionError(f"K5 disagrees with its plain version ({embed}, {R} x {P})")
+            err, bad_err, (ms, plain_ms), (bms, plain_bms), (dk, rk) = field_color_pair(
+                fwd, torch.Generator(device=dev).manual_seed(seed + R), f"{embed} {R} rays x {P} points")
             worst["field_color_fwd"] = max(worst["field_color_fwd"], err)
-            g = torch.Generator(device=dev).manual_seed(seed + R)
-            bwd = (dn, fm, weights, res_k, dk, rk, torch.randn(dk.shape, generator=g, device=dev),
-                   torch.randn(rk.shape, generator=g, device=dev), ladder, beta)
-            bms, gk = cuda_ms(lambda: fk.field_color_bwd_cuda(*bwd), reps=10)
-            plain_bms, gp = cuda_ms(lambda: fk.field_color_bwd_plain(*bwd), reps=1)
-            gk2 = fk.field_color_bwd_cuda(*bwd)
-            errs = {name: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3)
-                    for name, a, b in zip(fk.LOSS_BLOCKS, gk, gp)}
-            bad = max(errs, key=errs.get)
-            same = all(torch.equal(a, b) for a, b in zip(gk, gk2))
-            log(f"K6 field_color_bwd {embed} {R} rays x {P} points: grad max err / block max |g| {errs[bad]:.2e} ({bad}, "
-                f"tol {TOL['grad_scaled']}); second launch bit-identical: {same}; kernel {bms:.3f} ms, "
-                f"plain {plain_bms:.3f} ms")
-            if not (errs[bad] <= TOL["grad_scaled"] and same):
-                raise AssertionError(f"K6 disagrees with its plain version ({embed}, {R} x {P})")
-            worst["field_color_bwd"] = max(worst["field_color_bwd"], errs[bad])
+            worst["field_color_bwd"] = max(worst["field_color_bwd"], bad_err)
             if embed == "direct":
                 for name, pair in (("field_color_fwd", (ms, plain_ms)), ("field_color_bwd", (bms, plain_bms))):
                     step_ms[name] = [a + b for a, b in zip(step_ms[name], pair)]
@@ -782,7 +857,7 @@ def field_color_phase(dev, seed: int):
                             R * P * ff["bwd"] + R * ff["ray"])
                 for name, pair in (("field_color_fwd", fwd_work), ("field_color_bwd", bwd_work)):
                     work[name] = [a + b for a, b in zip(work[name], pair)]
-            del dk, rk, res_k, bwd, gk, gp, gk2
+            del dk, rk
     bounds = {name: bound(*work[name], BF16_FLOPS) for name in work}
     for R in sorted({r for r, _ in FIELD_COLOR_SHAPES}, reverse=True):
         log(f"K5 / K6 per {R}-ray chunk (direct, 64 + 320 points): K5 {chunk_ms[(R, 'field_color_fwd')]:.3f} ms, "
@@ -1222,19 +1297,23 @@ def nn_check(dev, g, n: int, m: int, masked: bool, what: str = ""):
     return ms, plain_ms, b, (q, r, mask), (d_p, i_p)
 
 
-def corr_check(dev, g, n: int, m: int, e: int, what: str = ""):
-    """K3 at one shape on random inputs from ``g``: conf within
-    TOL["corr_argmax"] of its plain version, indices equal but at logit
-    ties, a second launch bit for bit (raises otherwise), timed as a CUDA
-    graph replay.  Returns (conf error, ms, plain ms, bound)."""
+def corr_compare(q, k, what: str, timed: bool = False):
+    """K3 on queries ``q`` and keys ``k``: conf within TOL["corr_argmax"] of
+    its plain version, indices equal but at logit ties, a second launch bit
+    for bit (raises otherwise); ``timed``: as a CUDA graph replay.  Returns
+    (conf error, ms, plain ms, bound), the times None unless ``timed``."""
     import torch
 
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import point_kernels as pk
 
-    q = torch.randn((n, e), generator=g, device=dev)
-    k = torch.randn((m, e), generator=g, device=dev)
-    ms, (i_k, c_k) = graph_ms(lambda: pk.correspondence_argmax_cuda(q, k))
-    plain_ms, (i_p, c_p) = cuda_ms(lambda: pk.correspondence_argmax_plain(q, k), reps=1)
+    n, m, e = q.shape[0], k.shape[0], k.shape[1]
+    if timed:
+        ms, (i_k, c_k) = graph_ms(lambda: pk.correspondence_argmax_cuda(q, k))
+        plain_ms, (i_p, c_p) = cuda_ms(lambda: pk.correspondence_argmax_plain(q, k), reps=1)
+    else:
+        ms = plain_ms = None
+        i_k, c_k = pk.correspondence_argmax_cuda(q, k)
+        i_p, c_p = pk.correspondence_argmax_plain(q, k)
     i_2, c_2 = pk.correspondence_argmax_cuda(q, k)
     err = float((c_k - c_p).abs().max())
     diff = i_k != i_p
@@ -1242,13 +1321,22 @@ def corr_check(dev, g, n: int, m: int, e: int, what: str = ""):
                      - (q[diff] * k[i_p[diff].long()]).sum(-1)).abs().max()) if bool(diff.any()) else 0.0
     again = torch.equal(i_2, i_k) and torch.equal(c_2, c_k)
     b = corr_bound(n, m, e)
-    log(f"K3 corr {what}{n} x {m} x {e} ({pk.launch_plan(n, m, dev, 'corr_argmax')[0]} splits): conf max_abs_err "
-        f"{err:.3e} (tol {TOL['corr_argmax']}), index mismatches {int(diff.sum())} (logit gap {tie_gap:.2e}), "
-        f"second launch bit-identical {again}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
-        f"({b[1]})")
+    times = f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]})" if timed else ""
+    log(f"K3 corr {what}{n} x {m} x {e} ({pk.launch_plan(n, m, q.device, 'corr_argmax')[0]} splits): conf "
+        f"max_abs_err {err:.3e} (tol {TOL['corr_argmax']}), index mismatches {int(diff.sum())} (logit gap "
+        f"{tie_gap:.2e}), second launch bit-identical {again}{times}")
     if not (err <= TOL["corr_argmax"] and float(diff.float().mean()) < 1e-3 and tie_gap < 1e-5 and again):
         raise AssertionError(f"K3 disagrees with its plain version or itself at {what}{n} x {m} x {e}")
     return err, ms, plain_ms, b
+
+
+def corr_check(dev, g, n: int, m: int, e: int, what: str = ""):
+    """K3 at one shape on random inputs from ``g`` (``corr_compare``,
+    timed).  Returns (conf error, ms, plain ms, bound)."""
+    import torch
+
+    return corr_compare(torch.randn((n, e), generator=g, device=dev), torch.randn((m, e), generator=g, device=dev),
+                        what, timed=True)
 
 
 def point_kernel_phase(dev, seed: int, shapes: dict):
@@ -2365,6 +2453,662 @@ def surf_path(dev, root: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def one_card():
+    """While open, ``mesh="auto"`` resolves to no mesh whatever the number
+    of cards: the phases before the mesh phase measure one card."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
+
+    auto = mesh_lib.auto_mesh
+    mesh_lib.auto_mesh = lambda *args, **kwargs: None
+    try:
+        yield
+    finally:
+        mesh_lib.auto_mesh = auto
+
+
+def per_device_counts() -> dict:
+    """Each kernel's launches by device index since the last reset."""
+    return {name: dict(w.per_device) for name, w in kernel_wrappers().items()}
+
+
+def mesh_stage(mesh, name: str, single, sharded, kernels=(), expect=None, warm=False) -> dict:
+    """``single()`` then ``sharded()`` (``warm``: after one untimed call of
+    each, for a stage whose first call on a device pays cuDNN's, the
+    allocator's and the kernels' warm-up there), each timed to its
+    devices' end, the
+    launches of the sharded run counted by kernel and device: each kernel
+    of ``kernels`` must launch on every device of the mesh, and where
+    ``expect`` gives a total (launches of one entry's share x entries) it
+    must be that.  Returns {"single", "sharded", "single_s", "sharded_s",
+    "launches"} (launches by kernel: {device index: n})."""
+    devs = sorted({d.index for d in mesh.devices})
+
+    def timed(fn):
+        for d in set(mesh.devices):
+            sync(d)
+        t0 = time.perf_counter()
+        out = fn()
+        for d in set(mesh.devices):
+            sync(d)
+        return out, time.perf_counter() - t0
+
+    if warm:
+        single()
+        sharded()
+    one, one_s = timed(single)
+    reset_launch_counts()
+    out, out_s = timed(sharded)
+    launches = {k: v for k, v in per_device_counts().items() if v}
+    log(f"mesh {name}: unsharded {one_s:.3f} s, on the mesh {out_s:.3f} s; launches on the mesh by device "
+        f"{json.dumps(launches)}")
+    for k in kernels:
+        gate(sorted(launches.get(k, {})) == devs and all(launches[k].values()),
+             f"mesh {name}: {k} did not launch on every device of the mesh: {launches}")
+        gate(not (expect and k in expect) or sum(launches.get(k, {}).values()) == expect[k],
+             f"mesh {name}: expected {expect[k] if expect and k in expect else 0} launches of {k}, counted "
+             f"{launches.get(k)}")
+    return {"single": one, "sharded": out, "single_s": one_s, "sharded_s": out_s, "launches": launches}
+
+
+# the mesh phase's failed gates: every stage runs and reports, and the
+# phase raises at its end if any gate failed
+MESH_FAILED = []
+
+
+def gate(ok: bool, msg: str):
+    """Record a failed gate of the mesh phase."""
+    if not ok:
+        log(f"  FAILED: {msg}")
+        MESH_FAILED.append(msg)
+
+
+def close(tag: str, got, want, rtol: float, atol: float = 0.0) -> float:
+    """Max abs difference of two arrays (numpy or tensors); a failed gate
+    where it is over atol + rtol x |want|."""
+    import numpy as np
+
+    a, b = (np.asarray(x.detach().cpu() if hasattr(x, "detach") else x, np.float64) for x in (got, want))
+    err = np.abs(a - b)
+    gate(a.shape == b.shape and np.isfinite(a).all() and (err <= atol + rtol * np.abs(b)).all(),
+         f"mesh {tag}: off the unsharded run by {float(err.max()):.3e} (rtol {rtol}, atol {atol})")
+    return float(err.max())
+
+
+def parting_step(l0, l1) -> int | None:
+    """The first step (from 1) at which two runs' losses (H, steps) part by
+    more than 1e-3 of the unsharded run's, or None."""
+    import numpy as np
+
+    far = (np.abs(l1 - l0) > 1e-3 * np.abs(l0)).any(0)
+    return int(np.argmax(far)) + 1 if far.any() else None
+
+
+def training_runs(tag: str, l0, l1):
+    """Two runs of a training that part where Adam's sign flips feed the
+    resampled depths: the means of their last steps agree within
+    ``MESH_TOL["last_mean"]``."""
+    import numpy as np
+
+    k = max(1, min(10, l0.shape[1] // 3))
+    s0, s1 = (np.stack([l[:, :k].mean(1), l[:, -k:].mean(1)]) for l in (l0, l1))   # (first, last) x halves
+    rel = float((np.abs(s1[1] - s0[1]) / s0[1]).max())
+    log(f"  {tag}: mean loss of the first / last {k} steps unsharded {s0.tolist()}, on the mesh {s1.tolist()}; "
+        f"last means part by {rel:.3e} (tol {MESH_TOL['last_mean']})")
+    gate(rel <= MESH_TOL["last_mean"], f"mesh {tag}: the last means part by {rel:.3e}")
+
+
+def _train_params(states):
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    return [p.detach() for st in states for p in nerf_trainer.train_params(st)]
+
+
+def step_matches(tag: str, new, want, grads, want_grads, rates) -> tuple:
+    """One sharded step against the unsharded step from the same state and
+    draws.  The summed grads: each tensor within ``MESH_TOL["grad"]`` of
+    its max |g| plus 1e-5 of every grad's max (a tensor whose grad is 0,
+    as the keys' output bias under the shift-invariant softmax, holds f32
+    noise of ~1e-6 of it; a shard weighted wrongly moves its share of
+    every grad).  The params after the step: the reference's bar (rtol
+    ``param_rtol``, atol ``param_atol``), but where the unsharded grad sits
+    within that sum-order error of 0, where Adam's step (~ the rate times
+    sign(g) from fresh moments) may go the other way: those elements are
+    held to twice the step's rate (``rates``: one per tensor).  Returns
+    (grad error / bar, grad error / tensor max |g| over the tensors whose
+    max is above 1e-3 of every grad's, share of elements held to the
+    rate)."""
+    import torch
+
+    g_all = max(float(g.abs().max()) for g in want_grads)
+    worst, rel, slack, total = 0.0, 0.0, 0, 0
+    ok = True
+    for a, b, g, gw, rate in zip(new, want, grads, want_grads, rates):
+        bar_g = MESH_TOL["grad"] * float(gw.abs().max()) + 1e-5 * g_all
+        err = float((g - gw).abs().max())
+        worst = max(worst, err / bar_g)
+        if float(gw.abs().max()) > 1e-3 * g_all:
+            rel = max(rel, err / float(gw.abs().max()))
+        near = gw.abs() <= bar_g
+        bar = torch.where(near, torch.full_like(b, 2.0 * rate),
+                          MESH_TOL["param_atol"] + MESH_TOL["param_rtol"] * b.abs())
+        ok &= bool(((a - b).abs() <= bar).all())
+        slack, total = slack + int(near.sum()), total + near.numel()
+    gate(worst <= 1.0, f"mesh {tag}: the summed grads are off the unsharded step's by {worst:.3e} of their bar")
+    gate(ok, f"mesh {tag}: params off the unsharded step's")
+    return worst, rel, slack / total
+
+
+def forced_steps(mesh, tag: str, n_steps: int, fresh, step, rates, kernels=(), expect=None) -> dict:
+    """``n_steps`` steps of a trainer from ``fresh()`` unsharded, then each
+    step again on the mesh from a copy of the unsharded run's state before
+    it (params and moments) with the same draws, so each sharded step is
+    held to the unsharded one (loss at ``MESH_TOL["loss"]``,
+    ``step_matches``) whatever the steps before it did.
+    ``step(state, k, mesh)`` runs step k: (new state, loss, grads,
+    params); ``rates(k)``: step k's rate per tensor.  Returns
+    ``mesh_stage``'s dict."""
+    import copy
+
+    starts = []
+
+    def single():
+        starts.clear()
+        st, out = fresh(), []
+        for k in range(n_steps):
+            starts.append(copy.deepcopy(st))
+            st, *res = step(st, k, None)
+            out.append(res)
+        return out
+
+    def sharded():
+        return [step(copy.deepcopy(st), k, mesh)[1:] for k, st in enumerate(starts)]
+
+    s = mesh_stage(mesh, tag, single, sharded, kernels, expect, warm=True)
+    for k, ((l0, g0, p0), (l1, g1, p1)) in enumerate(zip(s["single"], s["sharded"])):
+        err = close(f"{tag} step {k + 1} loss", l1, l0, MESH_TOL["loss"], 0.0)
+        grad, rel, slack = step_matches(f"{tag} step {k + 1}", p1, p0, g1, g0, rates(k))
+        log(f"  step {k + 1} from the unsharded run's state: loss off by {err:.3e}; grads off by {grad:.3f} of "
+            f"their bar ({rel:.3e} of a tensor's max |g|, tol {MESH_TOL['grad']}); params within the reference's "
+            f"bar but {slack:.2e} of them (near-0 grads, held to twice the rate)")
+    return s
+
+
+def nerf_step_fn(opt, render, train, rays, **kw):
+    """``forced_steps``' step of train_step (``kw``: its options) with
+    ``rays[k]``: the step's cameras, depth bounds, draws and its images and
+    silhouettes (H, B, ...)."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    def step(states, k, m):
+        r = rays[k]
+        new, loss, _ = nerf_trainer.train_step(states, r["cam"], r["images"], r["sils"], opt, render, train,
+                                               r["min_d"], r["max_d"], draws=r["draws"], mesh=m, **kw)
+        trained = [p for st in new for p in nerf_trainer.train_params(st)]
+        return new, loss, [p.grad.clone() for p in trained], [p.detach().clone() for p in trained]
+
+    return step
+
+
+def mesh_train_stages(mesh, dev, data, stages: dict) -> float:
+    """Fused NeRF training: ``MESH["forced_steps"]`` forced steps (each
+    sharded step from the unsharded run's state), ``MESH["nerf_steps"]``
+    steps of train_nerf_fused on the mesh against unsharded, then K4 on
+    each entry's rays of one step against its plain version there.
+    Returns K4's worst scaled grad error."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
+        FieldConfig,
+        NerfTrainConfig,
+        RenderConfig,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import NerfField
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import raymarch
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    cfg = FieldConfig(**FIELD)
+    render = RenderConfig(n_rays_per_image=TRAIN["n_rays"])
+    train = NerfTrainConfig(warmup_steps=TRAIN["warmup"], batch_size=TRAIN["batch"])
+    args = (data["images"], data["sils"], data["R_bop"], data["t_bop"], data["K"], cfg, render, train)
+    opt = nerf_trainer.make_optimizer(train)
+    B, K = TRAIN["batch"], MESH["forced_steps"]
+
+    def fresh():
+        return [nerf_trainer.init_state(cfg, train, torch.Generator().manual_seed(TRAIN["seed"] + h), device=dev)
+                for h in range(2)]
+
+    rays = [dict(step_rays(data, dev, 7 + 2 * k, render), images=data["images"][:, :B], sils=data["sils"][:, :B])
+            for k in range(K)]
+    step = nerf_step_fn(opt, render, train, rays)
+    n_tensors = len(_train_params(fresh()))
+    stages["nerf_forced"] = forced_steps(mesh, "nerf_forced", K, fresh, step,
+                                         lambda k: [opt.learning_rate(k)] * n_tensors, ("bundle_loss",),
+                                         {"bundle_loss": 2 * mesh.size * K})
+
+    # the whole run: Adam's sign flips (near-0 grads) feed the fine pass's
+    # resampled depths and the runs part; held by the first loss, the last
+    # means and Adam's bound
+    n = MESH["nerf_steps"]
+
+    def run(m):
+        return nerf_trainer.train_nerf_fused(*args, n_steps=n, seed=TRAIN["seed"], device=dev, mesh=m)
+
+    s = mesh_stage(mesh, "nerf", lambda: run(None), lambda: run(mesh), ("bundle_loss",),
+                   {"bundle_loss": 2 * mesh.size * n})
+    (st0, l0), (st1, l1) = s["single"], s["sharded"]
+    rates = MESH_TOL["rates"] * sum(opt.learning_rate(k) for k in range(n))
+    pairs = list(zip(_train_params(st1), _train_params(st0)))
+    outside = sum(int(((a - b).abs() > MESH_TOL["param_atol"] + MESH_TOL["param_rtol"] * b.abs()).sum())
+                  for a, b in pairs) / sum(b.numel() for _, b in pairs)
+    close("nerf first loss", l1[:, 0], l0[:, 0], MESH_TOL["loss"])
+    training_runs(f"nerf, {n} steps", l0, l1)
+    err = max(close("nerf params", a, b, 0.0, rates) for a, b in pairs)
+    log(f"  {n} steps: loss max relative difference {float((abs(l1 - l0) / abs(l0)).max()):.3e}, first step "
+        f"whose losses part by more than 1e-3: {parting_step(l0, l1)}; max param difference {err:.3e} (Adam's "
+        f"bound {rates:.3e}), share of params outside the reference's bar (rtol {MESH_TOL['param_rtol']}, atol "
+        f"{MESH_TOL['param_atol']}) {outside:.3e}")
+    stages["nerf"] = s
+
+    # K4 at each entry's share of one step's rays, on its device, against its plain version there
+    r = rays[0]
+    fields = []
+    for h in range(2):
+        f = NerfField(cfg).reset_parameters(torch.Generator().manual_seed(17 + h))
+        torch.nn.init.zeros_(f.density_layer.bias)
+        fields.append(f)
+    worst = 0.0
+    for i, d, sl in mesh_lib.shards(r["d"].shape[1], mesh):
+        weights = tuple(torch.stack(b) for b in zip(*(fk.loss_weights(f.to(d)) for f in fields)))
+        fm = torch.from_numpy(fk.fmat_of(cfg)).to(d)
+        rest = (r["dn"][:, sl].to(d).contiguous(), r["tgt"][:, sl].to(d).contiguous(), fm, weights,
+                fk.ladder_of(cfg), cfg.softplus_beta, train.huber_scaling, train.loss_scale / r["d"].shape[1])
+        o, dd, lengths = (r[k][:, sl].to(d) for k in ("o", "d", "lengths"))
+        z = lengths
+        for tag in ("coarse", "fine"):
+            pts = (o[:, :, None] + dd[:, :, None] * z[..., None]).contiguous()
+            got = fk.bundle_loss_cuda(pts, *rest, tag == "coarse")
+            worst = max(worst, compare_bundle(f"K4 on entry {i} ({d}), {tag}, {pts.shape[1]} rays", got,
+                                              fk.bundle_loss_plain(pts, *rest, tag == "coarse"),
+                                              fk.bundle_loss_cuda(pts, *rest, tag == "coarse")))
+            if tag == "coarse":
+                z = raymarch.importance_resample(lengths, got[2], render.n_pts_fine, u=r["u_pdf"][:, sl].to(d))
+    return worst
+
+
+@contextlib.contextmanager
+def captured(module, name: str):
+    """While open, the arguments of each call of ``module.name`` are
+    appended to the yielded list (tensors detached; the call goes
+    through)."""
+    fn = getattr(module, name)
+    calls = []
+
+    def wrapper(*args):
+        calls.append(tuple(a.detach() if hasattr(a, "detach") else
+                           tuple(w.detach() for w in a) if isinstance(a, tuple) else a for a in args))
+        return fn(*args)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def mesh_chunked_stage(mesh, dev, seed: int, stages: dict) -> dict:
+    """train_nerf at CHUNKED's settings: ``MESH["forced_chunk_steps"]``
+    forced steps (each sharded step from the unsharded run's state; each
+    entry's share of the 4,800 rays in one chunk a pass through K5 / K6),
+    K5 / K6 on each entry's chunks of the first sharded step (its points
+    and directions, a random field) against their plain versions there,
+    then ``MESH["chunk_steps"]`` steps of train_nerf on the mesh against
+    unsharded.  Returns K5's and K6's worst errors."""
+    import numpy as np
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
+        FieldConfig,
+        NerfTrainConfig,
+        RenderConfig,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import NerfField
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    n = MESH["chunk_steps"]
+    h = synthetic.make_scene(CHUNKED["n_views"], CHUNKED["image_size"], torch.Generator(device=dev).manual_seed(seed),
+                             device=dev)
+    cfg = FieldConfig(**FIELD)
+    render = RenderConfig(n_rays_per_image=CHUNKED["n_rays"])
+    train = NerfTrainConfig(batch_size=CHUNKED["batch"], warmup_steps=min(300, n // 3))
+    opt = nerf_trainer.make_optimizer(train)
+    rays_per_step = CHUNKED["batch"] * CHUNKED["n_rays"]
+    per_entry = 2 * -(-(rays_per_step // mesh.size) // nerf_trainer.RAY_CHUNK)   # launches of a step on each entry
+
+    # the forced steps, on the schedule's batches with train_nerf's draws
+    K, S, bs = MESH["forced_chunk_steps"], CHUNKED["image_size"], CHUNKED["batch"]
+    sched = nerf_trainer.half_schedule(CHUNKED["n_views"], bs, K, CHUNKED["seed"])
+    cams = cam_lib.camera_from_bop(h.R_bop, h.t_bop, h.K, S)
+    min_d, max_d = nerf_trainer.depth_bounds(h.t_bop.cpu().numpy())
+    rays = []
+    for k in range(K):
+        idx = torch.as_tensor(sched[k], device=dev)
+        rays.append(dict(cam=cam_lib.Camera(cams.R[idx][None], cams.T[idx][None], cams.focal[idx][None],
+                                            cams.principal[idx][None], S), min_d=min_d, max_d=max_d,
+                         images=h.images[idx][None], sils=h.sils[idx][None],
+                         draws=nerf_trainer.draw([nerf_trainer.step_generator(CHUNKED["seed"], k, dev)], bs, render,
+                                                 dev)))
+
+    def fresh():
+        return [nerf_trainer.init_state(cfg, train, torch.Generator().manual_seed(CHUNKED["seed"]), device=dev)]
+
+    n_tensors = len(_train_params(fresh()))
+    with captured(fk, "field_color_fwd_op") as calls:
+        stages["chunked_forced"] = forced_steps(
+            mesh, "chunked_forced", K, fresh, nerf_step_fn(opt, render, train, rays, ray_chunk=nerf_trainer.RAY_CHUNK),
+            lambda k: [opt.learning_rate(k)] * n_tensors,
+            ("field_color_fwd", "field_color_bwd"),
+            {"field_color_fwd": per_entry * mesh.size * K, "field_color_bwd": per_entry * mesh.size * K})
+    # the calls of the last sharded run's first step: each entry's coarse
+    # and fine chunks, in entry order, on its device; the fields are random
+    # (density bias 0, as field_color_phase draws them: a fresh field's
+    # densities are nearly constant)
+    first = calls[-K * per_entry * mesh.size:][:per_entry * mesh.size]
+    field = NerfField(cfg).reset_parameters(torch.Generator().manual_seed(seed + 20))
+    torch.nn.init.zeros_(field.density_layer.bias)
+    worst = {"field_color_fwd": 0.0, "field_color_bwd": 0.0}
+    with torch.no_grad():
+        for j, (pts, dn, fm, _, ladder, beta) in enumerate(first):
+            args = (pts, dn, fm, tuple(b[None] for b in fk.loss_weights(field.to(pts.device))), ladder, beta)
+            err, bad, *_ = field_color_pair(args, torch.Generator(device=pts.device).manual_seed(seed + j),
+                                            f"on entry {j // per_entry} ({pts.device}), {pts.shape[1]} rays x "
+                                            f"{pts.shape[2]} points", reps=1)
+            worst["field_color_fwd"] = max(worst["field_color_fwd"], err)
+            worst["field_color_bwd"] = max(worst["field_color_bwd"], bad)
+    del calls, first
+
+    def run(m):
+        return nerf_trainer.train_nerf(h.images, h.sils, h.R_bop, h.t_bop, h.K, cfg, render, train, n_steps=n,
+                                       seed=CHUNKED["seed"], device=dev, mesh=m)
+
+    s = mesh_stage(mesh, "chunked", lambda: run(None), lambda: run(mesh), ("field_color_fwd", "field_color_bwd"),
+                   {"field_color_fwd": per_entry * mesh.size * n, "field_color_bwd": per_entry * mesh.size * n},
+                   warm=True)
+    (st0, l0), (st1, l1) = s["single"], s["sharded"]
+    l0, l1 = np.asarray(l0)[None], np.asarray(l1)[None]
+    rates = MESH_TOL["rates"] * sum(opt.learning_rate(k) for k in range(n))
+    close("chunked first loss", l1[:, 0], l0[:, 0], MESH_TOL["loss"])
+    training_runs(f"chunked, {n} steps", l0, l1)
+    err = max(close("chunked params", a, b, 0.0, rates) for a, b in zip(_train_params([st1]), _train_params([st0])))
+    log(f"  {n} chunked steps: loss max relative difference {float((abs(l1 - l0) / abs(l0)).max()):.3e}, first "
+        f"step whose losses part by more than 1e-3: {parting_step(l0, l1)}; max param difference {err:.3e} (Adam's "
+        f"bound {rates:.3e})")
+    stages["chunked"] = s
+    return worst
+
+
+def mesh_serving_stages(mesh, dev, seed: int, field, halves, out_dir: str, stages: dict):
+    """generate_cors of half 0 (bit-identical artifacts), K2 at its mesh
+    filter's shape (bit-identical), verification and ICP, inference of 8
+    images (then K3 on each entry's share against its plain version), 20
+    descriptor steps, forced descriptor steps on 2 + 1 + 1 views, one
+    SurfEmb image's hypotheses.  Returns K3's worst conf error on the
+    entries."""
+    import numpy as np
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
+        CorsConfig,
+        InferenceConfig,
+        PoseTrainConfig,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import mesh_scene
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import ResNetUNet, normalize_image
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pnp, pointcloud
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import point_kernels as pk
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import (
+        artifacts,
+        generate_cors,
+        inference,
+        pose_est_surf,
+        registration,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment, pose_trainer
+
+    P, S, V = PIPELINE, TRAIN["image_size"], TRAIN["n_views"]
+    h0, h1 = halves
+    cors_cfg = CorsConfig(**P["cors"])
+
+    def cors(m, tag):
+        return generate_cors.generate_cors(field, h0.R_bop, h0.t_bop, h0.K, h0.sils, os.path.join(out_dir, tag), 1,
+                                           cors_cfg, grid_res=SERVE["grid_res"], image_size=S, device=dev, mesh=m)
+
+    # K1's grid runs on home in both; the views' passes are dealt over the entries
+    s = mesh_stage(mesh, "cors", lambda: cors(None, "single"), lambda: cors(mesh, "mesh"), ("density", "nn_min"))
+    d0, d1 = s["single"], s["sharded"]
+    same = all(np.array_equal(artifacts.load_array(d0, k), artifacts.load_array(d1, k))
+               for k in ("a1.npy", "subvert1.npy", "subnormal1.npy"))
+    same &= all(np.array_equal(a, b) for v in range(V)
+                for a, b in zip(artifacts.load_view_rays(d0, S, v), artifacts.load_view_rays(d1, S, v)))
+    log(f"  artifacts bit-identical: {same}")
+    gate(same, "mesh cors: the artifacts differ from the unsharded run's")
+    stages["cors"] = s
+
+    a1 = torch.as_tensor(artifacts.load_array(d0, "a1.npy"), device=dev)
+    hits = torch.as_tensor(artifacts.load_view_rays(d0, S, 0)[1], device=dev)
+    s = mesh_stage(mesh, "nn_query", lambda: pointcloud.nn_query(hits, a1), lambda: pointcloud.nn_query(hits, a1,
+                                                                                                         mesh=mesh),
+                   ("nn_min",), {"nn_min": mesh.size}, warm=True)
+    same = all(torch.equal(a, b) for a, b in zip(s["single"], s["sharded"]))
+    log(f"  K2 {hits.shape[0]} x {a1.shape[0]} (view 0's front hits against a1): bit-identical {same}")
+    gate(same, "mesh nn_query: not bit-identical to the unsharded call")
+    stages["nn_query"] = s
+
+    scale = h0.diameter / 1.8
+    cloud = a1[:: max(a1.shape[0] // 4000, 1)] * scale
+    R_gt, t_gt = h1.R_bop[: MESH["n_infer"]], h1.t_bop[: MESH["n_infer"]] * scale
+    g = torch.Generator(device=dev).manual_seed(seed)
+    R_pred = torch.linalg.qr(R_gt + 0.02 * torch.randn(R_gt.shape, generator=g, device=dev))[0]
+    R_pred = R_pred * torch.sign(torch.linalg.det(R_pred))[:, None, None]
+    upper, lower = cloud[::2], cloud[1::2]
+    rot = R_pred[0] @ R_gt[0].T
+
+    def registered(m):
+        best, chamfers = registration.verify_consecutive(cloud, R_gt, t_gt, R_pred, t_gt, device=dev, mesh=m)
+        out = registration.register_halves(upper, lower, torch.eye(3, device=dev), torch.zeros(3, device=dev), rot,
+                                           torch.zeros(3, device=dev), cloud, h0.diameter * scale,
+                                           icp_threshold=0.2 * scale, icp_iters=MESH["icp_iters"], device=dev, mesh=m)
+        return best, chamfers, out
+
+    n_pairs = MESH["n_infer"] - 1
+    s = mesh_stage(mesh, "registration", lambda: registered(None), lambda: registered(mesh), ("nn_min",),
+                   {"nn_min": mesh.size * (2 * n_pairs + MESH["icp_iters"] + 1 + 2)}, warm=True)
+    (b0, c0, o0), (b1, c1, o1) = s["single"], s["sharded"]
+    err = max(close("icp R", o1["R"], o0["R"], 0.0, MESH_TOL["icp"]), close("icp t", o1["t"], o0["t"], 0.0,
+                                                                            MESH_TOL["icp"] * scale))
+    log(f"  verification: best {b1} (unsharded {b0}), Chamfers equal {c1 == c0}; ICP R / t max difference {err:.3e}, "
+        f"Chamfer {o1['chamfer']:.6f} (unsharded {o0['chamfer']:.6f}), fitness {o1['fitness']:.4f}")
+    gate(b1 == b0 and c1 == c0 and abs(o1["chamfer"] - o0["chamfer"]) <= 1e-5 * abs(o0["chamfer"]),
+         "mesh registration: verification or Chamfer off the unsharded run")
+    stages["registration"] = s
+
+    cnn = ResNetUNet().reset_parameters(torch.Generator().manual_seed(seed)).to(dev).eval()
+    n = MESH["n_infer"]
+    keys = cloud[:: max(cloud.shape[0] // 1024, 1)][:1024]
+    feats = torch.nn.functional.normalize(torch.randn((keys.shape[0], 12), generator=g, device=dev), dim=-1) * 3.0
+    imgs = normalize_image(h1.images[:n])
+    Ks = h1.K[:n].clone()
+    Ks[:, 0:2, 2] -= 0.5
+
+    cfg_i = InferenceConfig()
+    k = -(-n // mesh.size)
+
+    def infer(m, batch=n, samples=None):
+        with torch.no_grad():
+            return inference.run_sequence(cnn, imgs, h1.sils[:n], Ks, keys, feats, cfg_i, seed=1, batch=batch,
+                                          samples=samples, device=dev, mesh=m)
+
+    s = mesh_stage(mesh, "inference", lambda: infer(None), lambda: infer(mesh), ("corr_argmax",),
+                   {"corr_argmax": mesh.size}, warm=True)
+    (R0, t0), (R1, t1) = s["single"], s["sharded"]
+    # cuDNN picks a convolution's algorithm by its shape, so the bf16 CNN at
+    # the batch's size and at an entry's share rounds differently, and the
+    # correspondences, and so the poses, part from the unsharded run's.  The
+    # stage is held to the unsharded run at an entry's batch size with the
+    # same RANSAC draws (made on home from the batch's masks, as the stage
+    # makes them)
+    with torch.no_grad():
+        q_all = cnn(imgs)
+        q_parts = torch.cat([cnn(imgs[sl]) for _, _, sl in mesh_lib.shards(n, mesh)])
+        masks = torch.cat([inference.correspondences(cnn, imgs[sl], h1.sils[:n][sl], Ks[sl], feats,
+                                                     cfg_i.down_sample, cfg_i.conf_keep_frac)[1]
+                           for _, _, sl in mesh_lib.shards(n, mesh)])
+    draws = pnp.draw_hypotheses(masks.to(torch.float32), cfg_i.ransac_iters,
+                                torch.Generator(device=dev).manual_seed(seed))
+    R2, t2 = infer(None, k, draws)
+    R3, t3 = infer(mesh, n, draws)
+    errs = {"R": close("inference R", R3, R2, MESH_TOL["pose_t"], MESH_TOL["pose_R"]),
+            "t": close("inference t", t3, t2, MESH_TOL["pose_t"], MESH_TOL["pose_t"])}
+    gate(np.isfinite(R1).all() and np.abs(np.einsum("nij,nkj->nik", R1, R1) - np.eye(3)).max() < 1e-3,
+         "mesh inference: poses not finite or not rotations")
+    log(f"  {n} images: the bf16 CNN at batch {n} against each entry's {k}: max difference "
+        f"{float((q_all - q_parts).abs().max()):.3e}, so the poses part from the unsharded run's by "
+        f"{float(np.abs(R1 - R0).max()):.3e} (R); with the same draws, against the unsharded run at batch {k}: "
+        f"{errs['R']:.3e} (R), {errs['t']:.3e} (t)")
+    stages["inference"] = s
+    # K3 on each entry's share of the batch, on its device, against its plain version there
+    with captured(pk, "correspondence_argmax") as calls:
+        infer(mesh)
+    gate(len(calls) == mesh.size, f"mesh inference: {len(calls)} K3 calls on the mesh, {mesh.size} entries")
+    with torch.no_grad():
+        errs["corr_argmax"] = max(corr_compare(q.contiguous(), keys_.contiguous(),
+                                               f"on entry {i} ({q.device}), ")[0]
+                                  for i, (q, keys_) in enumerate(calls))
+    del calls
+
+    pose_cfg = PoseTrainConfig(**P["pose"])
+    aug_cfg = augment.AugmentConfig(**P["aug"])
+    bank = pose_trainer.load_ray_bank(d0, S, V, device=dev)
+    neg = pose_trainer.build_negatives(field, h0.R_bop, h0.t_bop, h0.K, h0.sils, a1.cpu().numpy(), pose_cfg,
+                                       image_size=S, n_loops=P["neg_loops"], threshold=P["neg_threshold"],
+                                       generator=torch.Generator(device=dev).manual_seed(P["neg_seed"]), device=dev)
+
+    def pose(m):
+        return pose_trainer.train_pose(field, h0.images, h0.sils, bank, neg, cfg=pose_cfg, aug_cfg=aug_cfg,
+                                       n_steps=MESH["pose_steps"], seed=P["pose_seed"], device=dev, mesh=m)
+
+    s = mesh_stage(mesh, "pose", lambda: pose(None), lambda: pose(mesh), warm=True)
+    (p0, l0), (p1, l1) = s["single"], s["sharded"]
+    again = pose(mesh)
+    opt = pose_trainer.make_pose_optimizer(pose_cfg)
+    steps = range(MESH["pose_steps"])
+    err = close("pose losses", l1, l0, MESH_TOL["pose_loss"])
+    moved = 0.0
+    for get, base in ((lambda st: list(st.cnn.parameters()), pose_cfg.lr_cnn),
+                      (lambda st: pose_trainer.head_params(st.field), pose_cfg.lr_mlp)):
+        bound = 2.0 * sum(opt.learning_rate(base, k) for k in steps)
+        moved = max(moved, max(close("pose params", a, b, 0.0, bound) for a, b in zip(get(p1), get(p0))))
+    repeat = l1 == again[1] and all(torch.equal(a, b) for a, b in zip(p1.cnn.parameters(), again[0].cnn.parameters()))
+    log(f"  {MESH['pose_steps']} descriptor steps: losses off the unsharded run by {err:.3e}, params by {moved:.3e}; "
+        f"last loss {l1[-1]:.6f} (unsharded {l0[-1]:.6f}); a second run on the mesh bit-identical {repeat}")
+    gate(repeat, "mesh pose: two runs on the mesh differ")
+    stages["pose"] = s
+
+    # descriptor steps on 4 views over 3 entries (2 + 1 + 1, each entry's
+    # loss weighted by its share), each from the unsharded run's state,
+    # with the full-width CNN in f32 (see MESH_TOL)
+    mesh3 = mesh_lib.Mesh((list(mesh.devices) * 3)[:3])
+    views = torch.arange(4, device=dev)
+    neg_t = torch.as_tensor(neg, dtype=torch.float32, device=dev)
+    K = MESH["forced_pose_steps"]
+    pose_draws = [pose_trainer.draw_pose_step(torch.Generator(device=dev).manual_seed(50 + k), 4, S, neg_t.shape[0],
+                                              pose_cfg, aug_cfg) for k in range(K)]
+
+    def pose_step(st, k, m):
+        new, loss, _ = pose_trainer.pose_train_step(
+            st, opt, h0.images[views], h0.sils[views], bank.pos_vec[views], bank.xys[views], bank.valid[views], neg_t,
+            pose_cfg, aug_cfg, pose_draws[k], torch.Generator(device=dev).manual_seed(60 + k), mesh=m)
+        trained = list(new.cnn.parameters()) + pose_trainer.head_params(new.field)
+        return new, loss, [p.grad.clone() for p in trained], [p.detach().clone() for p in trained]
+
+    def pose_fresh():
+        g = torch.Generator().manual_seed(P["pose_seed"])
+        return pose_trainer.init_pose_state(field, pose_cfg, ResNetUNet(dtype=torch.float32).reset_parameters(g),
+                                            device=dev)
+
+    n_cnn = len(list(pose_fresh().cnn.parameters()))
+    n_head = len(pose_trainer.head_params(field))
+    stages["pose_forced"] = forced_steps(
+        mesh3, "pose_forced", K, pose_fresh, pose_step,
+        lambda k: [opt.learning_rate(pose_cfg.lr_cnn, k)] * n_cnn + [opt.learning_rate(pose_cfg.lr_mlp, k)] * n_head)
+
+    verts, faces, _, normals = (torch.as_tensor(x, device=dev) for x in mesh_scene.blob_mesh())
+    m_keys = MESH["surf_keys"]
+    tri = faces[torch.randint(0, faces.shape[0], (m_keys,), generator=g, device=dev).long()].long()
+    bary = -torch.log(torch.rand((m_keys, 3), generator=g, device=dev))
+    bary = bary / bary.sum(-1, keepdim=True)
+    pts = (bary[..., None] * verts[tri]).sum(1)
+    nrm = torch.nn.functional.normalize((bary[..., None] * normals[tri]).sum(1), dim=-1)
+    _, _, K, maps = ideal_view(pts, 224)
+    draws = pose_est_surf.draw_hypotheses(InferenceConfig().max_poses, g, dev)
+
+    def surf(m):
+        return inference.estimate_pose_surfemb(ideal_cnn(maps), torch.zeros((224, 224, 3), device=dev), K, pts, nrm,
+                                               sharp_features(pts), 1.2, refine=False, hyp_mesh=m,
+                                               draws=inference.SurfEmbDraws(draws.u, draws.pick, None))
+
+    s = mesh_stage(mesh, "surfemb", lambda: surf(None), lambda: surf(mesh), warm=True)
+    (R0, t0, sc0), (R1, t1, sc1) = s["single"], s["sharded"]
+    surf_errs = (close("surfemb R", R1, R0, 0.0, MESH_TOL["pose_R"]), close("surfemb t", t1, t0, 0.0,
+                                                                             MESH_TOL["pose_t"]))
+    log(f"  one image, {InferenceConfig().max_poses} hypotheses: best score {sc1:.6f} (unsharded {sc0:.6f}), pose off "
+        f"by {surf_errs[0]:.3e} (R), {surf_errs[1]:.3e} (t)")
+    stages["surfemb"] = s
+    return errs["corr_argmax"]
+
+
+def mesh_path(dev, seed: int, out_dir: str, field) -> tuple:
+    """The mesh phase (``MESH``): every entry point that takes a mesh, run
+    on it and unsharded; ``field`` is the train phase's trained fine field
+    of half 0.  Returns (launches of the mesh runs by kernel, each checked
+    kernel's worst error in its per-entry checks: K3, K4, K5, K6)."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
+
+    k = torch.cuda.device_count()
+    mesh = mesh_lib.make_mesh(k) if k >= 2 else mesh_lib.Mesh([dev, dev])
+    auto = mesh_lib.auto_mesh()
+    log(f"mesh phase on {mesh} ({k} card{'s' if k > 1 else ''}); auto_mesh() is "
+        f"{auto if auto is None else auto.devices}")
+    if (auto is None) != (k < 2):
+        raise AssertionError("auto_mesh() disagrees with the number of cards")
+    t0 = time.perf_counter()
+    stages = {}
+    MESH_FAILED.clear()
+    halves = synthetic_halves(dev, seed)
+    errs = {"bundle_loss": mesh_train_stages(mesh, dev, train_inputs(dev, seed, halves), stages)}
+    errs.update(mesh_chunked_stage(mesh, dev, seed, stages))
+    errs["corr_argmax"] = mesh_serving_stages(mesh, dev, seed, field, halves, out_dir, stages)
+    times = {name: {"single_s": round(s["single_s"], 4), "mesh_s": round(s["sharded_s"], 4)}
+             for name, s in stages.items()}
+    log("mesh stage seconds: " + json.dumps(times))
+    total = {}
+    for s in stages.values():
+        for name, by_dev in s["launches"].items():
+            total[name] = total.get(name, 0) + sum(by_dev.values())
+    log(f"mesh phase {time.perf_counter() - t0:.1f} s; launches on the mesh: {json.dumps(total)}")
+    if MESH_FAILED:
+        raise AssertionError(f"mesh phase: {len(MESH_FAILED)} gates failed: {MESH_FAILED}")
+    return total, errs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2404,37 +3148,43 @@ def main(argv=None) -> int:
     log(f"built K1-K6 for sm_90a in {time.perf_counter() - t0:.1f} s ({cuda_build.BUILD_DIR})")
     sass_phase(ext.__file__)
 
-    phases = {"density": density_phase(dev, args.seed), "bundle_loss": bundle_loss_phase(dev, args.seed)}
-    phases.update(field_color_phase(dev, args.seed))
-    train_counts, train_s, train_states = train_path(dev, args.seed, args.nerf_steps, args.profile)
-    chunked_counts, _ = chunked_train_path(dev, args.seed, args.chunk_steps, args.profile)
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    with one_card():
+        phases = {"density": density_phase(dev, args.seed), "bundle_loss": bundle_loss_phase(dev, args.seed)}
+        phases.update(field_color_phase(dev, args.seed))
+        train_counts, train_s, train_states = train_path(dev, args.seed, args.nerf_steps, args.profile)
+        chunked_counts, _ = chunked_train_path(dev, args.seed, args.chunk_steps, args.profile)
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            counts, _, shapes = serve_path(dev, args.seed, out_dir, args.profile)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        phases.update(point_kernel_phase(dev, args.seed, shapes))
+        trained = (train_states, train_s, train_counts) if args.nerf_steps == PIPELINE["nerf_steps"] else None
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+        try:
+            pipeline_path(dev, args.seed, out_dir, trained)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+        try:
+            cli_path(dev, out_dir)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_surf_")
+        try:
+            surf_launches = surf_path(dev, out_dir)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_nosiren_")
+        try:
+            t0 = time.perf_counter()
+            nosiren_launches, nosiren_errs = nosiren_path(dev, args.seed, out_dir)
+            log(f"nosiren phase {time.perf_counter() - t0:.1f} s")
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
-        counts, _, shapes = serve_path(dev, args.seed, out_dir, args.profile)
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
-    phases.update(point_kernel_phase(dev, args.seed, shapes))
-    trained = (train_states, train_s, train_counts) if args.nerf_steps == PIPELINE["nerf_steps"] else None
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
-    try:
-        pipeline_path(dev, args.seed, out_dir, trained)
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    try:
-        cli_path(dev, out_dir)
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_surf_")
-    try:
-        surf_launches = surf_path(dev, out_dir)
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_nosiren_")
-    try:
-        t0 = time.perf_counter()
-        nosiren_launches, nosiren_errs = nosiren_path(dev, args.seed, out_dir)
-        log(f"nosiren phase {time.perf_counter() - t0:.1f} s")
+        mesh_launches, mesh_errs = mesh_path(dev, args.seed, out_dir, train_states[0].fine)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     counts["bundle_loss"] = train_counts["bundle_loss"]
@@ -2443,8 +3193,12 @@ def main(argv=None) -> int:
     for per_stage in (*surf_launches.values(), *nosiren_launches.values()):
         for name, n in per_stage.items():
             counts[name] += n
-    # the error column covers the nosiren phase's checks at its own shapes too
-    for name, err in nosiren_errs.items():
+    # and the mesh phase's runs on the mesh
+    for name, n in mesh_launches.items():
+        counts[name] += n
+    # the error column covers the nosiren phase's checks at its own shapes
+    # and the mesh phase's K3-K6 on each entry's share too
+    for name, err in [*nosiren_errs.items(), *mesh_errs.items()]:
         phases[name]["max_abs_err"] = max(phases[name]["max_abs_err"], err)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
 
 
 def load_data(args, image_size):
@@ -407,7 +408,7 @@ def cmd_poses_est(args):
         pred_R, pred_t, _ = inference.run_sequence_surfemb(cnn, imgs_n, K, verts, _surf_normals(args, dev), feats,
                                                            diam, seed=1, device=dev)
     else:
-        # one card needs no device mesh: the unsharded batch loop (seed 1)
+        # the batch loop (seed 1), split over every card when there are several
         pred_R, pred_t = inference.run_sequence(cnn, imgs_n, sils, K, verts, feats, seed=1, device=dev)
     np.save(os.path.join(exp, f"{args.objid}pred_R.npy"), pred_R)
     np.save(os.path.join(exp, f"{args.objid}pred_t.npy"), pred_t)
@@ -440,8 +441,9 @@ def cmd_inference(args):
     normals = _surf_normals(args, dev) if args.use_surf_eval else None
     for i in ids:
         if args.use_surf_eval:
+            # one image: its hypotheses split over every card when there are several
             R_i, t_i, _ = inference.estimate_pose_surfemb(cnn, imgs_n[i], K_t[i], verts, normals, feats, diam,
-                                                          generator=gen)
+                                                          generator=gen, hyp_mesh=mesh_lib.auto_mesh(device=dev))
         else:
             est = inference.estimate_pose_single(cnn, imgs_n[i], sils_t[i], K_t[i], verts, feats, generator=gen)
             R_i, t_i = est.R[0], est.t[0]
@@ -556,9 +558,8 @@ def cmd_choose_image(args):
     verts = f32(artifacts.load_keys(artifacts.pose_dir(exp, args.objid))[0])
     sub = verts[farthest_point_sampling(verts, min(512, verts.shape[0]))]
     diam = load_data(args, 64)[5]
-    # one card needs no device mesh: the pairs run unsharded
     agree, _ = registration.agreement_matrix(f32(gt[..., :3, :3]), f32(gt[..., :3, 3]), f32(pr[..., :3, :3]),
-                                             f32(pr[..., :3, 3]), sub, diam)
+                                             f32(pr[..., :3, 3]), sub, diam, mesh=mesh_lib.auto_mesh(device=dev))
     agree = agree.cpu().numpy()
     best, top = registration.choose_best_image(agree, top_k=50)
     with open(os.path.join(exp, f"{args.objid}top_50_choices.txt"), "w") as f:

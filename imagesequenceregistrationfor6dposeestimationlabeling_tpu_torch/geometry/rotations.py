@@ -107,7 +107,12 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor | None = 
     mu_d = (dst * w[..., None]).sum(-2)
     sc = src - mu_s[..., None, :]
     dc = dst - mu_d[..., None, :]
-    H = (sc * w[..., None]).transpose(-1, -2) @ dc
+    return kabsch_solve((sc * w[..., None]).transpose(-1, -2) @ dc, mu_s, mu_d)
+
+
+def kabsch_solve(H: torch.Tensor, mu_s: torch.Tensor, mu_d: torch.Tensor):
+    """Kabsch's (R, t) from the weighted cross-covariance H (..., 3, 3) of
+    the centred points and the weighted means mu_s, mu_d (..., 3)."""
     U, _, Vt = torch.linalg.svd(H)
     V = Vt.transpose(-1, -2)
     d = torch.sign(torch.linalg.det(V @ U.transpose(-1, -2)))

@@ -4,7 +4,9 @@ One ``torch.utils.cpp_extension.load`` call compiles every kernel for
 ``sm_90a`` into ``.kernel_build/`` at the repository root (git-ignored).
 The binding file includes only pybind11 and passes raw device pointers:
 the Python wrappers check device, dtype, shape and contiguity, allocate
-the outputs and hand over ``data_ptr()`` and the current stream.  Keeping
+the outputs and hand over ``data_ptr()`` and the current stream of the
+inputs' device, and launch under that device (``on``), so a kernel runs on
+any card of a mesh whatever the current device is.  Keeping
 PyTorch's headers out of every source keeps the build to seconds.  The
 ``.cu`` files include only CUDA's and c10's CUDA error headers.
 
@@ -44,6 +46,29 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on(device):
+    """The context a launch for tensors on ``device`` runs in: that device
+    current, for the launch itself and for the launcher's attribute calls
+    (dynamic shared memory limits are set per device)."""
+    import torch
+
+    return torch.cuda.device(device)
+
+
+def count(wrapper, device) -> None:
+    """One launch of ``wrapper``'s kernel on ``device``: its total
+    (``wrapper.launches``) and its count per device index
+    (``wrapper.per_device``)."""
+    wrapper.launches += 1
+    wrapper.per_device[device.index] = wrapper.per_device.get(device.index, 0) + 1
+
+
+def reset(wrapper) -> None:
+    """Set ``wrapper``'s launch counts to 0."""
+    wrapper.launches = 0
+    wrapper.per_device = {}
 
 
 def check(t, name: str, dtype, shape, device):

@@ -170,11 +170,12 @@ def _density_launch(pts, weights, ladder: int, beta: float, embed_only: bool) ->
     w2p = _padded((w2,), (0,), _TILE_N)
     out = torch.empty((n, 1), dtype=f32, device=dev)
     if n:
-        cuda_build.kernels().density(
-            pts.data_ptr(), n, fm.data_ptr(), n_base, ladder, ep, w1.data_ptr(), w2p.data_ptr(), b1.data_ptr(),
-            b2.data_ptr(), wd.data_ptr(), bd.data_ptr(), nh, float(beta), int(embed_only), out.data_ptr(),
-            cuda_build.stream_ptr(dev),
-        )
+        with cuda_build.on(dev):
+            cuda_build.kernels().density(
+                pts.data_ptr(), n, fm.data_ptr(), n_base, ladder, ep, w1.data_ptr(), w2p.data_ptr(), b1.data_ptr(),
+                b2.data_ptr(), wd.data_ptr(), bd.data_ptr(), nh, float(beta), int(embed_only), out.data_ptr(),
+                cuda_build.stream_ptr(dev),
+            )
     return out
 
 
@@ -182,7 +183,7 @@ def density_cuda(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch.
     """K1 on the card: (N, 3) f32 -> (N, 1) f32 densities."""
     out = _density_launch(pts, weights, ladder, beta, embed_only=False)
     if pts.shape[0]:
-        density_cuda.launches += 1
+        cuda_build.count(density_cuda, pts.device)
     return out
 
 
@@ -193,7 +194,7 @@ def density_embed_cuda(pts: torch.Tensor, weights, ladder: int, beta: float) -> 
     return _density_launch(pts, weights, ladder, beta, embed_only=True)
 
 
-density_cuda.launches = 0
+cuda_build.reset(density_cuda)
 
 
 def density_op(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch.Tensor:
@@ -518,19 +519,22 @@ def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs
         ext = cuda_build.kernels()
         buf = _grad_buffers(ext, dev, nH, R, P, E, nh)
         rec = torch.empty((nH, R * P, ext.field_rec_width(ep)), dtype=torch.bfloat16, device=dev)
-        ext.bundle_loss(
-            pts.data_ptr(), dirs.data_ptr(), tgt.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
-            *(m.data_ptr() for m in _mma_operands(wts, ep, ("w1", "w2", "wc1h", "wc1ht", "w2t"))),
-            *(wts[k].data_ptr() for k in ("b1", "b2", "wd", "bd", "wc1ds", "wc1dc", "bc1", "wc2", "bc2")),
-            nh, float(beta), float(hs), float(hs * hs), float(scale), float(scale / 3.0), buf.vwork.data_ptr(),
-            buf.n_blocks, rec.data_ptr(), buf.rrec.data_ptr(), buf.part.data_ptr(), buf.n_splits, buf.vec.data_ptr(),
-            buf.mats.data_ptr(), 0 if w_out is None else w_out.data_ptr(), cuda_build.stream_ptr(dev),
-        )
-        bundle_loss_cuda.launches += 1
+        mats = _mma_operands(wts, ep, ("w1", "w2", "wc1h", "wc1ht", "w2t"))
+        with cuda_build.on(dev):
+            ext.bundle_loss(
+                pts.data_ptr(), dirs.data_ptr(), tgt.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
+                *(m.data_ptr() for m in mats),
+                *(wts[k].data_ptr() for k in ("b1", "b2", "wd", "bd", "wc1ds", "wc1dc", "bc1", "wc2", "bc2")),
+                nh, float(beta), float(hs), float(hs * hs), float(scale), float(scale / 3.0), buf.vwork.data_ptr(),
+                buf.n_blocks, rec.data_ptr(), buf.rrec.data_ptr(), buf.part.data_ptr(), buf.n_splits,
+                buf.vec.data_ptr(), buf.mats.data_ptr(), 0 if w_out is None else w_out.data_ptr(),
+                cuda_build.stream_ptr(dev),
+            )
+        cuda_build.count(bundle_loss_cuda, dev)
     return _grads_of(buf, shapes), buf.vec[:, -2:], w_out
 
 
-bundle_loss_cuda.launches = 0
+cuda_build.reset(bundle_loss_cuda)
 
 
 def bundle_loss_op(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float, scale: float,
@@ -688,18 +692,20 @@ def field_color_fwd_cuda(pts, dirs, fmat, weights, ladder: int, beta: float):
     rec = torch.empty((nH, R, P, _rec_width(ep)), dtype=torch.bfloat16, device=dev)
     if R and P:
         ext = _record_kernels(ep)
-        ext.field_color_fwd(
-            pts.data_ptr(), dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
-            *(m.data_ptr() for m in _mma_operands(wts, ep, ("w1", "w2", "wc1h"))),
-            *(wts[k].data_ptr() for k in ("b1", "b2", "wd", "bd", "wc1ds", "wc1dc", "bc1", "wc2", "bc2")),
-            nh, float(beta), rec.data_ptr(), dens.data_ptr(), rgb.data_ptr(),
-            _resident_blocks(dev, R, nH), cuda_build.stream_ptr(dev),
-        )
-        field_color_fwd_cuda.launches += 1
+        mats = _mma_operands(wts, ep, ("w1", "w2", "wc1h"))
+        with cuda_build.on(dev):
+            ext.field_color_fwd(
+                pts.data_ptr(), dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
+                *(m.data_ptr() for m in mats),
+                *(wts[k].data_ptr() for k in ("b1", "b2", "wd", "bd", "wc1ds", "wc1dc", "bc1", "wc2", "bc2")),
+                nh, float(beta), rec.data_ptr(), dens.data_ptr(), rgb.data_ptr(),
+                _resident_blocks(dev, R, nH), cuda_build.stream_ptr(dev),
+            )
+        cuda_build.count(field_color_fwd_cuda, dev)
     return dens, rgb, {**record_views(rec, E, nh), "record": rec}
 
 
-field_color_fwd_cuda.launches = 0
+cuda_build.reset(field_color_fwd_cuda)
 
 
 def field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder: int, beta: float):
@@ -733,18 +739,20 @@ def field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladde
         return _grads_of(SimpleNamespace(mats=zero(nH, 4 * E * nh + 2 * nh * nh), vec=zero(nH, 7 * nh + 6)), shapes)
     ext = _record_kernels(ep)
     buf = _grad_buffers(ext, dev, nH, R, P, E, nh)
-    ext.field_color_bwd(
-        dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
-        *(m.data_ptr() for m in _mma_operands(wts, ep, ("wc1ht", "w2t"))), wts["wd"].data_ptr(),
-        wts["wc2"].data_ptr(), nh, float(beta), rec.data_ptr(), dens.data_ptr(), rgb.data_ptr(), gdens.data_ptr(),
-        grgb.data_ptr(), buf.vwork.data_ptr(), buf.n_blocks, buf.rrec.data_ptr(), buf.part.data_ptr(),
-        buf.n_splits, buf.vec.data_ptr(), buf.mats.data_ptr(), cuda_build.stream_ptr(dev),
-    )
-    field_color_bwd_cuda.launches += 1
+    mats = _mma_operands(wts, ep, ("wc1ht", "w2t"))
+    with cuda_build.on(dev):
+        ext.field_color_bwd(
+            dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
+            *(m.data_ptr() for m in mats), wts["wd"].data_ptr(),
+            wts["wc2"].data_ptr(), nh, float(beta), rec.data_ptr(), dens.data_ptr(), rgb.data_ptr(),
+            gdens.data_ptr(), grgb.data_ptr(), buf.vwork.data_ptr(), buf.n_blocks, buf.rrec.data_ptr(),
+            buf.part.data_ptr(), buf.n_splits, buf.vec.data_ptr(), buf.mats.data_ptr(), cuda_build.stream_ptr(dev),
+        )
+    cuda_build.count(field_color_bwd_cuda, dev)
     return _grads_of(buf, shapes)
 
 
-field_color_bwd_cuda.launches = 0
+cuda_build.reset(field_color_bwd_cuda)
 
 
 def field_color_fwd_op(pts, dirs, fmat, weights, ladder: int, beta: float):

@@ -17,6 +17,7 @@ import torch
 
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import no_tf32
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import point_kernels
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
 
 _BIG = 1e30
 # elements of one chunk's (queries x references) distance matrix
@@ -30,22 +31,32 @@ def _chunk(n: int, m: int) -> int:
     return max(1, min(m, _CHUNK_ELEMS // max(n, 1)))
 
 
-def nn_query(query: torch.Tensor, ref: torch.Tensor,
-             ref_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Nearest neighbour of each query in ref: (dist (N,), idx (N,) int32)."""
+def nn_query(query: torch.Tensor, ref: torch.Tensor, ref_mask: Optional[torch.Tensor] = None,
+             mesh: Optional[mesh_lib.Mesh] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest neighbour of each query in ref: (dist (N,), idx (N,) int32).
+    With ``mesh`` the queries split over its entries, each running K2 on
+    its device against the whole reference cloud; the results come back
+    to home in order, bit-identical to the unsharded call (K2 is exact and
+    takes the lowest index)."""
     if ref.shape[0] == 0 or query.shape[0] == 0:
         raise ValueError(
             f"nn_query: empty cloud (query {query.shape[0]}, ref {ref.shape[0]}) "
             "— an upstream surface extraction or filter produced no points"
         )
-    return point_kernels.nn_min(query, ref, ref_mask)
+    if mesh is None:
+        return point_kernels.nn_min(query, ref, ref_mask)
+    refs = mesh_lib.broadcast((ref, ref_mask), mesh)
+    parts = [point_kernels.nn_min(query[s].to(d), *refs[i]) for i, d, s in mesh_lib.shards(query.shape[0], mesh)]
+    return mesh_lib.gather(parts, mesh)
 
 
 def chamfer_distance(a: torch.Tensor, b: torch.Tensor, a_mask: Optional[torch.Tensor] = None,
-                     b_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Bidirectional mean NN distance / 2 (Open3D-compatible Chamfer)."""
-    d_ab, _ = nn_query(a, b, b_mask)
-    d_ba, _ = nn_query(b, a, a_mask)
+                     b_mask: Optional[torch.Tensor] = None, mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
+    """Bidirectional mean NN distance / 2 (Open3D-compatible Chamfer); with
+    ``mesh`` both sweeps split their queries over it and the means are
+    taken on home from the gathered distances."""
+    d_ab, _ = nn_query(a, b, b_mask, mesh)
+    d_ba, _ = nn_query(b, a, a_mask, mesh)
     ma = torch.ones_like(d_ab) if a_mask is None else a_mask.to(d_ab.dtype)
     mb = torch.ones_like(d_ba) if b_mask is None else b_mask.to(d_ba.dtype)
     mean_ab = (d_ab * ma).sum() / ma.sum().clamp_min(1.0)

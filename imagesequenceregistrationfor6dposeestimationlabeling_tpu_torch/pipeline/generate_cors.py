@@ -17,6 +17,13 @@ A view is rendered at its own silhouette's ray count, in chunks of at most
 ``RAY_CHUNK`` rays.  Views whose files exist are skipped, so an interrupted
 run resumes where it stopped.  ``CORS_TIMING=1`` prints the sub-stages'
 wall times.
+
+With a device ``mesh`` (``parallel.mesh``; ``mesh="auto"``, the default,
+is every card when there are several) the surface is extracted on home
+and the views are dealt round-robin over the entries: each view's front
+and back passes (K1) and mesh filters (K2) run on its entry's device with
+that entry's copy of the field, and the views are written in view order.
+The artifacts are the single-device run's.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import CorsConfig
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import of_module
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel, mcubes
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pointcloud as pc
@@ -132,14 +140,17 @@ def silhouette_pixels(sil: np.ndarray) -> np.ndarray:
 
 def generate_cors(field, R_bop, t_bop, K, sils, out_dir: str, objid, cfg: CorsConfig = CorsConfig(),
                   grid_res: int = 128, image_size: int | None = None, depth_margin: float = 2.0,
-                  device=None) -> str:
+                  device=None, mesh="auto") -> str:
     """The whole correspondence precompute of one half into ``out_dir``'s
     ``<objid>Cors/`` directory, whose path it returns.  ``field`` is a
     trained NerfField on ``device`` (the card unless named); R_bop (V, 3,
     3), t_bop (V, 3), K (V, 3, 3) and sils (V, S, S) as numpy arrays or
     tensors, the silhouettes at ``image_size`` (default
-    ``cfg.render_size``)."""
-    dev = of_module(field, device)
+    ``cfg.render_size``).  ``mesh`` (home: the field's device, which
+    ``device`` defaults to when only a mesh is given) takes the views
+    round-robin."""
+    mesh, dev = mesh_lib.place(mesh, device)
+    dev = of_module(field, dev)
     S = image_size or cfg.render_size
     cors = artifacts.cors_dir(out_dir, objid)
     os.makedirs(cors, exist_ok=True)
@@ -160,6 +171,10 @@ def generate_cors(field, R_bop, t_bop, K, sils, out_dir: str, objid, cfg: CorsCo
     min_d, max_d = float(z.min() - depth_margin), float(z.max() + depth_margin)
     mverts_t = as_t(mverts)
     pending = [i for i in range(R_bop.shape[0]) if not artifacts.has_view_rays(cors, S, i)]
+    # the field and surface on each entry; pending view j on entry j % size
+    devs, views = [dev], [(field, mverts_t)]
+    if mesh is not None:
+        devs, views = mesh.devices, list(zip(mesh_lib.replicate(field, mesh), mesh_lib.broadcast(mverts_t, mesh)))
 
     def save_view(i, out):
         fv, bv, xys = out["front_valid"], out["back_valid"], out["xys"]
@@ -169,11 +184,16 @@ def generate_cors(field, R_bop, t_bop, K, sils, out_dir: str, objid, cfg: CorsCo
     # later views' device work
     with ThreadPoolExecutor(max_workers=4) as pool:
         futs = []
-        for i in pending:
-            pix = torch.as_tensor(silhouette_pixels(sils[i]), device=dev)
-            out = view_surface_hits(field, cams[i], pix, mverts_t, S, cfg.grid_pts_per_ray, min_d, max_d,
-                                    cfg.density_threshold, cfg.mesh_filter_dist, cfg.back_len_div)
-            futs.append(pool.submit(save_view, i, {k: v.cpu().numpy() for k, v in out.items()}))
+        # a round queues one view on every entry before any comes to the host
+        for r0 in range(0, len(pending), len(devs)):
+            outs = []
+            for i, d, (f, mv) in zip(pending[r0:r0 + len(devs)], devs, views):
+                pix = torch.as_tensor(silhouette_pixels(sils[i]), device=d)
+                outs.append((i, view_surface_hits(f, mesh_lib.to(cams[i], d), pix, mv, S, cfg.grid_pts_per_ray,
+                                                  min_d, max_d, cfg.density_threshold, cfg.mesh_filter_dist,
+                                                  cfg.back_len_div)))
+            for i, out in outs:
+                futs.append(pool.submit(save_view, i, {k: v.cpu().numpy() for k, v in out.items()}))
         mark("views_render", dev)
         for f in futs:
             f.result()

@@ -20,6 +20,14 @@ pixels x keys per image, so images go one at a time: the reference's
 ``make_batch_surfemb_estimator`` (``lax.map`` over mesh-sharded image
 groups) has no counterpart, and ``run_sequence_surfemb`` is a loop over
 the images.
+
+With a device ``mesh`` (``parallel.mesh``; ``mesh="auto"`` is every card
+when there are several), ``run_sequence`` splits each batch of images over
+the entries, each running the CNN, K3 and RANSAC on its device, and
+``run_sequence_surfemb`` splits the sequence's images; ``hyp_mesh`` splits
+one SurfEmb image's hypotheses.  Every random draw is made on home for the
+whole batch, in the order the unsharded run makes it, and then sliced, so
+the poses do not depend on the split.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.cam
 )
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pnp, similarity
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.grid_sample import grid_sample
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
 
 # when a list, each SurfEmb image appends its stage seconds (a device sync
 # between stages), its best score and, on the card, its peak device bytes
@@ -71,15 +80,42 @@ def correspondences(cnn, images, masks, cam_Ks, feats, down_sample: int = 3, kee
 @torch.no_grad()
 def estimate_poses(cnn, images, masks, cam_Ks, verts, feats, down_sample: int = 3,
                    keep_frac: float = 0.8, n_hyp: int = 500, reproj_err: float = 2.0,
-                   generator: torch.Generator | None = None, samples=None) -> PoseEstimate:
+                   generator: torch.Generator | None = None, samples=None, mesh=None,
+                   replicas=None) -> PoseEstimate:
     """Poses for a batch of B images: images (B, S, S, 3) ImageNet-normalized
     crops, masks (B, S, S), cam_Ks (B, 3, 3), verts (M, 3), feats (M, 12).
-    ``samples`` (B, n_hyp, 4) injects the RANSAC draws."""
-    idx, conf_mask, p2d, Kd = correspondences(cnn, images, masks, cam_Ks, feats, down_sample, keep_frac)
-    p3d = verts[idx.long()]
-    res = pnp.ransac_pnp(p3d, p2d, Kd, weights=conf_mask.to(torch.float32), n_hyp=n_hyp,
-                         reproj_err=reproj_err, generator=generator, samples=samples)
-    return PoseEstimate(res.R, res.t, res.n_inliers, res.success, conf_mask)
+    ``samples`` (B, n_hyp, 4) injects the RANSAC draws.  The images split
+    over ``mesh``'s entries (None: one entry on the images' device), run on
+    ``replicas`` ((CNN, verts, feats) on each entry; made here when None;
+    without a mesh, the caller's own): each entry finds its images'
+    correspondences (CNN, K3), the RANSAC draws are made on home for the
+    whole batch from the gathered weights (or sliced from ``samples``), and
+    each entry runs RANSAC on its images.  The results are gathered on
+    home."""
+    if mesh is None:
+        mesh, replicas = mesh_lib.Mesh([images.device]), [(cnn, verts, feats)]
+    elif replicas is None:
+        replicas = replicate_model(cnn, verts, feats, mesh)
+    parts = []
+    for i, d, s in mesh_lib.shards(images.shape[0], mesh):
+        idx, conf_mask, p2d, Kd = correspondences(replicas[i][0], images[s].to(d), masks[s].to(d), cam_Ks[s].to(d),
+                                                  replicas[i][2], down_sample, keep_frac)
+        parts.append((i, d, s, idx, conf_mask, p2d, Kd))
+    if samples is None:
+        weights = mesh_lib.gather([p[4] for p in parts], mesh).to(torch.float32)
+        samples = pnp.draw_hypotheses(weights, n_hyp, generator)
+    out = []
+    for i, d, s, idx, conf_mask, p2d, Kd in parts:
+        res = pnp.ransac_pnp(replicas[i][1][idx.long()], p2d, Kd, weights=conf_mask.to(torch.float32), n_hyp=n_hyp,
+                             reproj_err=reproj_err, samples=samples[s].to(d))
+        out.append((res.R, res.t, res.n_inliers, res.success, conf_mask))
+    return PoseEstimate(*mesh_lib.gather(out, mesh))
+
+
+def replicate_model(cnn, verts, feats, mesh: mesh_lib.Mesh) -> list:
+    """Per mesh entry: (its own copy of the CNN, the baked points and keys
+    on its device)."""
+    return [(c, *vf) for c, vf in zip(mesh_lib.replicate(cnn, mesh), mesh_lib.broadcast((verts, feats), mesh))]
 
 
 def estimate_pose_single(cnn, image, mask, cam_K, verts, feats, **kw) -> PoseEstimate:
@@ -89,12 +125,14 @@ def estimate_pose_single(cnn, image, mask, cam_K, verts, feats, **kw) -> PoseEst
 
 def run_sequence(cnn, images, masks, cam_Ks, verts, feats, cfg: InferenceConfig = InferenceConfig(),
                  seed: int = 1, batch: int = 16, generator: torch.Generator | None = None,
-                 samples=None, device=None):
+                 samples=None, device=None, mesh="auto"):
     """Poses of a whole sequence, ``batch`` images at a time ->
     (pred_R (N, 3, 3), pred_t (N, 3)) as numpy.  ``samples`` (N, n_hyp, 4)
     injects the RANSAC draws; otherwise they come from ``generator`` (a
-    fresh one seeded with ``seed`` when None)."""
+    fresh one seeded with ``seed`` when None).  With ``mesh`` (home: the
+    CNN's device) each batch's images split over its entries."""
     device = torch.device(device) if device is not None else next(cnn.parameters()).device
+    mesh = mesh_lib.resolve(mesh, device)
     if generator is None and samples is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     f32 = torch.float32
@@ -102,6 +140,7 @@ def run_sequence(cnn, images, masks, cam_Ks, verts, feats, cfg: InferenceConfig 
     images, masks, cam_Ks, verts, feats = (to(x) for x in (images, masks, cam_Ks, verts, feats))
     N = images.shape[0]
     batch = max(min(batch, N), 1)
+    replicas = None if mesh is None else replicate_model(cnn, verts, feats, mesh)
     Rs, ts = [], []
     for i in range(0, N, batch):
         sl = slice(i, i + batch)
@@ -109,7 +148,8 @@ def run_sequence(cnn, images, masks, cam_Ks, verts, feats, cfg: InferenceConfig 
             cnn, images[sl], masks[sl], cam_Ks[sl], verts, feats,
             down_sample=cfg.down_sample, keep_frac=cfg.conf_keep_frac, n_hyp=cfg.ransac_iters,
             reproj_err=cfg.reproj_err_px, generator=generator,
-            samples=None if samples is None else torch.as_tensor(samples[sl]),
+            samples=None if samples is None else torch.as_tensor(samples[sl]).to(device), mesh=mesh,
+            replicas=replicas,
         )
         Rs.append(est.R.cpu().numpy())
         ts.append(est.t.cpu().numpy())
@@ -173,10 +213,24 @@ class SurfEmbDraws(NamedTuple):
     sel: torch.Tensor
 
 
+def _draw_surfemb(generator: torch.Generator, cfg: InferenceConfig, n_keys: int, refine: bool) -> SurfEmbDraws:
+    """One image's ``SurfEmbDraws`` from ``generator`` on its device, in
+    the order ``_surfemb_core`` draws them (``sel`` None without
+    refinement)."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_est_surf
+
+    dev = generator.device
+    hyp = pose_est_surf.draw_hypotheses(cfg.max_poses, generator, dev)
+    sel = torch.randperm(n_keys, generator=generator, device=dev) if refine else None
+    return SurfEmbDraws(hyp.u, hyp.pick, sel)
+
+
 def _surfemb_core(cnn, image, cam_K, verts, normals, feats, diameter: float, cfg: InferenceConfig, refine: bool,
-                  refine_steps: int, translation_only: bool, generator=None, draws: SurfEmbDraws | None = None):
-    """One image: CNN -> hypothesis sampling and z-buffer scoring -> the best
-    -> optional refinement.  Returns (R (3, 3), t (3,), score ())."""
+                  refine_steps: int, translation_only: bool, generator=None, draws: SurfEmbDraws | None = None,
+                  hyp_mesh=None):
+    """One image: CNN -> hypothesis sampling and z-buffer scoring (split
+    over ``hyp_mesh`` when given) -> the best -> optional refinement.
+    Returns (R (3, 3), t (3,), score ())."""
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_est_surf, pose_refine
 
     dev = image.device
@@ -190,7 +244,7 @@ def _surfemb_core(cnn, image, cam_K, verts, normals, feats, diameter: float, cfg
     res = pose_est_surf.estimate_pose(
         mask_lgts, query_img, verts, normals, feats, diameter, cam_K, generator, down_sample=cfg.down_sample,
         max_poses=cfg.max_poses, max_pose_evaluations=cfg.max_pose_evaluations, alpha=cfg.alpha,
-        dist_2d_min=cfg.dist_2d_min, draws=hyp, stages=stages,
+        dist_2d_min=cfg.dist_2d_min, draws=hyp, stages=stages, mesh=hyp_mesh,
     )
     best = torch.argmax(res.pose_scores)
     R, t, score = res.R[best], res.t[best], res.pose_scores[best]
@@ -213,38 +267,52 @@ def _surfemb_core(cnn, image, cam_K, verts, normals, feats, diameter: float, cfg
 def estimate_pose_surfemb(cnn, image, cam_K, verts, normals, feats, diameter: float,
                           cfg: InferenceConfig = InferenceConfig(), refine: bool = True, refine_steps: int = 50,
                           translation_only: bool = False, generator: torch.Generator | None = None,
-                          draws: SurfEmbDraws | None = None):
+                          draws: SurfEmbDraws | None = None, hyp_mesh=None):
     """The SurfEmb pose of one ImageNet-normalized crop (S, S, 3) with its
     crop camera (3, 3): hypothesis sampling and z-buffer scoring, then
     gradient refinement.  Returns (R, t, score): the best hypothesis' SurfEmb
     score (higher is better).  The draws come from ``generator`` unless
-    ``draws`` hands them in."""
+    ``draws`` hands them in.  ``hyp_mesh`` (home: the image's device) splits
+    the hypotheses' P3P, pruning and scoring over its entries."""
     R, t, score = _surfemb_core(cnn, image, cam_K, verts, normals, feats, diameter, cfg, refine, refine_steps,
-                                translation_only, generator, draws)
+                                translation_only, generator, draws, mesh_lib.resolve(hyp_mesh, image.device))
     return R, t, float(score)
 
 
 def run_sequence_surfemb(cnn, images, cam_Ks, verts, normals, feats, diameter: float,
                          cfg: InferenceConfig = InferenceConfig(), seed: int = 1, refine: bool = True,
                          refine_steps: int = 50, translation_only: bool = False,
-                         generator: torch.Generator | None = None, draws=None, device=None):
+                         generator: torch.Generator | None = None, draws=None, device=None, mesh="auto"):
     """``estimate_pose_surfemb`` over a sequence of N crops, one image at a
-    time, on ``device`` (the card unless named) -> (pred_R (N, 3, 3), pred_t
-    (N, 3), scores (N,)) as numpy.  The images draw in turn from one
-    generator (seeded with ``seed`` unless given), or ``draws`` hands in one
-    ``SurfEmbDraws`` an image."""
-    dev = resolve_device(device)
+    time, on ``device`` (the card unless named; the mesh's home when only a
+    mesh is given) -> (pred_R (N, 3, 3), pred_t (N, 3), scores (N,)) as
+    numpy.  The images draw in turn from one generator (seeded with
+    ``seed`` unless given), or ``draws`` hands in one ``SurfEmbDraws`` an
+    image.  Every image's draws are made on home first, in sequence order;
+    with ``mesh`` the images then split over its entries, each entry taking
+    its images in turn with its own copy of the CNN."""
+    mesh, dev = mesh_lib.place(mesh, device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
     def f32(x):
         return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x), dtype=torch.float32).to(dev)
 
     images, cam_Ks, verts, normals, feats = map(f32, (images, cam_Ks, verts, normals, feats))
-    Rs, ts, scores = [], [], []
-    for i in range(images.shape[0]):
-        R, t, s = _surfemb_core(cnn, images[i], cam_Ks[i], verts, normals, feats, diameter, cfg, refine,
-                                refine_steps, translation_only, generator, None if draws is None else draws[i])
-        Rs.append(R.cpu().numpy())
-        ts.append(t.cpu().numpy())
-        scores.append(float(s))
-    return np.stack(Rs), np.stack(ts), np.asarray(scores, np.float32)
+    N = images.shape[0]
+    if draws is None:
+        draws = [_draw_surfemb(generator, cfg, feats.shape[0], refine) for _ in range(N)]
+    if mesh is None:
+        mesh, cnns, consts = mesh_lib.Mesh([dev]), [cnn], [(verts, normals, feats)]
+    else:
+        cnns, consts = mesh_lib.replicate(cnn, mesh), mesh_lib.broadcast((verts, normals, feats), mesh)
+    shards = mesh_lib.shards(N, mesh)
+    out = [None] * N
+    # every entry's r-th image in turn, so each card has work queued
+    for r in range(max(s.stop - s.start for *_, s in shards)):
+        for i, d, s in shards:
+            k = s.start + r
+            if k < s.stop:
+                out[k] = _surfemb_core(cnns[i], images[k].to(d), cam_Ks[k].to(d), *consts[i], diameter, cfg, refine,
+                                       refine_steps, translation_only, None, mesh_lib.to(draws[k], d))
+    R, t, s = (torch.stack([o[j].to(dev) for o in out]) for j in range(3))
+    return R.cpu().numpy(), t.cpu().numpy(), s.cpu().numpy().astype(np.float32)

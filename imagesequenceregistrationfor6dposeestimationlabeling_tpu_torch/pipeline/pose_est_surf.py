@@ -14,6 +14,12 @@ pipeline/pose_est_surf.py).
 
 Fixed shapes throughout: pruning gives a validity mask, not a filter.
 
+With a device ``mesh`` (``parallel.mesh``) the hypothesis axis splits
+over its entries twice, as the reference's hypothesis-axis constraints
+do: the P3P solves with the pruning, and the z-buffer scoring.  The draws,
+the selection of the ``max_pose_evaluations`` survivors and the argmax
+stay on home.
+
 The distribution is built ``ROW_CHUNK`` pixels at a time and never whole
 in more than two copies: the max-pooled log-softmax (f32) and the cdf.  The
 cdf is f64 in two levels: each pixel's row of ``corr ** alpha`` is summed
@@ -41,6 +47,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device impor
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.cameras import downsample_K
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pnp
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.rasterize import segment_min
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
 
 # pixels of the distribution built at a time, hypotheses scored at a time,
 # and keys max-pooled at a time
@@ -178,18 +185,43 @@ def score_poses(R: torch.Tensor, t: torch.Tensor, Kd: torch.Tensor, obj_pts: tor
     return torch.cat(mask_scores) / math.log(2.0), torch.cat(coord_scores) / math.log(float(m))
 
 
+def _solve_and_prune(p3d, p2d, n3d, u_pick, Kd, res: int, obj_diameter: float, dist_2d_min: float):
+    """P3P of each hypothesis' first three correspondences with one valid
+    root picked by ``u_pick``, then the pruning: (R (P, 3, 3), t (P, 3),
+    keep (P,))."""
+    Rs, ts, valid4 = pnp.solve_p3p_batch(p3d[:, :3], p2d[:, :3], Kd)
+    pick = torch.argmax(torch.where(valid4, u_pick, -1.0), dim=1)
+    rows = torch.arange(p3d.shape[0], device=p3d.device)
+    R, t = Rs[rows, pick], ts[rows, pick]
+    pose_ok = valid4.any(1)
+
+    d2 = torch.linalg.vector_norm(p2d[:, :3, None] - p2d[:, None, :3], dim=-1).amax(dim=(1, 2))
+    dist_ok = d2 >= dist_2d_min * res
+    z = t[:, 2]
+    z_min = Kd[0, 0] * obj_diameter / (res * 20.0)
+    z_max = Kd[0, 0] * obj_diameter / (res * 0.5)
+    size_ok = (z_min < z) & (z < z_max)
+    with no_tf32():
+        n3d_cam = n3d @ R.transpose(-1, -2)
+        p3d_cam = p3d[:, :3] @ R.transpose(-1, -2) + t[:, None]
+    normals_ok = ((n3d_cam * p3d_cam).sum(-1) < 0).all(-1)
+    return R, t, pose_ok & dist_ok & size_ok & normals_ok
+
+
 @torch.no_grad()
 def estimate_pose(mask_lgts: torch.Tensor, query_img: torch.Tensor, obj_pts: torch.Tensor, obj_normals: torch.Tensor,
                   obj_keys: torch.Tensor, obj_diameter: float, K: torch.Tensor,
                   generator: torch.Generator | None = None,
                   down_sample: int = 3, max_poses: int = 10000, max_pose_evaluations: int = 1000,
                   alpha: float = 1.5, dist_2d_min: float = 0.1, max_pool: bool = True,
-                  draws: HypothesisDraws | None = None, stages: dict | None = None) -> SurfEmbResult:
+                  draws: HypothesisDraws | None = None, stages: dict | None = None, mesh=None) -> SurfEmbResult:
     """Hypotheses of one image: mask_lgts (r, r), query_img (r, r, e), the
     baked points, normals and keys (M, 3) / (M, 3) / (M, e), the crop's
     intrinsics K (3, 3).  The draws come from ``generator`` unless ``draws``
     hands them in.  With a ``stages`` dict, the seconds of the distribution,
-    P3P with pruning, and scoring are written into it (a device sync each)."""
+    P3P with pruning, and scoring are written into it (a device sync each).
+    With ``mesh`` (home: the inputs' device) the hypotheses split over its
+    entries for P3P with pruning and for scoring."""
     dev = query_img.device
     t0 = time.perf_counter()
     m = obj_keys.shape[0]
@@ -222,25 +254,13 @@ def estimate_pose(mask_lgts: torch.Tensor, query_img: torch.Tensor, obj_pts: tor
         stages["distribution"] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
-    # batched P3P, one valid root at random
-    Rs, ts, valid4 = pnp.solve_p3p_batch(p3d[:, :3], p2d[:, :3], Kd)
-    pick = torch.argmax(torch.where(valid4, u_pick, -1.0), dim=1)
-    rows = torch.arange(max_poses, device=dev)
-    R, t = Rs[rows, pick], ts[rows, pick]
-    pose_ok = valid4.any(1)
-
-    # pruning
-    d2 = torch.linalg.vector_norm(p2d[:, :3, None] - p2d[:, None, :3], dim=-1).amax(dim=(1, 2))
-    dist_ok = d2 >= dist_2d_min * res
-    z = t[:, 2]
-    z_min = Kd[0, 0] * obj_diameter / (res * 20.0)
-    z_max = Kd[0, 0] * obj_diameter / (res * 0.5)
-    size_ok = (z_min < z) & (z < z_max)
-    with no_tf32():
-        n3d_cam = n3d @ R.transpose(-1, -2)
-        p3d_cam = p3d[:, :3] @ R.transpose(-1, -2) + t[:, None]
-    normals_ok = ((n3d_cam * p3d_cam).sum(-1) < 0).all(-1)
-    keep = pose_ok & dist_ok & size_ok & normals_ok
+    prune = dict(res=res, obj_diameter=obj_diameter, dist_2d_min=dist_2d_min)
+    if mesh is None:
+        R, t, keep = _solve_and_prune(p3d, p2d, n3d, u_pick, Kd, **prune)
+    else:
+        R, t, keep = mesh_lib.gather([_solve_and_prune(*(x[s].to(d) for x in (p3d, p2d, n3d, u_pick)), Kd.to(d),
+                                                       **prune) for _, d, s in mesh_lib.shards(max_poses, mesh)],
+                                     mesh)
 
     # the first max_pose_evaluations survivors, in their order
     sel = torch.argsort((~keep).to(torch.int8), stable=True)[:max_pose_evaluations]
@@ -250,7 +270,13 @@ def estimate_pose(mask_lgts: torch.Tensor, query_img: torch.Tensor, obj_pts: tor
         stages["p3p"] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
-    mask_score, coord_score = score_poses(R_e, t_e, Kd, obj_pts, corr_log, mask_log_prob, neg_mask_log_prob, res)
+    maps = (Kd, obj_pts, corr_log, mask_log_prob, neg_mask_log_prob)
+    if mesh is None:
+        mask_score, coord_score = score_poses(R_e, t_e, *maps, res)
+    else:
+        each = mesh_lib.broadcast(maps, mesh)
+        mask_score, coord_score = mesh_lib.gather([score_poses(R_e[s].to(d), t_e[s].to(d), *each[i], res)
+                                                   for i, d, s in mesh_lib.shards(R_e.shape[0], mesh)], mesh)
     score = torch.where(valid_e, mask_score + coord_score, torch.full_like(mask_score, -float("inf")))
     if stages is not None:
         sync(dev)

@@ -20,6 +20,15 @@ form, and its share of the loss backpropagated at once.
 
 Random draws come from generators, or are passed in (``draws``), so tests
 can replay the reference's ``jax.random`` streams.
+
+With a device ``mesh`` (``parallel.mesh``; ``mesh="auto"``, the default
+of both trainers, is every card when there are several) a step's rays are
+drawn and set up on home, then split over the entries: each entry runs
+the step's passes (K4, or the chunked K5 / K6 path) on its rays with its
+own copy of the fields (``replicate_states``), the loss scaled by the
+global ray count, so its grads are its share of the global mean's.  The
+grads and the loss sums are summed on home in entry order, Adam steps
+there, and the new weights are copied into every copy in place.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry imp
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models import fields
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.grid_sample import sample_images_at_mc_locs
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import raymarch, renderer
 
 # rays per half that one field evaluation covers (the reference's ray chunk)
@@ -175,18 +185,44 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(np.random.SeedSequence([seed, step]).generate_state(1)[0]))
 
 
+def replicate_states(states, mesh: mesh_lib.Mesh) -> list:
+    """Per mesh entry, its own copy of every half's coarse and fine fields
+    on its device, as ``NerfTrainState``s without optimizer state."""
+    copies = [(mesh_lib.replicate(st.coarse, mesh), mesh_lib.replicate(st.fine, mesh)) for st in states]
+    return [[st._replace(coarse=c[i], fine=f[i], opt=None) for st, (c, f) in zip(states, copies)]
+            for i in range(mesh.size)]
+
+
+def _fused_sums(states, o, d, lengths, col, sil, u_pdf, render_cfg, train_cfg, n: int):
+    """The single-chunk step's two K4 passes for every half on these rays,
+    each ray's loss scaled by s / ``n``: sets the fields' ``.grad`` and
+    returns the (H,) sums (ce coarse, se coarse, ce fine, se fine)."""
+    cfg = states[0].coarse.cfg
+    valid = torch.ones_like(sil)
+    kw = dict(cfg=cfg, huber_scaling=train_cfg.huber_scaling, scale=train_cfg.loss_scale / n)
+    pts_c = o[:, :, None] + d[:, :, None] * lengths[..., None]
+    ce_c, se_c, w_c = field_kernel.bundle_loss_grads([st.coarse for st in states], pts_c, d, col, sil, valid,
+                                                     want_weights=True, **kw)
+    z_f = raymarch.importance_resample(lengths, w_c, render_cfg.n_pts_fine, u=u_pdf,
+                                       add_input_samples=render_cfg.add_input_samples)
+    pts_f = o[:, :, None] + d[:, :, None] * z_f[..., None]
+    ce_f, se_f, _ = field_kernel.bundle_loss_grads([st.fine for st in states], pts_f, d, col, sil, valid, **kw)
+    return ce_c, se_c, ce_f, se_f
+
+
 def _chunked_losses(states, o, d, lengths, col, sil, u_pdf, render_cfg, train_cfg, ray_chunk: int,
-                    use_kernel: bool):
+                    use_kernel: bool, n: int):
     """The reference's chunked ``loss_fn`` for every half: the rays in
     groups of ``ray_chunk`` (the last one ragged, where the reference pads
     with rows of weight 0), each group's coarse pass, resampling from its
     detached weights, fine pass and huber losses, and its share s * sum / n
-    backpropagated into ``.grad`` at once, so one chunk's activations are
-    alive at a time (the reference recomputes them in the backward
-    instead).  The field runs through K5/K6 where ``use_kernel``, else its
-    own colour path.  Returns (colour error, silhouette error), (H,) each."""
+    (``n`` the step's rays) backpropagated into ``.grad`` at once, so one
+    chunk's activations are alive at a time (the reference recomputes them
+    in the backward instead).  The field runs through K5/K6 where
+    ``use_kernel``, else its own colour path.  Returns the (H,) sums of the
+    colour and of the silhouette error."""
     s, hs, Pf = train_cfg.loss_scale, train_cfg.huber_scaling, render_cfg.n_pts_fine
-    H, n = o.shape[:2]
+    H, n_rays = o.shape[:2]
     cfg = states[0].coarse.cfg
     for st in states:
         for p in train_params(st):
@@ -201,7 +237,7 @@ def _chunked_losses(states, o, d, lengths, col, sil, u_pdf, render_cfg, train_cf
     coarse, fine = [st.coarse for st in states], [st.fine for st in states]
     ce_tot = torch.zeros(H, device=o.device)
     se_tot = torch.zeros(H, device=o.device)
-    for i0 in range(0, n, ray_chunk):
+    for i0 in range(0, n_rays, ray_chunk):
         c = slice(i0, i0 + ray_chunk)
         oc, dc, lc = o[:, c], d[:, c], lengths[:, c]
         with torch.enable_grad():
@@ -216,24 +252,28 @@ def _chunked_losses(states, o, d, lengths, col, sil, u_pdf, render_cfg, train_cf
             (s * (ce + se).sum() / n).backward()
         ce_tot += ce.detach()
         se_tot += se.detach()
-    return s * ce_tot / n, s * se_tot / n
+    return ce_tot, se_tot
 
 
 @torch.no_grad()
 def train_step(states, cam: cam_lib.Camera, images, sils, opt: Adam, render_cfg: RenderConfig,
                train_cfg: NerfTrainConfig, min_depth: float, max_depth: float, draws=None, generators=None,
-               ray_chunk: int = RAY_CHUNK):
+               ray_chunk: int = RAY_CHUNK, mesh: mesh_lib.Mesh | None = None, replicas=None):
     """One optimization step of every half.
 
     states: one NerfTrainState per half; cam: cameras with leading (H, B);
     images (H, B, S, S, 3); sils (H, B, S, S); ``draws`` (see ``draw``) or
     one generator per half.  At most ``ray_chunk`` rays per half take K4;
     more take the chunked step, whose chunk i resamples with rows
-    [i * ray_chunk, (i + 1) * ray_chunk) of the draws' u_pdf.  Returns
-    (new states, loss (H,), {"color", "sil"} (H,) each), all on the
-    device."""
+    [i * ray_chunk, (i + 1) * ray_chunk) of the draws' u_pdf (with a
+    ``mesh``: of each entry's rays).  ``mesh`` (home: the images' device;
+    None is one entry there) splits the rays over its entries, run on
+    ``replicas`` (``replicate_states``; made here when None; without a
+    mesh, ``states`` themselves), which leave the step equal to the new
+    states.  Returns (new states, loss (H,), {"color",
+    "sil"} (H,) each), all on the device."""
     H, B, S = images.shape[0], images.shape[1], images.shape[2]
-    n_rays, Pc, Pf = render_cfg.n_rays_per_image, render_cfg.n_pts_coarse, render_cfg.n_pts_fine
+    n_rays, Pc = render_cfg.n_rays_per_image, render_cfg.n_pts_coarse
     n = B * n_rays
     cfg = states[0].coarse.cfg
     dev = images.device
@@ -246,22 +286,30 @@ def train_step(states, cam: cam_lib.Camera, images, sils, opt: Adam, render_cfg:
     o = bundle.origins.reshape(H, n, 3)
     d = bundle.directions.reshape(H, n, 3)
     lengths = bundle.lengths.reshape(H, n, Pc)
-    s, hs = train_cfg.loss_scale, train_cfg.huber_scaling
+    s = train_cfg.loss_scale
+    rays = (o, d, lengths, col, sil, u_pdf)
+    fused = use_kernel and n <= ray_chunk
 
-    if use_kernel and n <= ray_chunk:
-        valid = torch.ones_like(sil)
-        kw = dict(cfg=cfg, huber_scaling=hs, scale=s / n)
-        pts_c = o[:, :, None] + d[:, :, None] * lengths[..., None]
-        ce_c, se_c, w_c = field_kernel.bundle_loss_grads([st.coarse for st in states], pts_c, d, col, sil, valid,
-                                                         want_weights=True, **kw)
-        z_f = raymarch.importance_resample(lengths, w_c, Pf, u=u_pdf, add_input_samples=render_cfg.add_input_samples)
-        pts_f = o[:, :, None] + d[:, :, None] * z_f[..., None]
-        ce_f, se_f, _ = field_kernel.bundle_loss_grads([st.fine for st in states], pts_f, d, col, sil, valid, **kw)
+    def sums(sts, *ray_args):
+        if fused:
+            return _fused_sums(sts, *ray_args, render_cfg, train_cfg, n)
+        return _chunked_losses(sts, *ray_args, render_cfg, train_cfg, ray_chunk, use_kernel, n)
+
+    if mesh is None:
+        mesh, replicas = mesh_lib.Mesh([dev]), [states]
+    elif replicas is None:
+        replicas = replicate_states(states, mesh)
+    shards = mesh_lib.shards(n, mesh)
+    per = [sums(replicas[i], *(x[:, sl].to(dv) for x in rays)) for i, dv, sl in shards]
+    parts = [mesh_lib.reduce_sum(list(p), mesh) for p in zip(*per)]
+    for h, st in enumerate(states):
+        mesh_lib.reduce_grads_(train_params(st), [train_params(replicas[i][h]) for i, _, _ in shards])
+    if fused:
+        ce_c, se_c, ce_f, se_f = parts
         col_err = s * (ce_c + ce_f) / n
         sil_err = s * (se_c + se_f) / n
     else:
-        col_err, sil_err = _chunked_losses(states, o, d, lengths, col, sil, u_pdf, render_cfg, train_cfg, ray_chunk,
-                                           use_kernel)
+        col_err, sil_err = (s * x / n for x in parts)
 
     # one Adam update over every half's trained parameters (the counts agree)
     count = states[0].opt.count
@@ -270,6 +318,7 @@ def train_step(states, cam: cam_lib.Camera, images, sils, opt: Adam, render_cfg:
     params = [p for st in states for p in train_params(st)]
     new_count = opt.update(params, [p.grad for p in params], [m for st in states for m in st.opt.mu],
                            [v for st in states for v in st.opt.nu], count)
+    mesh_lib.copy_params_(params, [[p for st in rep for p in train_params(st)] for rep in replicas])
     new = [st._replace(opt=st.opt._replace(count=new_count), step=st.step + 1) for st in states]
     return new, col_err + sil_err, {"color": col_err, "sil": sil_err}
 
@@ -293,7 +342,7 @@ def half_schedule(n_views: int, batch: int, total: int, seed: int) -> np.ndarray
 def train_nerf_fused(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig,
                      render_cfg: RenderConfig = RenderConfig(), train_cfg: NerfTrainConfig = NerfTrainConfig(),
                      n_steps: Optional[int] = None, seed: int = 1, depth_margin: float = 2.0, device=None,
-                     init_states=None, draws: Callable | None = None, ray_chunk: int = RAY_CHUNK):
+                     init_states=None, draws: Callable | None = None, ray_chunk: int = RAY_CHUNK, mesh="auto"):
     """Train H independent NeRFs (one per half-sequence) step by step, all
     halves in each launch.
 
@@ -304,8 +353,9 @@ def train_nerf_fused(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig,
     rays from a generator seeded seed + h, unless ``draws(step)`` supplies
     them.  Losses stay on the device until the end.  Returns (list of
     per-half NerfTrainState, (H, n_steps) numpy losses).  Runs on ``device``,
-    the card unless named."""
-    dev = resolve_device(device)
+    the card unless named (the mesh's home when only a mesh is given), each
+    step's rays split over ``mesh``."""
+    mesh, dev = mesh_lib.place(mesh, device)
     f32 = torch.float32
     H, n, S = images.shape[0], images.shape[1], images.shape[2]
     t_np = t_bop.detach().cpu().numpy() if torch.is_tensor(t_bop) else np.asarray(t_bop)
@@ -321,13 +371,14 @@ def train_nerf_fused(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig,
     total = n_steps if n_steps is not None else train_cfg.n_epochs * max(n // bs, 1)
     idx_all = torch.as_tensor(np.stack([half_schedule(n, bs, total, seed + h) for h in range(H)]), device=dev)
     hh = torch.arange(H, device=dev)[:, None]
+    replicas = None if mesh is None else replicate_states(states, mesh)
     losses = []
     for i in range(total):
         idx = idx_all[:, i]                                                   # (H, bs)
         cam = cam_lib.Camera(cams.R[hh, idx], cams.T[hh, idx], cams.focal[hh, idx], cams.principal[hh, idx], S)
         states, loss, _ = train_step(states, cam, images[hh, idx], sils[hh, idx], opt, render_cfg, train_cfg,
                                      min_d, max_d, draws=None if draws is None else draws(i), generators=gens,
-                                     ray_chunk=ray_chunk)
+                                     ray_chunk=ray_chunk, mesh=mesh, replicas=replicas)
         losses.append(loss)
     loss_mat = torch.stack(losses, 1).cpu().numpy() if losses else np.zeros((H, 0), np.float32)
     return states, loss_mat
@@ -337,7 +388,7 @@ def train_nerf(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig, render_cfg
                train_cfg: NerfTrainConfig = NerfTrainConfig(), n_steps: Optional[int] = None, seed: int = 1,
                depth_margin: float = 2.0, log_every: int = 0, on_checkpoint: Callable | None = None,
                init_params=None, resume_state: NerfTrainState | None = None, device=None,
-               draws: Callable | None = None, ray_chunk: int = RAY_CHUNK):
+               draws: Callable | None = None, ray_chunk: int = RAY_CHUNK, mesh="auto"):
     """Train one NeRF (coarse + fine) on one sequence: images (N, S, S, 3),
     sils (N, S, S), R_bop (N, 3, 3), t_bop (N, 3) already divided by
     diameter / 1.8, K (N, 3, 3), as numpy arrays or tensors.
@@ -353,9 +404,10 @@ def train_nerf(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig, render_cfg
     ``on_checkpoint(state, step)`` runs after every ``ckpt_every``-th step
     and after the last (the reference runs ``steps_per_call`` steps per
     program and snaps the hook to those boundaries; here every step is its
-    own call).  Runs on ``device``, the card unless named.  Returns (state,
-    per-step losses of this run as floats)."""
-    dev = resolve_device(device)
+    own call).  Runs on ``device``, the card unless named (the mesh's home
+    when only a mesh is given), each step's rays split over ``mesh``.
+    Returns (state, per-step losses of this run as floats)."""
+    mesh, dev = mesh_lib.place(mesh, device)
     as_t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
     images, sils = as_t(images), as_t(sils)
     n, S = images.shape[0], images.shape[1]
@@ -367,6 +419,7 @@ def train_nerf(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig, render_cfg
     bs = min(train_cfg.batch_size, n)
     total = n_steps if n_steps is not None else train_cfg.n_epochs * max(n // bs, 1)
     schedule = half_schedule(n, bs, total, seed)
+    replicas = None if mesh is None else replicate_states([state], mesh)
     losses = []
     for i in range(state.step, total):
         idx = torch.as_tensor(schedule[i], device=dev)
@@ -374,7 +427,8 @@ def train_nerf(images, sils, R_bop, t_bop, K, field_cfg: FieldConfig, render_cfg
                              cams.principal[idx][None], S)
         step_draws = draws(i) if draws is not None else draw([step_generator(seed, i, dev)], bs, render_cfg, dev)
         (state,), loss, _ = train_step([state], cam, images[idx][None], sils[idx][None], opt, render_cfg, train_cfg,
-                                       min_d, max_d, draws=step_draws, ray_chunk=ray_chunk)
+                                       min_d, max_d, draws=step_draws, ray_chunk=ray_chunk, mesh=mesh,
+                                       replicas=replicas)
         losses.append(loss[0])
         done = i + 1
         if log_every and done % log_every == 0:

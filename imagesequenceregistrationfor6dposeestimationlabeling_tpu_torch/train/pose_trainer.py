@@ -23,6 +23,17 @@ atomics on one stream.  Random draws come from a
 generator seeded with (seed, step), or are passed in (``draws``), so tests
 can replay the reference's ``jax.random`` streams and a resumed run draws
 what the uninterrupted one drew.
+
+With a device ``mesh`` (``parallel.mesh``; ``mesh="auto"``, the default,
+is every card when there are several; a batch that does not divide it
+takes the widest sub-mesh that it does, as the reference's) a step's
+views split over the entries.  The draws and the cross-view terms (the
+distractors) are made on home for the whole batch; each entry augments
+its views, and once the sampled rays are drawn on home from the whole
+batch's augmented xys, runs the CNN, the keys and its loss, weighted by
+its share of the views, forward and backward on its own copy of the
+networks.  The grads are summed on home in entry order, both optimizers
+step there, and the new weights are copied into every copy in place.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models impor
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import ResNetUNet
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pointcloud as pc
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.grid_sample import grid_sample
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts, surface_sampling
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment as aug_lib
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train.nerf_trainer import (
@@ -248,14 +260,80 @@ def draw_pose_step(generator: torch.Generator, B: int, S: int, n_neg: int, cfg: 
     return PoseDraws(aug, pick, None, pos, neg_idx, torch.randn((B, n, 3), generator=generator, device=dev))
 
 
+def replicate_pose_state(state: PoseTrainState, mesh: mesh_lib.Mesh) -> list:
+    """Per mesh entry, its own copy of the state's field and CNN on its
+    device: [(field, cnn), ...]."""
+    return list(zip(mesh_lib.replicate(state.field, mesh), mesh_lib.replicate(state.cnn, mesh)))
+
+
+def _trained(field, cnn) -> list:
+    return head_params(field) + list(cnn.parameters())
+
+
+def _view_losses(field, cnn, aug, new_xys, sel, pos_vec, pos_noise, neg_pts, neg_idx, neg_jitter,
+                 cfg: PoseTrainConfig):
+    """(InfoNCE, mask BCE) of a set of augmented views at their sampled
+    rays ``sel``, each a mean over those views."""
+    sel_xys = new_xys.gather(1, sel[..., None].expand(-1, -1, 2))
+    sel_pos = pos_vec.gather(1, sel[..., None].expand(-1, -1, 3))
+    if cfg.pos_noise > 0:
+        sel_pos = sel_pos + pos_noise * cfg.pos_noise
+    neg = neg_pts[neg_idx] + neg_jitter * cfg.key_noise
+    feat_full = cnn(aug.rgb)                                                # (B, S, S, 13)
+    queries = grid_sample(feat_full[..., :12], -sel_xys, mode="nearest")
+    nce = info_nce_with_neg(queries, field.features(sel_pos), field.features(neg), cfg.infonce_scale,
+                            temp=cfg.infonce_temp)
+    bce = _sigmoid_bce(feat_full[..., -1], aug.mask_full).mean() * cfg.mask_loss_scale
+    return nce, bce
+
+
+def _sharded_losses(mesh, replicas, images, sils, pos_vec, xys, valid, neg_pts, cfg, aug_cfg, d: PoseDraws,
+                    generator, bg_bank, distractor):
+    """The step's loss terms with its views split over ``mesh``: each
+    entry's (nce, bce) weighted by its share of the views and
+    backpropagated into its copy (``replicas``), the weighted terms summed
+    on home; the home networks' ``.grad`` is set to the entries' sum."""
+    B = images.shape[0]
+    shards = mesh_lib.shards(B, mesh)
+    consts = mesh_lib.broadcast((neg_pts, bg_bank), mesh)
+    augs = []
+    for i, dv, s in shards:
+        take = lambda x: mesh_lib.part(x, s, dv)  # noqa: E731
+        augs.append(aug_lib.augment_view(take(images), take(sils), aug_cfg, take(d.aug), take(distractor),
+                                         consts[i][1]))
+    sel = d.sel
+    if sel is None:
+        A, t = mesh_lib.gather([(a.A, a.t) for a in augs], mesh)
+        sel = aug_lib.select_ray_samples(aug_lib.transform_xys(xys, A, t), valid, cfg.sample_size, generator)
+    terms = []
+    for (i, dv, s), aug in zip(shards, augs):
+        take = lambda x: mesh_lib.part(x, s, dv)  # noqa: E731
+        field, cnn = replicas[i]
+        for p in _trained(field, cnn):
+            p.grad = None
+        w = (s.stop - s.start) / B
+        with torch.enable_grad(), no_tf32(), deterministic_cudnn():
+            new_xys = aug_lib.transform_xys(take(xys), aug.A, aug.t)
+            nce, bce = _view_losses(field, cnn, aug, new_xys, take(sel), take(pos_vec), take(d.pos_noise),
+                                    consts[i][0], take(d.neg_idx), take(d.neg_jitter), cfg)
+            (w * (nce + bce)).backward()
+        terms.append((w * nce.detach(), w * bce.detach()))
+    return [mesh_lib.reduce_sum(list(x), mesh) for x in zip(*terms)], [replicas[i] for i, _, _ in shards]
+
+
 def pose_train_step(state: PoseTrainState, opt: PoseOptimizer, images, sils, pos_vec, xys, valid, neg_pts,
                     cfg: PoseTrainConfig, aug_cfg: aug_lib.AugmentConfig, draws: PoseDraws,
-                    generator: torch.Generator | None = None, bg_bank=None, distractor_bank=None):
+                    generator: torch.Generator | None = None, bg_bank=None, distractor_bank=None,
+                    mesh: mesh_lib.Mesh | None = None, replicas=None):
     """One descriptor step on a batch: images (B, S, S, 3), sils (B, S, S),
     its ray bank rows pos_vec (B, M, 3), xys (B, M, 2), valid (B, M), the
     negative keys (Nn, 3).  ``draws.sel`` None draws the sampled rays from
-    ``generator``.  The state's modules and moments change in place.
-    Returns (new state, loss, {"nce", "bce"}), all on the device."""
+    ``generator``.  ``mesh`` (home: the state's device; None is one entry
+    there) splits the views over its entries, run on ``replicas``
+    (``replicate_pose_state``; made here when None; without a mesh, the
+    state's own modules), which leave the step equal to the new state.  The
+    state's modules and moments change in place.  Returns (new state,
+    loss, {"nce", "bce"}), all on the device."""
     field, cnn = state.field, state.cnn
     d = draws
     distractor = None
@@ -264,27 +342,17 @@ def pose_train_step(state: PoseTrainState, opt: PoseOptimizer, images, sils, pos
             distractor = (distractor_bank[0][d.pick], distractor_bank[1][d.pick])
         else:
             distractor = (torch.roll(images, 1, 0), torch.roll(sils, 1, 0))
-    aug = aug_lib.augment_view(images, sils, aug_cfg, d.aug, distractor, bg_bank)
-    new_xys = aug_lib.transform_xys(xys, aug.A, aug.t)
-    sel = d.sel if d.sel is not None else aug_lib.select_ray_samples(new_xys, valid, cfg.sample_size, generator)
-    sel_xys = new_xys.gather(1, sel[..., None].expand(-1, -1, 2))
-    sel_pos = pos_vec.gather(1, sel[..., None].expand(-1, -1, 3))
-    if cfg.pos_noise > 0:
-        sel_pos = sel_pos + d.pos_noise * cfg.pos_noise
-    neg = neg_pts[d.neg_idx] + d.neg_jitter * cfg.key_noise
-
-    trained = head_params(field) + list(cnn.parameters())
-    for p in trained:
-        p.grad = None
-    with torch.enable_grad(), no_tf32(), deterministic_cudnn():
-        feat_full = cnn(aug.rgb)                                            # (B, S, S, 13)
-        queries = grid_sample(feat_full[..., :12], -sel_xys, mode="nearest")
-        nce = info_nce_with_neg(queries, field.features(sel_pos), field.features(neg), cfg.infonce_scale,
-                                temp=cfg.infonce_temp)
-        bce = _sigmoid_bce(feat_full[..., -1], aug.mask_full).mean() * cfg.mask_loss_scale
-        loss = nce + bce
-        loss.backward()
+    if mesh is None:
+        mesh, replicas = mesh_lib.Mesh([images.device]), [(field, cnn)]
+    elif replicas is None:
+        replicas = replicate_pose_state(state, mesh)
+    trained = _trained(field, cnn)
+    (nce, bce), used = _sharded_losses(mesh, replicas, images, sils, pos_vec, xys, valid, neg_pts, cfg, aug_cfg, d,
+                                       generator, bg_bank, distractor)
+    loss = nce + bce
+    mesh_lib.reduce_grads_(trained, [_trained(f, c) for f, c in used])
     new_opt = opt.update(field, cnn, state.opt)
+    mesh_lib.copy_params_(trained, [_trained(f, c) for f, c in replicas])
     return state._replace(opt=new_opt, step=state.step + 1), loss.detach(), {"nce": nce.detach(),
                                                                              "bce": bce.detach()}
 
@@ -301,7 +369,7 @@ def train_pose(field, images, sils, ray_bank: RayBank, neg_pts, cfg: PoseTrainCo
                aug_cfg: Optional[aug_lib.AugmentConfig] = None, n_steps: int = 1000, seed: int = 1,
                cnn: Optional[ResNetUNet] = None, log_every: int = 0, on_checkpoint: Callable | None = None,
                resume_state: Optional[PoseTrainState] = None, bg_bank=None, distractor_bank=None, device=None,
-               draws: Callable | None = None):
+               draws: Callable | None = None, mesh="auto"):
     """Descriptor training on one half: images (V, S, S, 3), sils (V, S, S)
     as numpy arrays or tensors, its ``RayBank`` and the negative keys.
 
@@ -315,9 +383,11 @@ def train_pose(field, images, sils, ray_bank: RayBank, neg_pts, cfg: PoseTrainCo
     step)`` runs after every ``cfg.ckpt_every``-th step and after the last.
     ``distractor_bank`` = ((D, S, S, 3), (D, S, S)) of other objects to
     paste (default: the batch's own views, rolled by one); ``bg_bank`` (N,
-    S, S, 3) backgrounds.  Runs on ``device``, the card unless named.
+    S, S, 3) backgrounds.  Runs on ``device``, the card unless named (the
+    mesh's home when only a mesh is given), each step's views split over
+    ``mesh`` (cut to the widest sub-mesh whose size divides the batch).
     Returns (state, per-step losses of this run as floats)."""
-    dev = resolve_device(device)
+    mesh, dev = mesh_lib.place(mesh, device)
     as_t = lambda x: torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,  # noqa: E731
                                      dtype=torch.float32).to(dev)
     images, sils, neg_pts = as_t(images), as_t(sils), as_t(neg_pts)
@@ -338,6 +408,12 @@ def train_pose(field, images, sils, ray_bank: RayBank, neg_pts, cfg: PoseTrainCo
         field, cfg, cnn, torch.Generator().manual_seed(seed), device=dev)
     opt = make_pose_optimizer(cfg)
     bs = min(cfg.batch_size, n)
+    if mesh is not None and bs % mesh.size:
+        k = mesh_lib.largest_divisor_mesh_size(bs, mesh.size)
+        print(f"train_pose: batch {bs} does not divide the mesh's {mesh.size} devices - using "
+              f"{f'a {k}-device sub-mesh' if k > 1 else 'one device'}")
+        mesh = mesh_lib.Mesh(mesh.devices[:k]) if k > 1 else None
+    replicas = None if mesh is None else replicate_pose_state(state, mesh)
     schedule = view_schedule(n, bs, n_steps, seed)
     n_bg = 0 if bg_bank is None else bg_bank.shape[0]
     n_dis = 0 if distractor_bank is None else distractor_bank[0].shape[0]
@@ -352,7 +428,7 @@ def train_pose(field, images, sils, ray_bank: RayBank, neg_pts, cfg: PoseTrainCo
             step_draws = draw_pose_step(gen, bs, S, neg_pts.shape[0], cfg, aug_cfg, n_bg, n_dis)
         state, loss, _ = pose_train_step(state, opt, images[idx], sils[idx], ray_bank.pos_vec[idx],
                                          ray_bank.xys[idx], ray_bank.valid[idx], neg_pts, cfg, aug_cfg,
-                                         step_draws, gen, bg_bank, distractor_bank)
+                                         step_draws, gen, bg_bank, distractor_bank, mesh, replicas)
         losses.append(loss)
         done = i + 1
         if log_every and done % log_every == 0:

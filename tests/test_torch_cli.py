@@ -42,6 +42,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import conve
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic as tsyn
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as tcam
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pointcloud as tpc
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as tmesh
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import surface_sampling as tss
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import renderer as trend
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import checkpoint as tckpt
@@ -238,6 +239,33 @@ def test_finale_commands_match_reference(tmp_path, same_scene, capsys):
     agree = np.load(os.path.join(troot, "0_ruapc_obj_1", "1error.npy"))
     assert 0 < agree.sum() < agree.size  # some pairs agree, some do not
     _compare_finale(jroot, troot, jout, tout, scale)
+
+
+def test_choose_image_on_an_auto_mesh(tmp_path, same_scene, monkeypatch, capsys):
+    """``choose-image`` calls ``auto_mesh()``, as the reference's does: with
+    it patched to a 2-entry CPU mesh (the reference's own test of its
+    default patches its ``auto_mesh`` alike) the pairs split over the mesh
+    and ``error.npy`` is the one the unsharded run writes, and the
+    reference's on its 8-device auto mesh."""
+    jroot, troot = tmp_path / "jax", tmp_path / "port"
+    _fabricate(str(jroot))
+    shutil.copytree(jroot, troot)
+    base = _base(troot, port=True)
+    tcli.main(["rel-poses", *base, "--cal-gt", "--cal-pred"])
+    tcli.main(["choose-image", *base])
+    exp = os.path.join(troot, "0_ruapc_obj_1")
+    unsharded = np.load(os.path.join(exp, "1error.npy"))
+    seen = []
+    monkeypatch.setattr(tmesh, "auto_mesh", lambda *a, **kw: seen.append(kw) or tmesh.Mesh(["cpu"] * 2))
+    os.remove(os.path.join(exp, "1error.npy"))
+    tcli.main(["choose-image", *base])
+    assert seen == [{"device": torch.device("cpu")}]
+    np.testing.assert_array_equal(np.load(os.path.join(exp, "1error.npy")), unsharded)
+    jbase = _base(jroot)
+    jcli.main(["rel-poses", *jbase, "--cal-gt", "--cal-pred"])
+    jcli.main(["choose-image", *jbase])
+    capsys.readouterr()
+    np.testing.assert_array_equal(np.load(os.path.join(jroot, "0_ruapc_obj_1", "1error.npy")), unsharded)
 
 
 # ------------------------------------------ correspondences and the bake

@@ -10,6 +10,7 @@ Run on a machine with the card:  python -m pytest tests/test_torch_gpu.py -q
 import copy
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -580,8 +581,9 @@ def _cli_argv(root, *extra, uh=1):
 
 def test_cli_train_nerf_resumes_exactly_on_card(cuda, tmp_path, monkeypatch):
     """``train-nerf --act-dtype bfloat16 --steps 40`` on the card (K4 a
-    pass), stopped after its step-20 checkpoint and resumed with ``--cont
-    --steps 40``, equals the straight 40-step run bit for bit."""
+    pass on each card of the default mesh: every card where there are
+    several), stopped after its step-20 checkpoint and resumed with
+    ``--cont --steps 40``, equals the straight 40-step run bit for bit."""
     import functools
 
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import cli, config
@@ -591,7 +593,8 @@ def test_cli_train_nerf_resumes_exactly_on_card(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(config, "NerfTrainConfig", functools.partial(config.NerfTrainConfig, ckpt_every=20))
     field_kernel.bundle_loss_cuda.launches = 0
     cli.main(["train-nerf", *_cli_argv(tmp_path / "straight", "--steps", "40")])
-    assert field_kernel.bundle_loss_cuda.launches == 80          # 40 steps x (coarse + fine)
+    cards = torch.cuda.device_count() if torch.cuda.device_count() >= 2 else 1
+    assert field_kernel.bundle_loss_cuda.launches == 80 * cards  # 40 steps x (coarse + fine) x entries
 
     class Stop(Exception):
         pass
@@ -772,3 +775,116 @@ def test_render_mesh_on_card_matches_cpu(cuda):
         bad = ((sc != sg) | ((rc - rg).abs().amax(-1) > 1e-4)
                | (torch.where(both, (dc - dg).abs(), torch.zeros_like(dc)) > 1e-4 * 4))
         assert float(sc.mean()) > 0.05 and float(bad.float().mean()) <= 5e-3
+
+
+# ------------------------------------------------------------ several devices
+
+
+def _kernel_runs(dev):
+    """K1-K6 once each on inputs made on the CPU and moved to ``dev``
+    (full-width fields): every output, back on the CPU, by kernel."""
+    cfg = FieldConfig(act_dtype="bfloat16")
+    g = torch.Generator().manual_seed(0)
+    f = NerfField(cfg).reset_parameters(torch.Generator().manual_seed(1))
+    torch.nn.init.zeros_(f.density_layer.bias)
+    f = f.to(dev)
+    ladder, beta = field_kernel.ladder_of(cfg), cfg.softplus_beta
+    out = {"density": [field_kernel.density_cuda((torch.rand((100_003, 3), generator=g) * 2.4 - 1.2).to(dev),
+                                                 field_kernel.density_weights(f), ladder, beta)]}
+    q, r = torch.randn((5_003, 3), generator=g).to(dev), torch.randn((60_001, 3), generator=g).to(dev)
+    out["nn_min"] = list(point_kernels.nn_min_cuda(q, r))
+    qs, ks = torch.randn((5_003, 12), generator=g).to(dev), torch.randn((20_011, 12), generator=g).to(dev)
+    out["corr_argmax"] = list(point_kernels.correspondence_argmax_cuda(qs, ks))
+    pts, dn, tgt, fm, weights, _ = _bundle_inputs(cfg, 2, 257, 64, torch.device("cpu"), 5)
+    pts, dn, tgt, fm = (x.to(dev) for x in (pts, dn, tgt, fm))
+    weights = tuple(w.to(dev) for w in weights)
+    gk, lk, wk = field_kernel.bundle_loss_cuda(pts, dn, tgt, fm, weights, ladder, beta, 0.1, 500.0 / 257, True)
+    out["bundle_loss"] = [*gk, lk, wk]
+    dk, rk, res = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta)
+    out["field_color_fwd"] = [dk, rk, res["record"]]
+    gdens, grgb = torch.randn(dk.shape, generator=g).to(dev), torch.randn(rk.shape, generator=g).to(dev)
+    out["field_color_bwd"] = list(field_kernel.field_color_bwd_cuda(dn, fm, weights, res, dk, rk, gdens, grgb,
+                                                                    ladder, beta))
+    torch.cuda.synchronize(dev)
+    return {k: [t.cpu() for t in v] for k, v in out.items()}
+
+
+WRAPPERS = {"density": field_kernel.density_cuda, "nn_min": point_kernels.nn_min_cuda,
+            "corr_argmax": point_kernels.correspondence_argmax_cuda, "bundle_loss": field_kernel.bundle_loss_cuda,
+            "field_color_fwd": field_kernel.field_color_fwd_cuda,
+            "field_color_bwd": field_kernel.field_color_bwd_cuda}
+
+
+def _two_cards():
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip(f"needs two CUDA devices (runs each kernel on cuda:1 while cuda:0 is current); {n} present")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_their_inputs_device():
+    """Each of K1-K6 with its inputs on cuda:1 while cuda:0 is the current
+    device: bit-identical to the same launch on cuda:0 (the launch, its
+    stream and its shared-memory limit belong to the inputs' device), and
+    counted on device 1."""
+    c0, c1 = _two_cards()
+    with torch.cuda.device(c0):
+        want = _kernel_runs(c0)
+        before = {k: w.per_device.get(1, 0) for k, w in WRAPPERS.items()}
+        got = _kernel_runs(c1)
+        assert torch.cuda.current_device() == 0
+    for name, outs in want.items():
+        assert all(torch.equal(a, b) for a, b in zip(outs, got[name])), name
+        assert WRAPPERS[name].per_device.get(1, 0) == before[name] + 1, name
+
+
+@pytest.mark.parametrize("kind", ["one card twice", "two cards"])
+def test_stages_on_a_mesh_match_unsharded(cuda, kind):
+    """K2's nn_query over a mesh is bit-identical to the unsharded call; 3
+    fused NeRF steps (full-width bf16 fields, 2 halves x 2 cams x 200 rays,
+    K4 on each entry's rays) agree with the unsharded run: the losses at
+    the reference's sharded bar (rtol 1e-4), each param within 2.01 x the
+    summed rates (Adam's first updates are ~ the rate times sign(g), and
+    the entries' grads are summed in another order than one launch's); one
+    step's grads within 1e-4 of each tensor's max; every entry launches K4
+    twice a step."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import NerfTrainConfig, RenderConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import cuda_build, pointcloud
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    if kind == "two cards":
+        _two_cards()
+    cuda = torch.device("cuda", 0)
+    mesh = mesh_lib.Mesh([cuda, cuda]) if kind == "one card twice" else mesh_lib.make_mesh(2)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, r = torch.randn((14_497, 3), generator=g, device=cuda), torch.randn((213_932, 3), generator=g, device=cuda)
+    d0, i0 = pointcloud.nn_query(q, r)
+    d1, i1 = pointcloud.nn_query(q, r, mesh=mesh)
+    assert torch.equal(d0, d1) and torch.equal(i0, i1)
+    halves = [synthetic.make_scene(8, 64, torch.Generator(device=cuda).manual_seed(h), device=cuda) for h in (0, 1)]
+    args = [torch.stack([getattr(h, f) for h in halves]) for f in ("images", "sils", "R_bop", "t_bop", "K")]
+    kw = dict(field_cfg=FieldConfig(act_dtype="bfloat16"), render_cfg=RenderConfig(n_rays_per_image=200),
+              train_cfg=NerfTrainConfig(batch_size=2, warmup_steps=10), n_steps=3, seed=1)
+    st0, l0 = nerf_trainer.train_nerf_fused(*args, device=cuda, mesh=None, **kw)
+    cuda_build.reset(field_kernel.bundle_loss_cuda)
+    st1, l1 = nerf_trainer.train_nerf_fused(*args, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    assert field_kernel.bundle_loss_cuda.launches == 2 * 2 * 3
+    assert field_kernel.bundle_loss_cuda.per_device == {d.index: 2 * 3 * sum(e == d for e in mesh.devices)
+                                                        for d in set(mesh.devices)}
+    np.testing.assert_allclose(l1, l0, rtol=1e-4)
+    opt = nerf_trainer.make_optimizer(kw["train_cfg"])
+    rates = 2.01 * sum(opt.learning_rate(k) for k in range(3))
+    for a, b in zip(st1, st0):
+        for p, q in zip(nerf_trainer.train_params(a), nerf_trainer.train_params(b)):
+            assert p.device == cuda
+            assert float((p - q).detach().abs().max()) <= rates
+    # one step from the same init: the grads summed over the entries on home
+    kw["n_steps"] = 1
+    st0, _ = nerf_trainer.train_nerf_fused(*args, device=cuda, mesh=None, **kw)
+    st1, _ = nerf_trainer.train_nerf_fused(*args, mesh=mesh, **kw)
+    for a, b in zip(st1, st0):
+        for p, q in zip(nerf_trainer.train_params(a), nerf_trainer.train_params(b)):
+            assert float((p.grad - q.grad).abs().max()) <= 1e-4 * float(q.grad.abs().max())

@@ -24,7 +24,7 @@ ref = "imagesequenceregistrationfor6dposeestimationlabeling_tpu"
 loaded = [m for m in sys.modules if m.split(".")[0] == ref]
 new = {port.__name__ + "." + m for m in ("cli", "utils.viz", "data.bop", "data.mesh_scene", "data.scene_cache",
                                          "ops.rasterize", "pipeline.pose_est_surf", "pipeline.pose_refine",
-                                         "utils.profiling")}
+                                         "utils.profiling", "parallel.mesh")}
 print(len(names), new <= set(names), "jax" in sys.modules, "flax" in sys.modules, cuda_build.kernels.cache_info().currsize,
       native._TRIED, len(loaded))
 """

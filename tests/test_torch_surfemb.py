@@ -27,6 +27,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu.geometry.rotations
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu.ops import grid_sample as jgs
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu.ops import pnp as jpnp
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu.ops import rasterize as jras
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu.parallel import mesh as jmesh
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu.pipeline import inference as jinf
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu.pipeline import pose_est_surf as jpes
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu.pipeline import pose_refine as jpr
@@ -37,6 +38,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry imp
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import grid_sample as tgs
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pnp as tpnp
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import rasterize as tras
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as tmesh
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import inference as tinf
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_est_surf as tpes
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_refine as tpr
@@ -578,3 +580,56 @@ def test_estimate_pose_full_frame_matches_reference():
     np.testing.assert_allclose(got.R[0].numpy(), A(want.R), atol=1e-4)
     np.testing.assert_allclose(got.t[0].numpy(), A(want.t), atol=1e-4 * np.abs(t).max())
     assert np.abs(got.t[0].numpy() - t).max() < 0.05 * np.abs(t).max()
+
+
+# ------------------------------------------------------------ on a device mesh
+
+
+@pytest.fixture(scope="module")
+def hyp_draws(scene):
+    return well_posed_draws(scene, jax.random.PRNGKey(0), P)[:2]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_surfemb_hypotheses_sharded(scene, hyp_draws, monkeypatch, n):
+    """``estimate_pose`` with its hypothesis axis split (P3P and pruning,
+    then scoring): slot for slot the unsharded port's (the same rows, the
+    selection and argmax on home), and against the reference on a 2-device
+    mesh at the unsharded parity test's bars (the reference runs op by op
+    here, as that test runs it: ~25 s a mesh size on the CPU)."""
+    u, pick = hyp_draws
+    args = [scene[k] for k in ("mask_lgts", "qmap", "verts", "normals", "feats")]
+    kw = dict(max_poses=P, max_pose_evaluations=PE, draws=tpes.HypothesisDraws(T(u), T(pick)))
+    got0 = tpes.estimate_pose(*map(T, args), scene["diam"], T(scene["K"]), **kw)
+    got = tpes.estimate_pose(*map(T, args), scene["diam"], T(scene["K"]), mesh=tmesh.Mesh(["cpu"] * n), **kw)
+    for a, b in zip(got, got0):
+        assert torch.equal(a, b)
+    if n == 2:
+        _Uniforms(monkeypatch, u, pick)
+        want = jpes.estimate_pose.__wrapped__(*map(jnp.asarray, args), scene["diam"], jnp.asarray(scene["K"]),
+                                              jax.random.PRNGKey(0), max_poses=P, max_pose_evaluations=PE,
+                                              mesh=jmesh.make_mesh(n))
+        _compare_hypotheses(got, want, 1e-2)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_run_sequence_surfemb_sharded(scene, n):
+    """Three images over the mesh, each drawing from the one generator in
+    sequence order: the unsharded run bit for bit, and ``hyp_mesh`` on
+    one image likewise."""
+    maps = np.concatenate([scene["qmap"], scene["mask_lgts"][..., None]], -1)
+    net = _TorchMaps(np.stack([maps, np.roll(maps, 3, axis=1), maps]))
+    images = np.stack([np.full((48, 48, 3), i, np.float32) for i in range(3)])
+    Ks = np.stack([scene["K"]] * 3)
+    cfg = InferenceConfig(max_poses=256, max_pose_evaluations=64)
+    keys = [T(scene[k]) for k in ("verts", "normals", "feats")]
+    out0 = tinf.run_sequence_surfemb(net, images, Ks, *keys, scene["diam"], cfg=cfg, refine_steps=3, seed=1,
+                                     device="cpu", mesh=None)
+    out1 = tinf.run_sequence_surfemb(net, images, Ks, *keys, scene["diam"], cfg=cfg, refine_steps=3, seed=1,
+                                     mesh=tmesh.Mesh(["cpu"] * n))
+    for a, b in zip(out0, out1):
+        assert np.array_equal(a, b)
+    one = [tinf.estimate_pose_surfemb(net, T(images[1]), T(Ks[1]), *keys, scene["diam"], cfg=cfg, refine_steps=3,
+                                      generator=torch.Generator().manual_seed(4), hyp_mesh=m)
+           for m in (None, tmesh.Mesh(["cpu"] * n))]
+    assert torch.equal(one[0][0], one[1][0]) and torch.equal(one[0][1], one[1][1]) and one[0][2] == one[1][2]
