@@ -5,7 +5,7 @@ One ``torch.utils.cpp_extension.load`` call compiles every kernel for
 The binding file includes only pybind11 and passes raw device pointers:
 the Python wrappers check device, dtype, shape and contiguity, allocate
 the outputs and hand over ``data_ptr()`` and the current stream of the
-inputs' device, and launch under that device (``on``), so a kernel runs on
+inputs' device, and launch under that device (``launch``), so a kernel runs on
 any card of a mesh whatever the current device is.  Keeping
 PyTorch's headers out of every source keeps the build to seconds.  The
 ``.cu`` files include only CUDA's and c10's CUDA error headers.
@@ -15,6 +15,7 @@ Nothing is built or imported while this module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 
@@ -48,21 +49,28 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def on(device):
-    """The context a launch for tensors on ``device`` runs in: that device
-    current, for the launch itself and for the launcher's attribute calls
-    (dynamic shared memory limits are set per device)."""
-    import torch
-
-    return torch.cuda.device(device)
-
-
 def count(wrapper, device) -> None:
     """One launch of ``wrapper``'s kernel on ``device``: its total
     (``wrapper.launches``) and its count per device index
     (``wrapper.per_device``)."""
     wrapper.launches += 1
     wrapper.per_device[device.index] = wrapper.per_device.get(device.index, 0) + 1
+
+
+@contextlib.contextmanager
+def launch(wrapper, name: str, device):
+    """The context of one launch of ``wrapper``'s kernel for tensors on
+    ``device``: that device current, for the launch itself and for the
+    launcher's attribute calls (dynamic shared memory limits are set per
+    device); the program's span ``kernel.<name>`` around the launch; and
+    the launch counted (``count``) once it returns."""
+    import torch
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils import profiling
+
+    with torch.cuda.device(device), profiling.span("kernel." + name):
+        yield
+    count(wrapper, device)
 
 
 def reset(wrapper) -> None:

@@ -170,7 +170,9 @@ def _density_launch(pts, weights, ladder: int, beta: float, embed_only: bool) ->
     w2p = _padded((w2,), (0,), _TILE_N)
     out = torch.empty((n, 1), dtype=f32, device=dev)
     if n:
-        with cuda_build.on(dev):
+        # the embed-only diagnostic is K1's kernel run apart: no span, no count
+        ctx = torch.cuda.device(dev) if embed_only else cuda_build.launch(density_cuda, "density", dev)
+        with ctx:
             cuda_build.kernels().density(
                 pts.data_ptr(), n, fm.data_ptr(), n_base, ladder, ep, w1.data_ptr(), w2p.data_ptr(), b1.data_ptr(),
                 b2.data_ptr(), wd.data_ptr(), bd.data_ptr(), nh, float(beta), int(embed_only), out.data_ptr(),
@@ -181,10 +183,7 @@ def _density_launch(pts, weights, ladder: int, beta: float, embed_only: bool) ->
 
 def density_cuda(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch.Tensor:
     """K1 on the card: (N, 3) f32 -> (N, 1) f32 densities."""
-    out = _density_launch(pts, weights, ladder, beta, embed_only=False)
-    if pts.shape[0]:
-        cuda_build.count(density_cuda, pts.device)
-    return out
+    return _density_launch(pts, weights, ladder, beta, embed_only=False)
 
 
 def density_embed_cuda(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch.Tensor:
@@ -520,7 +519,7 @@ def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs
         buf = _grad_buffers(ext, dev, nH, R, P, E, nh)
         rec = torch.empty((nH, R * P, ext.field_rec_width(ep)), dtype=torch.bfloat16, device=dev)
         mats = _mma_operands(wts, ep, ("w1", "w2", "wc1h", "wc1ht", "w2t"))
-        with cuda_build.on(dev):
+        with cuda_build.launch(bundle_loss_cuda, "bundle_loss", dev):
             ext.bundle_loss(
                 pts.data_ptr(), dirs.data_ptr(), tgt.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
                 *(m.data_ptr() for m in mats),
@@ -530,7 +529,6 @@ def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs
                 buf.vec.data_ptr(), buf.mats.data_ptr(), 0 if w_out is None else w_out.data_ptr(),
                 cuda_build.stream_ptr(dev),
             )
-        cuda_build.count(bundle_loss_cuda, dev)
     return _grads_of(buf, shapes), buf.vec[:, -2:], w_out
 
 
@@ -693,7 +691,7 @@ def field_color_fwd_cuda(pts, dirs, fmat, weights, ladder: int, beta: float):
     if R and P:
         ext = _record_kernels(ep)
         mats = _mma_operands(wts, ep, ("w1", "w2", "wc1h"))
-        with cuda_build.on(dev):
+        with cuda_build.launch(field_color_fwd_cuda, "field_color_fwd", dev):
             ext.field_color_fwd(
                 pts.data_ptr(), dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
                 *(m.data_ptr() for m in mats),
@@ -701,7 +699,6 @@ def field_color_fwd_cuda(pts, dirs, fmat, weights, ladder: int, beta: float):
                 nh, float(beta), rec.data_ptr(), dens.data_ptr(), rgb.data_ptr(),
                 _resident_blocks(dev, R, nH), cuda_build.stream_ptr(dev),
             )
-        cuda_build.count(field_color_fwd_cuda, dev)
     return dens, rgb, {**record_views(rec, E, nh), "record": rec}
 
 
@@ -740,7 +737,7 @@ def field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladde
     ext = _record_kernels(ep)
     buf = _grad_buffers(ext, dev, nH, R, P, E, nh)
     mats = _mma_operands(wts, ep, ("wc1ht", "w2t"))
-    with cuda_build.on(dev):
+    with cuda_build.launch(field_color_bwd_cuda, "field_color_bwd", dev):
         ext.field_color_bwd(
             dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
             *(m.data_ptr() for m in mats), wts["wd"].data_ptr(),
@@ -748,7 +745,6 @@ def field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladde
             gdens.data_ptr(), grgb.data_ptr(), buf.vwork.data_ptr(), buf.n_blocks, buf.rrec.data_ptr(),
             buf.part.data_ptr(), buf.n_splits, buf.vec.data_ptr(), buf.mats.data_ptr(), cuda_build.stream_ptr(dev),
         )
-    cuda_build.count(field_color_bwd_cuda, dev)
     return _grads_of(buf, shapes)
 
 

@@ -21,6 +21,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.polynomi
     durand_kerner,
     real_roots_mask,
 )
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils.profiling import span
 
 
 def bearings(p2d: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
@@ -181,55 +182,58 @@ def ransac_pnp(
         valid = weights > 0
     samp = draw_hypotheses(weights, n_hyp, generator) if samples is None else samples.to(dev).long()
 
-    f_all = bearings(p2d, K)                                            # (B, N, 3)
-    pts = _take(p3d, samp)                                              # (B, H, 4, 3)
-    f = _take(f_all, samp)
-    R, t, ok = p3p_grunert(pts[..., :3, :], f[..., :3, :])              # (B, H, 4, ...)
-    uv4, z4 = reproject(R, t, K[:, None, None], pts[..., None, 3:4, :])  # (B, H, 4, 1, ...)
-    target4 = _take(p2d, samp[..., 3])                                  # (B, H, 2)
-    err4 = torch.linalg.vector_norm(uv4[..., 0, :] - target4[..., None, :], dim=-1)
-    err4 = torch.where(ok & (z4[..., 0] > 0), err4, torch.full_like(err4, 1e9))
-    best_root = torch.argmin(err4, dim=-1)                              # (B, H)
-    R_h = R.gather(2, best_root[..., None, None, None].expand(-1, -1, 1, 3, 3))[:, :, 0]
-    t_h = t.gather(2, best_root[..., None, None].expand(-1, -1, 1, 3))[:, :, 0]
-    ok_h = err4.gather(2, best_root[..., None])[..., 0] < 1e8
+    with span("pnp.p3p"):
+        f_all = bearings(p2d, K)                                            # (B, N, 3)
+        pts = _take(p3d, samp)                                              # (B, H, 4, 3)
+        f = _take(f_all, samp)
+        R, t, ok = p3p_grunert(pts[..., :3, :], f[..., :3, :])              # (B, H, 4, ...)
+        uv4, z4 = reproject(R, t, K[:, None, None], pts[..., None, 3:4, :])  # (B, H, 4, 1, ...)
+        target4 = _take(p2d, samp[..., 3])                                  # (B, H, 2)
+        err4 = torch.linalg.vector_norm(uv4[..., 0, :] - target4[..., None, :], dim=-1)
+        err4 = torch.where(ok & (z4[..., 0] > 0), err4, torch.full_like(err4, 1e9))
+        best_root = torch.argmin(err4, dim=-1)                              # (B, H)
+        R_h = R.gather(2, best_root[..., None, None, None].expand(-1, -1, 1, 3, 3))[:, :, 0]
+        t_h = t.gather(2, best_root[..., None, None].expand(-1, -1, 1, 3))[:, :, 0]
+        ok_h = err4.gather(2, best_root[..., None])[..., 0] < 1e8
 
-    uv, z = reproject(R_h, t_h, K[:, None], p3d[:, None])              # (B, H, N, ...)
-    err = torch.linalg.vector_norm(uv - p2d[:, None], dim=-1)
-    inl = (err < reproj_err) & (z > 0) & valid[:, None, :]
-    counts = torch.where(ok_h, inl.sum(-1), torch.full_like(ok_h, -1, dtype=torch.int64))
-    best = torch.argmax(counts, dim=-1)                                 # (B,)
-    R0, t0 = _pick(R_h, best), _pick(t_h, best)
-    inliers = _pick(inl, best)
-    success = _pick(counts, best) >= 4
+    with span("pnp.score"):
+        uv, z = reproject(R_h, t_h, K[:, None], p3d[:, None])              # (B, H, N, ...)
+        err = torch.linalg.vector_norm(uv - p2d[:, None], dim=-1)
+        inl = (err < reproj_err) & (z > 0) & valid[:, None, :]
+        counts = torch.where(ok_h, inl.sum(-1), torch.full_like(ok_h, -1, dtype=torch.int64))
+        best = torch.argmax(counts, dim=-1)                                 # (B,)
+        R0, t0 = _pick(R_h, best), _pick(t_h, best)
+        inliers = _pick(inl, best)
+        success = _pick(counts, best) >= 4
 
-    fx, fy = K[:, 0, 0, None], K[:, 1, 1, None]
-    w_in = inliers.to(p3d.dtype)
-    eye6 = 1e-6 * torch.eye(6, dtype=p3d.dtype, device=dev)
-    Rk, tk = R0, t0
-    for _ in range(refine_iters):
-        uvk, _ = reproject(Rk, tk, K, p3d)
-        res = (uvk - p2d) * w_in[..., None]                              # (B, N, 2)
-        xc = p3d @ Rk.transpose(-1, -2) + tk[:, None, :]
-        X, Y, Z = xc[..., 0], xc[..., 1], xc[..., 2]
-        iZ = 1.0 / Z.clamp_min(1e-9)
-        zero = torch.zeros_like(Z)
-        J_u = torch.stack([fx * iZ, zero, -fx * X * iZ * iZ], -1)
-        J_v = torch.stack([zero, fy * iZ, -fy * Y * iZ * iZ], -1)
-        J_uv = torch.stack([J_u, J_v], -2)                              # (B, N, 2, 3)
-        J = torch.cat([J_uv @ -hat(xc), J_uv], dim=-1) * w_in[..., None, None]  # (B, N, 2, 6)
-        JtJ = torch.einsum("bnik,bnil->bkl", J, J) + eye6
-        Jtr = torch.einsum("bnik,bni->bk", J, res)
-        delta = -torch.linalg.solve(JtJ, Jtr)
-        dR = rotvec_to_matrix(delta[:, :3])
-        Rk, tk = dR @ Rk, (dR @ tk[..., None])[..., 0] + delta[:, 3:]
+    with span("pnp.refine"):
+        fx, fy = K[:, 0, 0, None], K[:, 1, 1, None]
+        w_in = inliers.to(p3d.dtype)
+        eye6 = 1e-6 * torch.eye(6, dtype=p3d.dtype, device=dev)
+        Rk, tk = R0, t0
+        for _ in range(refine_iters):
+            uvk, _ = reproject(Rk, tk, K, p3d)
+            res = (uvk - p2d) * w_in[..., None]                              # (B, N, 2)
+            xc = p3d @ Rk.transpose(-1, -2) + tk[:, None, :]
+            X, Y, Z = xc[..., 0], xc[..., 1], xc[..., 2]
+            iZ = 1.0 / Z.clamp_min(1e-9)
+            zero = torch.zeros_like(Z)
+            J_u = torch.stack([fx * iZ, zero, -fx * X * iZ * iZ], -1)
+            J_v = torch.stack([zero, fy * iZ, -fy * Y * iZ * iZ], -1)
+            J_uv = torch.stack([J_u, J_v], -2)                              # (B, N, 2, 3)
+            J = torch.cat([J_uv @ -hat(xc), J_uv], dim=-1) * w_in[..., None, None]  # (B, N, 2, 6)
+            JtJ = torch.einsum("bnik,bnil->bkl", J, J) + eye6
+            Jtr = torch.einsum("bnik,bni->bk", J, res)
+            delta = -torch.linalg.solve(JtJ, Jtr)
+            dR = rotvec_to_matrix(delta[:, :3])
+            Rk, tk = dR @ Rk, (dR @ tk[..., None])[..., 0] + delta[:, 3:]
 
-    uv0, _ = reproject(R0, t0, K, p3d)
-    uvf, _ = reproject(Rk, tk, K, p3d)
-    zero = torch.zeros((), dtype=p3d.dtype, device=dev)
-    e0 = torch.where(inliers, torch.linalg.vector_norm(uv0 - p2d, dim=-1), zero).sum(-1)
-    ef = torch.where(inliers, torch.linalg.vector_norm(uvf - p2d, dim=-1), zero).sum(-1)
-    use_f = ef <= e0
-    R_out = torch.where(use_f[:, None, None], Rk, R0)
-    t_out = torch.where(use_f[:, None], tk, t0)
+        uv0, _ = reproject(R0, t0, K, p3d)
+        uvf, _ = reproject(Rk, tk, K, p3d)
+        zero = torch.zeros((), dtype=p3d.dtype, device=dev)
+        e0 = torch.where(inliers, torch.linalg.vector_norm(uv0 - p2d, dim=-1), zero).sum(-1)
+        ef = torch.where(inliers, torch.linalg.vector_norm(uvf - p2d, dim=-1), zero).sum(-1)
+        use_f = ef <= e0
+        R_out = torch.where(use_f[:, None, None], Rk, R0)
+        t_out = torch.where(use_f[:, None], tk, t0)
     return RansacResult(R_out, t_out, inliers, inliers.sum(-1), success)

@@ -146,11 +146,10 @@ def nn_min_cuda(query: torch.Tensor, ref: torch.Tensor, ref_mask=None):
     if n:
         splits, length = launch_plan(n, m, dev, "nn_min")
         work, work_ptr = _workspace(splits, n, 8, dev)
-        with cuda_build.on(dev):
+        with cuda_build.launch(nn_min_cuda, "nn_min", dev):
             cuda_build.kernels().nn_min(query.data_ptr(), n, ref.data_ptr(), 0 if mask is None else mask.data_ptr(),
                                         m, splits, length, work_ptr, dist.data_ptr(), idx.data_ptr(),
                                         cuda_build.stream_ptr(dev))
-        cuda_build.count(nn_min_cuda, dev)
     return dist, idx
 
 
@@ -239,10 +238,9 @@ def correspondence_argmax_cuda(queries: torch.Tensor, keys: torch.Tensor):
     if n:
         splits, length = launch_plan(n, m, dev, "corr_argmax")
         work, work_ptr = _workspace(splits, n, 16, dev)
-        with cuda_build.on(dev):
+        with cuda_build.launch(correspondence_argmax_cuda, "corr_argmax", dev):
             cuda_build.kernels().corr_argmax(queries.data_ptr(), n, keys.data_ptr(), m, e, splits, length,
                                              work_ptr, idx.data_ptr(), conf.data_ptr(), cuda_build.stream_ptr(dev))
-        cuda_build.count(correspondence_argmax_cuda, dev)
     return idx, conf
 
 

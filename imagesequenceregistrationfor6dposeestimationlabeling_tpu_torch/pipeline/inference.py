@@ -47,6 +47,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.cam
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pnp, similarity
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.grid_sample import grid_sample
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils.profiling import span
 
 # when a list, each SurfEmb image appends its stage seconds (a device sync
 # between stages), its best score and, on the card, its peak device bytes
@@ -63,17 +64,20 @@ class PoseEstimate(NamedTuple):
 
 def correspondences(cnn, images, masks, cam_Ks, feats, down_sample: int = 3, keep_frac: float = 0.8):
     """Steps 1-4 for a batch: (idx (B, Nq), conf_mask (B, Nq), p2d (Nq, 2), Kd (B, 3, 3))."""
-    feat_full = cnn(images)                                  # (B, S, S, 13)
-    q = feat_full[:, ::down_sample, ::down_sample, :12]
-    m = masks[:, ::down_sample, ::down_sample] > 0.5
-    Kd = downsample_K(cam_Ks, down_sample)
+    with span("infer.unet"):
+        feat_full = cnn(images)                              # (B, S, S, 13)
+        q = feat_full[:, ::down_sample, ::down_sample, :12]
     B, Sd = q.shape[:2]
-    idx, conf = similarity.correspondence_argmax(q.reshape(B, -1, 12), feats)
-    conf_mask = similarity.confidence_threshold(conf, m.reshape(B, -1), keep_frac)
-    yy = torch.arange(Sd, device=q.device)
-    gy, gx = torch.meshgrid(yy, yy, indexing="ij")
-    # p2d[:, 0] = column (x), p2d[:, 1] = row (y)
-    p2d = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1).to(torch.float32)
+    with span("infer.k3"):
+        idx, conf = similarity.correspondence_argmax(q.reshape(B, -1, 12), feats)
+    with span("infer.filter"):
+        m = masks[:, ::down_sample, ::down_sample] > 0.5
+        conf_mask = similarity.confidence_threshold(conf, m.reshape(B, -1), keep_frac)
+        Kd = downsample_K(cam_Ks, down_sample)
+        yy = torch.arange(Sd, device=q.device)
+        gy, gx = torch.meshgrid(yy, yy, indexing="ij")
+        # p2d[:, 0] = column (x), p2d[:, 1] = row (y)
+        p2d = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1).to(torch.float32)
     return idx, conf_mask, p2d, Kd
 
 
@@ -102,12 +106,14 @@ def estimate_poses(cnn, images, masks, cam_Ks, verts, feats, down_sample: int = 
                                                   replicas[i][2], down_sample, keep_frac)
         parts.append((i, d, s, idx, conf_mask, p2d, Kd))
     if samples is None:
-        weights = mesh_lib.gather([p[4] for p in parts], mesh).to(torch.float32)
-        samples = pnp.draw_hypotheses(weights, n_hyp, generator)
+        with span("infer.draw"):
+            weights = mesh_lib.gather([p[4] for p in parts], mesh).to(torch.float32)
+            samples = pnp.draw_hypotheses(weights, n_hyp, generator)
     out = []
     for i, d, s, idx, conf_mask, p2d, Kd in parts:
-        res = pnp.ransac_pnp(replicas[i][1][idx.long()], p2d, Kd, weights=conf_mask.to(torch.float32), n_hyp=n_hyp,
-                             reproj_err=reproj_err, samples=samples[s].to(d))
+        with span("infer.ransac"):
+            res = pnp.ransac_pnp(replicas[i][1][idx.long()], p2d, Kd, weights=conf_mask.to(torch.float32),
+                                 n_hyp=n_hyp, reproj_err=reproj_err, samples=samples[s].to(d))
         out.append((res.R, res.t, res.n_inliers, res.success, conf_mask))
     return PoseEstimate(*mesh_lib.gather(out, mesh))
 

@@ -51,6 +51,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import f
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.grid_sample import sample_images_at_mc_locs
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import raymarch, renderer
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils.profiling import span
 
 # rays per half that one field evaluation covers (the reference's ray chunk)
 RAY_CHUNK = 4096
@@ -200,13 +201,16 @@ def _fused_sums(states, o, d, lengths, col, sil, u_pdf, render_cfg, train_cfg, n
     cfg = states[0].coarse.cfg
     valid = torch.ones_like(sil)
     kw = dict(cfg=cfg, huber_scaling=train_cfg.huber_scaling, scale=train_cfg.loss_scale / n)
-    pts_c = o[:, :, None] + d[:, :, None] * lengths[..., None]
-    ce_c, se_c, w_c = field_kernel.bundle_loss_grads([st.coarse for st in states], pts_c, d, col, sil, valid,
-                                                     want_weights=True, **kw)
-    z_f = raymarch.importance_resample(lengths, w_c, render_cfg.n_pts_fine, u=u_pdf,
-                                       add_input_samples=render_cfg.add_input_samples)
-    pts_f = o[:, :, None] + d[:, :, None] * z_f[..., None]
-    ce_f, se_f, _ = field_kernel.bundle_loss_grads([st.fine for st in states], pts_f, d, col, sil, valid, **kw)
+    with span("nerf.coarse"):
+        pts_c = o[:, :, None] + d[:, :, None] * lengths[..., None]
+        ce_c, se_c, w_c = field_kernel.bundle_loss_grads([st.coarse for st in states], pts_c, d, col, sil, valid,
+                                                         want_weights=True, **kw)
+    with span("nerf.resample"):
+        z_f = raymarch.importance_resample(lengths, w_c, render_cfg.n_pts_fine, u=u_pdf,
+                                           add_input_samples=render_cfg.add_input_samples)
+        pts_f = o[:, :, None] + d[:, :, None] * z_f[..., None]
+    with span("nerf.fine"):
+        ce_f, se_f, _ = field_kernel.bundle_loss_grads([st.fine for st in states], pts_f, d, col, sil, valid, **kw)
     return ce_c, se_c, ce_f, se_f
 
 
@@ -240,7 +244,7 @@ def _chunked_losses(states, o, d, lengths, col, sil, u_pdf, render_cfg, train_cf
     for i0 in range(0, n_rays, ray_chunk):
         c = slice(i0, i0 + ray_chunk)
         oc, dc, lc = o[:, c], d[:, c], lengths[:, c]
-        with torch.enable_grad():
+        with span("nerf.chunk"), torch.enable_grad():
             dens_c, rgb_c = color(coarse, oc[:, :, None] + dc[:, :, None] * lc[..., None], dc)
             img_c, w_c = raymarch.composite(dens_c[..., 0], rgb_c)
             z_f = raymarch.importance_resample(lc, w_c.detach(), Pf, u=u_pdf[:, c],
@@ -278,14 +282,15 @@ def train_step(states, cam: cam_lib.Camera, images, sils, opt: Adam, render_cfg:
     cfg = states[0].coarse.cfg
     dev = images.device
     use_kernel = field_kernel.enabled(cfg, dev)
-    xys, u, u_pdf = draws if draws is not None else draw(generators, B, render_cfg, dev)
-    bundle = cam_lib.monte_carlo_rays(cam, n_rays, Pc, min_depth, max_depth, xys=xys, u=u)
-    flat_xy = xys.reshape(H * B, n_rays, 2)
-    sil = sample_images_at_mc_locs(sils.reshape(H * B, S, S, 1), flat_xy).reshape(H, n, 1)
-    col = sample_images_at_mc_locs(images.reshape(H * B, S, S, 3), flat_xy).reshape(H, n, 3)
-    o = bundle.origins.reshape(H, n, 3)
-    d = bundle.directions.reshape(H, n, 3)
-    lengths = bundle.lengths.reshape(H, n, Pc)
+    with span("nerf.rays"):
+        xys, u, u_pdf = draws if draws is not None else draw(generators, B, render_cfg, dev)
+        bundle = cam_lib.monte_carlo_rays(cam, n_rays, Pc, min_depth, max_depth, xys=xys, u=u)
+        flat_xy = xys.reshape(H * B, n_rays, 2)
+        sil = sample_images_at_mc_locs(sils.reshape(H * B, S, S, 1), flat_xy).reshape(H, n, 1)
+        col = sample_images_at_mc_locs(images.reshape(H * B, S, S, 3), flat_xy).reshape(H, n, 3)
+        o = bundle.origins.reshape(H, n, 3)
+        d = bundle.directions.reshape(H, n, 3)
+        lengths = bundle.lengths.reshape(H, n, Pc)
     s = train_cfg.loss_scale
     rays = (o, d, lengths, col, sil, u_pdf)
     fused = use_kernel and n <= ray_chunk
@@ -299,11 +304,12 @@ def train_step(states, cam: cam_lib.Camera, images, sils, opt: Adam, render_cfg:
         mesh, replicas = mesh_lib.Mesh([dev]), [states]
     elif replicas is None:
         replicas = replicate_states(states, mesh)
-    shards = mesh_lib.shards(n, mesh)
-    per = [sums(replicas[i], *(x[:, sl].to(dv) for x in rays)) for i, dv, sl in shards]
-    parts = [mesh_lib.reduce_sum(list(p), mesh) for p in zip(*per)]
-    for h, st in enumerate(states):
-        mesh_lib.reduce_grads_(train_params(st), [train_params(replicas[i][h]) for i, _, _ in shards])
+    with span("nerf.field"):
+        shards = mesh_lib.shards(n, mesh)
+        per = [sums(replicas[i], *(x[:, sl].to(dv) for x in rays)) for i, dv, sl in shards]
+        parts = [mesh_lib.reduce_sum(list(p), mesh) for p in zip(*per)]
+        for h, st in enumerate(states):
+            mesh_lib.reduce_grads_(train_params(st), [train_params(replicas[i][h]) for i, _, _ in shards])
     if fused:
         ce_c, se_c, ce_f, se_f = parts
         col_err = s * (ce_c + ce_f) / n
@@ -315,10 +321,11 @@ def train_step(states, cam: cam_lib.Camera, images, sils, opt: Adam, render_cfg:
     count = states[0].opt.count
     if any(st.opt.count != count for st in states):
         raise ValueError("halves at different optimizer counts cannot share one update")
-    params = [p for st in states for p in train_params(st)]
-    new_count = opt.update(params, [p.grad for p in params], [m for st in states for m in st.opt.mu],
-                           [v for st in states for v in st.opt.nu], count)
-    mesh_lib.copy_params_(params, [[p for st in rep for p in train_params(st)] for rep in replicas])
+    with span("nerf.adam"):
+        params = [p for st in states for p in train_params(st)]
+        new_count = opt.update(params, [p.grad for p in params], [m for st in states for m in st.opt.mu],
+                               [v for st in states for v in st.opt.nu], count)
+        mesh_lib.copy_params_(params, [[p for st in rep for p in train_params(st)] for rep in replicas])
     new = [st._replace(opt=st.opt._replace(count=new_count), step=st.step + 1) for st in states]
     return new, col_err + sil_err, {"color": col_err, "sil": sil_err}
 

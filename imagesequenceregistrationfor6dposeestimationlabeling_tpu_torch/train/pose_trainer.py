@@ -59,6 +59,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train.nerf_t
     adam_update_,
     step_generator,
 )
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils.profiling import span
 
 
 def info_nce_with_neg(q: torch.Tensor, k: torch.Tensor, k_neg: torch.Tensor, scale: float = 1e-3,
@@ -279,11 +280,14 @@ def _view_losses(field, cnn, aug, new_xys, sel, pos_vec, pos_noise, neg_pts, neg
     if cfg.pos_noise > 0:
         sel_pos = sel_pos + pos_noise * cfg.pos_noise
     neg = neg_pts[neg_idx] + neg_jitter * cfg.key_noise
-    feat_full = cnn(aug.rgb)                                                # (B, S, S, 13)
-    queries = grid_sample(feat_full[..., :12], -sel_xys, mode="nearest")
-    nce = info_nce_with_neg(queries, field.features(sel_pos), field.features(neg), cfg.infonce_scale,
-                            temp=cfg.infonce_temp)
-    bce = _sigmoid_bce(feat_full[..., -1], aug.mask_full).mean() * cfg.mask_loss_scale
+    with span("pose.unet"):
+        feat_full = cnn(aug.rgb)                                            # (B, S, S, 13)
+        queries = grid_sample(feat_full[..., :12], -sel_xys, mode="nearest")
+    with span("pose.head"):
+        keys, neg_keys = field.features(sel_pos), field.features(neg)
+    with span("pose.loss"):
+        nce = info_nce_with_neg(queries, keys, neg_keys, cfg.infonce_scale, temp=cfg.infonce_temp)
+        bce = _sigmoid_bce(feat_full[..., -1], aug.mask_full).mean() * cfg.mask_loss_scale
     return nce, bce
 
 
@@ -297,14 +301,15 @@ def _sharded_losses(mesh, replicas, images, sils, pos_vec, xys, valid, neg_pts, 
     shards = mesh_lib.shards(B, mesh)
     consts = mesh_lib.broadcast((neg_pts, bg_bank), mesh)
     augs = []
-    for i, dv, s in shards:
-        take = lambda x: mesh_lib.part(x, s, dv)  # noqa: E731
-        augs.append(aug_lib.augment_view(take(images), take(sils), aug_cfg, take(d.aug), take(distractor),
-                                         consts[i][1]))
-    sel = d.sel
-    if sel is None:
-        A, t = mesh_lib.gather([(a.A, a.t) for a in augs], mesh)
-        sel = aug_lib.select_ray_samples(aug_lib.transform_xys(xys, A, t), valid, cfg.sample_size, generator)
+    with span("pose.augment"):
+        for i, dv, s in shards:
+            take = lambda x: mesh_lib.part(x, s, dv)  # noqa: E731
+            augs.append(aug_lib.augment_view(take(images), take(sils), aug_cfg, take(d.aug), take(distractor),
+                                             consts[i][1]))
+        sel = d.sel
+        if sel is None:
+            A, t = mesh_lib.gather([(a.A, a.t) for a in augs], mesh)
+            sel = aug_lib.select_ray_samples(aug_lib.transform_xys(xys, A, t), valid, cfg.sample_size, generator)
     terms = []
     for (i, dv, s), aug in zip(shards, augs):
         take = lambda x: mesh_lib.part(x, s, dv)  # noqa: E731
@@ -313,10 +318,13 @@ def _sharded_losses(mesh, replicas, images, sils, pos_vec, xys, valid, neg_pts, 
             p.grad = None
         w = (s.stop - s.start) / B
         with torch.enable_grad(), no_tf32(), deterministic_cudnn():
-            new_xys = aug_lib.transform_xys(take(xys), aug.A, aug.t)
-            nce, bce = _view_losses(field, cnn, aug, new_xys, take(sel), take(pos_vec), take(d.pos_noise),
-                                    consts[i][0], take(d.neg_idx), take(d.neg_jitter), cfg)
-            (w * (nce + bce)).backward()
+            with span("pose.augment"):
+                new_xys = aug_lib.transform_xys(take(xys), aug.A, aug.t)
+            with span("pose.forward"):
+                nce, bce = _view_losses(field, cnn, aug, new_xys, take(sel), take(pos_vec), take(d.pos_noise),
+                                        consts[i][0], take(d.neg_idx), take(d.neg_jitter), cfg)
+            with span("pose.backward"):
+                (w * (nce + bce)).backward()
         terms.append((w * nce.detach(), w * bce.detach()))
     return [mesh_lib.reduce_sum(list(x), mesh) for x in zip(*terms)], [replicas[i] for i, _, _ in shards]
 
@@ -350,9 +358,10 @@ def pose_train_step(state: PoseTrainState, opt: PoseOptimizer, images, sils, pos
     (nce, bce), used = _sharded_losses(mesh, replicas, images, sils, pos_vec, xys, valid, neg_pts, cfg, aug_cfg, d,
                                        generator, bg_bank, distractor)
     loss = nce + bce
-    mesh_lib.reduce_grads_(trained, [_trained(f, c) for f, c in used])
-    new_opt = opt.update(field, cnn, state.opt)
-    mesh_lib.copy_params_(trained, [_trained(f, c) for f, c in replicas])
+    with span("pose.adam"):
+        mesh_lib.reduce_grads_(trained, [_trained(f, c) for f, c in used])
+        new_opt = opt.update(field, cnn, state.opt)
+        mesh_lib.copy_params_(trained, [_trained(f, c) for f, c in replicas])
     return state._replace(opt=new_opt, step=state.step + 1), loss.detach(), {"nce": nce.detach(),
                                                                              "bce": bce.detach()}
 

@@ -1,10 +1,9 @@
 """Profiling and observability (counterpart of utils/profiling.py):
-torch.profiler traces, per-step timers and a CSV metrics logger."""
+torch.profiler traces, the program's spans and per-step timers."""
 
 from __future__ import annotations
 
 import contextlib
-import csv
 import os
 import socket
 import time
@@ -29,6 +28,23 @@ def trace(log_dir: str):
         yield prof
     name = f"{socket.gethostname()}.{os.getpid()}.{int(time.time() * 1000)}.pt.trace.json"
     prof.export_chrome_trace(os.path.join(log_dir, name))
+
+
+# the namespace of the program's spans: the NeRF step, the descriptor step,
+# pose estimation, RANSAC-PnP and the launches of the hand-written kernels
+SPAN_PREFIXES = ("nerf.", "pose.", "infer.", "pnp.", "kernel.")
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program for the profiler's trace: a
+    ``torch.profiler.record_function`` while the profiler records (its
+    host range shares the clock of the card's kernels, copies and fills),
+    else one shared no-op context, so an untraced run pays one check."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class StepTimer:
@@ -66,20 +82,3 @@ class StepTimer:
     def mean_ms(self) -> float:
         s = self.steady
         return 1000.0 * sum(s) / max(len(s), 1)
-
-
-class MetricsLogger:
-    """Append-only CSV logger: a header row ``step, <fields>`` when the file
-    is new, then one row a ``log`` call (a missing field left empty)."""
-
-    def __init__(self, path: str, fields):
-        self.path = path
-        self.fields = list(fields)
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        if not os.path.exists(path):
-            with open(path, "w", newline="") as f:
-                csv.writer(f).writerow(["step"] + self.fields)
-
-    def log(self, step: int, **values):
-        with open(self.path, "a", newline="") as f:
-            csv.writer(f).writerow([step] + [values.get(k, "") for k in self.fields])

@@ -888,3 +888,84 @@ def test_stages_on_a_mesh_match_unsharded(cuda, kind):
     for a, b in zip(st1, st0):
         for p, q in zip(nerf_trainer.train_params(a), nerf_trainer.train_params(b)):
             assert float((p.grad - q.grad).abs().max()) <= 1e-4 * float(q.grad.abs().max())
+
+
+# ------------------------------------------------------------ the program's spans
+
+
+def _traced(fn, tmp_path) -> list:
+    """The Chrome trace events of ``fn`` under the profiler (the host and
+    the card)."""
+    import json
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _launched_in(events, prefix: str) -> dict:
+    """Device kernels by the program span (name starting with ``prefix``)
+    whose host range holds their launch, matched through the launch's
+    correlation id: {span name: [kernel base names]}."""
+    x = [e for e in events if e.get("ph") == "X"]
+    spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in x
+             if e.get("cat") == "user_annotation" and e["name"].startswith(prefix)]
+    at = {e["args"]["correlation"]: e["ts"] for e in x
+          if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    out = {}
+    for e in x:
+        if e.get("cat") != "kernel" or e["args"].get("correlation") not in at:
+            continue
+        t = at[e["args"]["correlation"]]
+        name = e["name"].replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split()[-1]
+        name = name.split("::")[-1]
+        for s, a, b in spans:
+            if a <= t < b:
+                out.setdefault(s, []).append(name)
+    return out
+
+
+def test_kernel_spans_on_card(cuda, tmp_path):
+    """Each of K1-K6 launches inside its ``kernel.<name>`` span, and the
+    span holds its kernels and nothing else."""
+    _kernel_runs(cuda)
+    got = {k: sorted(v) for k, v in _launched_in(_traced(lambda: _kernel_runs(cuda), tmp_path), "kernel.").items()}
+    assert set(got) == {"kernel." + k for k in WRAPPERS}, got
+    assert got["kernel.density"] == ["density_kernel"]
+    for k in ("nn_min", "corr_argmax"):
+        assert got["kernel." + k][0] == k + "_kernel" and set(got["kernel." + k][1:]) <= {k + "_merge_kernel"}
+    assert got["kernel.bundle_loss"] == ["bundle_loss_kernel", "dw_kernel", "sum_slices", "sum_slices"]
+    assert got["kernel.field_color_fwd"] == ["field_color_fwd_kernel"]
+    assert got["kernel.field_color_bwd"] == ["dw_kernel", "field_color_bwd_kernel", "sum_slices", "sum_slices"]
+
+
+def test_fused_nerf_step_spans_on_card(cuda, tmp_path):
+    """Two fused NeRF steps (full-width bf16 fields, 2 halves x 2 cams x
+    200 rays): each step's coarse and fine passes launch K4 once, inside
+    ``nerf.coarse`` and ``nerf.fine`` under ``nerf.field``."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import NerfTrainConfig, RenderConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    halves = [synthetic.make_scene(8, 64, torch.Generator(device=cuda).manual_seed(h), device=cuda) for h in (0, 1)]
+    args = [torch.stack([getattr(h, f) for h in halves]) for f in ("images", "sils", "R_bop", "t_bop", "K")]
+    kw = dict(field_cfg=FieldConfig(act_dtype="bfloat16"), render_cfg=RenderConfig(n_rays_per_image=200),
+              train_cfg=NerfTrainConfig(batch_size=2, warmup_steps=10), n_steps=2, seed=1, device=cuda, mesh=None)
+    nerf_trainer.train_nerf_fused(*args, **kw)
+    events = _traced(lambda: nerf_trainer.train_nerf_fused(*args, **kw), tmp_path)
+    spans = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    named = lambda n: [(e["ts"], e["ts"] + e["dur"]) for e in spans if e["name"] == n]  # noqa: E731
+    inside = lambda s, outer: any(a <= s[0] and s[1] <= b for a, b in named(outer))  # noqa: E731
+    assert len(named("nerf.field")) == 2
+    for stage in ("nerf.coarse", "nerf.fine"):
+        assert len(named(stage)) == 2 and all(inside(s, "nerf.field") for s in named(stage))
+    launches = named("kernel.bundle_loss")
+    assert len(launches) == 4
+    assert sum(inside(s, "nerf.coarse") for s in launches) == sum(inside(s, "nerf.fine") for s in launches) == 2
+    k4 = _launched_in(events, "kernel.bundle_loss")["kernel.bundle_loss"]
+    assert sorted(k4) == sorted(["bundle_loss_kernel", "sum_slices", "dw_kernel", "sum_slices"] * 4)

@@ -1,5 +1,5 @@
-"""Port parity: utils/profiling.py (the step timer, the CSV metrics logger
-and the profiler trace) against the reference's (CPU)."""
+"""Port parity: utils/profiling.py (the step timer and the profiler trace)
+against the reference's (CPU)."""
 
 import glob
 import json
@@ -51,24 +51,6 @@ def test_step_timer_waits_for_the_card_only_on_cuda(monkeypatch):
     with tprof.StepTimer(device="cuda:0") as t:
         pass
     assert synced == [torch.device("cuda:0")] * 2 and len(t.times) == 1
-
-
-def test_metrics_logger_writes_the_reference_file(tmp_path):
-    rows = [(0, {"loss": 1.5, "lr": 1e-3}), (1, {"loss": 0.25}), (2, {"lr": "warm", "other": 7}),
-            (3, {"loss": float("nan"), "lr": -0.0})]
-    paths = []
-    for name, mod in (("ref", jprof), ("port", tprof)):
-        path = str(tmp_path / name / "deep" / "metrics.csv")
-        logger = mod.MetricsLogger(path, ["loss", "lr"])
-        for step, values in rows[:2]:
-            logger.log(step, **values)
-        again = mod.MetricsLogger(path, ("loss", "lr"))        # an existing file is appended to
-        for step, values in rows[2:]:
-            again.log(step, **values)
-        paths.append(path)
-    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
-        ref, port = a.read(), b.read()
-    assert port == ref and port.count(b"\n") == 5 and port.startswith(b"step,loss,lr\r\n")
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
