@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils import graphs
+
 
 def hat(w: torch.Tensor) -> torch.Tensor:
     """Skew-symmetric matrix of (..., 3) vectors."""
@@ -112,8 +114,9 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor | None = 
 
 def kabsch_solve(H: torch.Tensor, mu_s: torch.Tensor, mu_d: torch.Tensor):
     """Kabsch's (R, t) from the weighted cross-covariance H (..., 3, 3) of
-    the centred points and the weighted means mu_s, mu_d (..., 3)."""
-    U, _, Vt = torch.linalg.svd(H)
+    the centred points and the weighted means mu_s, mu_d (..., 3).  The
+    SVD checks its convergence on the host, so a CUDA graph is cut there."""
+    U, _, Vt = graphs.cut(torch.linalg.svd, H)
     V = Vt.transpose(-1, -2)
     d = torch.sign(torch.linalg.det(V @ U.transpose(-1, -2)))
     D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1))

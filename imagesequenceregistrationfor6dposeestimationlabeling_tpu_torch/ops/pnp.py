@@ -8,6 +8,8 @@ the reference used ``vmap``: images (B) and hypotheses (H).
 
 from __future__ import annotations
 
+import functools
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -21,6 +23,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.polynomi
     durand_kerner,
     real_roots_mask,
 )
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils import graphs
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils.profiling import span
 
 
@@ -153,6 +156,17 @@ def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device), i]
 
 
+# RANSAC's CUDA graphs (utils/graphs.py), one per input signature, the
+# most recently used kept: each pins its memory pool, about 1.5 GB at
+# serving's 16 images x 5,625 correspondences x 500 hypotheses
+MAX_GRAPHS = 4
+# CUDA calls of ransac_pnp: graphs captured, calls replayed through a graph
+# captured earlier, and calls run eagerly (inputs that need grad, or a
+# stream that is capturing already)
+GRAPH_COUNT = {"captures": 0, "replays": 0, "eager": 0}
+_GRAPHS: OrderedDict = OrderedDict()
+
+
 def ransac_pnp(
     p3d: torch.Tensor,
     p2d: torch.Tensor,
@@ -171,16 +185,52 @@ def ransac_pnp(
     Each hypothesis: 4 correspondences -> P3P on 3, the 4th picks the root
     -> inliers within ``reproj_err`` px; the best hypothesis is refined by
     Gauss-Newton on its inliers and kept if that did not diverge.
-    ``samples`` (B, n_hyp, 4) injects the correspondence draws."""
+    ``samples`` (B, n_hyp, 4) injects the correspondence draws.
+
+    After the draws, a call on the card runs ``ransac_body`` as a CUDA
+    graph: captured on the first call of an input signature (device,
+    shapes, dtypes, ``reproj_err``, ``refine_iters``), replayed on later
+    ones.  Elsewhere, and where autograd must see the ops, it runs
+    eagerly."""
+    B, N = p3d.shape[:2]
+    dev = p3d.device
+    if samples is None:
+        samples = draw_hypotheses(torch.ones((B, N), device=dev) if weights is None else weights, n_hyp, generator)
+    args = (p3d, p2d, K, weights, valid, samples.to(dev))
+    body = functools.partial(ransac_body, reproj_err=reproj_err, refine_iters=refine_iters)
+    if dev.type != "cuda":
+        return RansacResult(*body(*args))
+    if torch.cuda.is_current_stream_capturing() or (
+            torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args)):
+        GRAPH_COUNT["eager"] += 1
+        return RansacResult(*body(*args))
+    key = (dev, tuple(None if a is None else (tuple(a.shape), a.dtype) for a in args), float(reproj_err),
+           int(refine_iters), torch.get_float32_matmul_precision())
+    graph = _GRAPHS.pop(key, None)
+    if graph is None:
+        while len(_GRAPHS) >= MAX_GRAPHS:
+            _GRAPHS.popitem(last=False)
+        GRAPH_COUNT["captures"] += 1
+        graph = graphs.Graph(body, args, dev)
+        out = graph.capture(args)
+    else:
+        GRAPH_COUNT["replays"] += 1
+        with span("pnp.replay"):
+            out = graph(args)
+    _GRAPHS[key] = graph
+    return RansacResult(*out)
+
+
+def ransac_body(p3d, p2d, K, weights, valid, samples, reproj_err: float, refine_iters: int) -> tuple:
+    """``ransac_pnp`` after the draws, on ``samples`` (B, n_hyp, 4): the
+    five tensors of its ``RansacResult``.  It reads nothing back to the
+    host but through the SVD of P3P's Kabsch step (``graphs.cut``)."""
     B, N = p3d.shape[:2]
     dev = p3d.device
     p2d = p2d.expand(B, N, 2)
-    if weights is None:
-        weights = torch.ones((B, N), device=dev)
-        valid = torch.ones((B, N), dtype=torch.bool, device=dev) if valid is None else valid
-    elif valid is None:
-        valid = weights > 0
-    samp = draw_hypotheses(weights, n_hyp, generator) if samples is None else samples.to(dev).long()
+    if valid is None:
+        valid = torch.ones((B, N), dtype=torch.bool, device=dev) if weights is None else weights > 0
+    samp = samples.long()
 
     with span("pnp.p3p"):
         f_all = bearings(p2d, K)                                            # (B, N, 3)
@@ -224,7 +274,7 @@ def ransac_pnp(
             J = torch.cat([J_uv @ -hat(xc), J_uv], dim=-1) * w_in[..., None, None]  # (B, N, 2, 6)
             JtJ = torch.einsum("bnik,bnil->bkl", J, J) + eye6
             Jtr = torch.einsum("bnik,bni->bk", J, res)
-            delta = -torch.linalg.solve(JtJ, Jtr)
+            delta = -torch.linalg.solve_ex(JtJ, Jtr, check_errors=False).result
             dR = rotvec_to_matrix(delta[:, :3])
             Rk, tk = dR @ Rk, (dR @ tk[..., None])[..., 0] + delta[:, 3:]
 
@@ -236,4 +286,4 @@ def ransac_pnp(
         use_f = ef <= e0
         R_out = torch.where(use_f[:, None, None], Rk, R0)
         t_out = torch.where(use_f[:, None], tk, t0)
-    return RansacResult(R_out, t_out, inliers, inliers.sum(-1), success)
+    return R_out, t_out, inliers, inliers.sum(-1), success

@@ -3,7 +3,20 @@ a fixed number of simultaneous root iterations in complex64."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _initial_roots(device: torch.device, D: int) -> torch.Tensor:
+    """The standard initialization, powers of (0.4 + 0.9i): (D,) complex64
+    on ``device``, made once, so that a call copies nothing from the host
+    (a CUDA graph can capture it)."""
+    w = [1.0 + 0.0j]
+    for _ in range(D - 1):
+        w.append(w[-1] * (0.4 + 0.9j))
+    return torch.tensor(w, dtype=torch.complex64, device=device)
 
 
 def durand_kerner(coeffs: torch.Tensor, n_iters: int = 40) -> torch.Tensor:
@@ -13,11 +26,7 @@ def durand_kerner(coeffs: torch.Tensor, n_iters: int = 40) -> torch.Tensor:
     lead = c[..., 0:1]
     c = c / torch.where(lead.abs() < 1e-30, torch.full_like(lead, 1e-30), lead)
     D = c.shape[-1] - 1
-    # standard initialization: powers of (0.4 + 0.9i)
-    w = [1.0 + 0.0j]
-    for _ in range(D - 1):
-        w.append(w[-1] * (0.4 + 0.9j))
-    roots = torch.tensor(w, dtype=torch.complex64, device=c.device).expand(c.shape[:-1] + (D,))
+    roots = _initial_roots(c.device, D).expand(c.shape[:-1] + (D,))
     eye = torch.eye(D, dtype=torch.bool, device=c.device)
     one = torch.ones((), dtype=torch.complex64, device=c.device)
     tiny = torch.full((), 1e-20, dtype=torch.complex64, device=c.device)

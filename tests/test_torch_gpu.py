@@ -969,3 +969,95 @@ def test_fused_nerf_step_spans_on_card(cuda, tmp_path):
     assert sum(inside(s, "nerf.coarse") for s in launches) == sum(inside(s, "nerf.fine") for s in launches) == 2
     k4 = _launched_in(events, "kernel.bundle_loss")["kernel.bundle_loss"]
     assert sorted(k4) == sorted(["bundle_loss_kernel", "sum_slices", "dw_kernel", "sum_slices"] * 4)
+
+
+# ------------------------------------------------------------ RANSAC as a CUDA graph
+
+
+def _ransac_inputs(dev, B: int, seed: int, S: int = 75, n_hyp: int = 500):
+    """Correspondences as serving makes them (224 px crops at stride 3: a 75
+    x 75 pixel grid, N = 5,625): each pixel's point on a plane at depth
+    0.6-0.7 under a pose drawn from ``seed``, 40 % of them replaced by
+    random points, 80 % of the pixels kept by the confidence filter, and
+    ``n_hyp`` draws of 4 from the kept: (p3d, p2d, K, weights, samples)."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.rotations import rotvec_to_matrix
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    N = S * S
+    yy = torch.arange(S, device=dev)
+    gy, gx = torch.meshgrid(yy, yy, indexing="ij")
+    p2d = torch.stack([gx.reshape(-1), gy.reshape(-1)], -1).to(torch.float32)
+    K = torch.tensor([[170.0, 0.0, 37.0], [0.0, 170.0, 37.0], [0.0, 0.0, 1.0]], device=dev).expand(B, 3, 3).contiguous()
+    R = rotvec_to_matrix(0.5 * torch.randn((B, 3), generator=g, device=dev))
+    t = torch.tensor([0.0, 0.0, 0.65], device=dev) + 0.02 * torch.randn((B, 3), generator=g, device=dev)
+    z = 0.6 + 0.1 * torch.rand((B, N), generator=g, device=dev)
+    xc = torch.stack([(p2d[:, 0] - 37.0) / 170.0 * z, (p2d[:, 1] - 37.0) / 170.0 * z, z], -1)
+    p3d = (xc - t[:, None]) @ R                                           # R^T (xc - t), row form
+    out = torch.rand((B, N), generator=g, device=dev) < 0.4
+    p3d = torch.where(out[..., None], 0.1 * torch.randn((B, N, 3), generator=g, device=dev), p3d)
+    w = (torch.rand((B, N), generator=g, device=dev) < 0.8).to(torch.float32)
+    samples = torch.multinomial(w.clamp_min(1e-12), n_hyp * 4, replacement=True, generator=g).view(B, n_hyp, 4)
+    return p3d.contiguous(), p2d, K, w, samples
+
+
+@pytest.mark.parametrize("B", [16, 1])
+def test_ransac_graph_matches_eager_body(cuda, B, monkeypatch):
+    """At serving's shape (B x 5,625 correspondences, 500 hypotheses, 10
+    refinement steps) and at one image: three calls with different inputs
+    capture one graph and replay it twice, each result bit-identical to the
+    eager body on the same inputs and unchanged by the calls after it, and
+    a replay syncs with the host only in the op cut out of the graph (the
+    SVD's convergence check)."""
+    from collections import OrderedDict
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pnp
+
+    monkeypatch.setattr(pnp, "_GRAPHS", OrderedDict())
+    monkeypatch.setattr(pnp, "GRAPH_COUNT", dict.fromkeys(pnp.GRAPH_COUNT, 0))
+    svd = torch.linalg.svd
+
+    def svd_allowed_to_sync(*a, **k):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return svd(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(torch.linalg, "svd", svd_allowed_to_sync)
+    calls = [_ransac_inputs(cuda, B, seed) for seed in (11, 12, 13)]
+    got, kept = [], []
+    for i, (p3d, p2d, K, w, samples) in enumerate(calls):
+        torch.cuda.set_sync_debug_mode("error" if i else 0)
+        try:
+            got.append(pnp.ransac_pnp(p3d, p2d, K, weights=w, samples=samples))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        kept.append([x.clone() for x in got[-1]])
+    assert pnp.GRAPH_COUNT == {"captures": 1, "replays": 2, "eager": 0}
+    assert len(pnp._GRAPHS) == 1
+    for (p3d, p2d, K, w, samples), res, before in zip(calls, got, kept):
+        want = pnp.ransac_body(p3d, p2d, K, w, None, samples, reproj_err=2.0, refine_iters=10)
+        for name, a, b, c in zip(pnp.RansacResult._fields, res, want, before):
+            assert torch.equal(a, b), name
+            assert torch.equal(a, c), name
+        assert bool(res.success.all()) and int(res.n_inliers.min()) > 1000
+    assert not torch.equal(got[0].R, got[1].R)
+
+
+def test_ransac_replay_spans_on_card(cuda, tmp_path, monkeypatch):
+    """A replayed RANSAC call opens ``pnp.replay`` and no other ``pnp.``
+    span, and the graph's kernels are launched inside it (by the graph
+    launch's correlation)."""
+    from collections import OrderedDict
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pnp
+
+    monkeypatch.setattr(pnp, "_GRAPHS", OrderedDict())
+    p3d, p2d, K, w, samples = _ransac_inputs(cuda, 2, 5, n_hyp=64)
+    pnp.ransac_pnp(p3d, p2d, K, weights=w, samples=samples)
+    events = _traced(lambda: pnp.ransac_pnp(p3d, p2d, K, weights=w, samples=samples), tmp_path)
+    spans = {e["name"] for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"}
+    assert {s for s in spans if s.startswith("pnp.")} == {"pnp.replay"}
+    kernels = _launched_in(events, "pnp.")["pnp.replay"]
+    assert "batched_svd_parallel_jacobi_32x16" in kernels and len(kernels) > 500

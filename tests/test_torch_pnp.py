@@ -13,6 +13,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu.ops import pnp as 
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu.pipeline import registration as jreg
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import metrics as tmetrics
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pnp as tpnp
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import polynomial as tpoly
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import registration as treg
 
 torch.set_num_threads(1)
@@ -57,8 +58,9 @@ def test_p3p_matches_reference(rng):
         np.testing.assert_allclose(tt[0][vj], tj[vj], atol=1e-2, rtol=1e-2)
 
 
-def test_ransac_with_injected_draws(rng):
-    n_hyp = 64
+def _injected_draws(rng, n_hyp=64):
+    """Two scenes, their weights, the reference's own draws (ops/pnp.py:
+    split key, categorical) and the reference's RANSAC on them."""
     scenes = [_scene(rng) for _ in range(2)]
     p3d = np.stack([s[2] for s in scenes])
     p2d = np.stack([s[3] for s in scenes])
@@ -73,9 +75,14 @@ def test_ransac_with_injected_draws(rng):
         logits = jnp.log(jnp.maximum(jnp.asarray(w[b]), 1e-12))
         samples.append(np.asarray(jax.random.categorical(jax.random.split(keys[b], 2)[0], logits,
                                                          shape=(n_hyp, 4))))
+    return scenes, p3d, p2d, w, np.stack(samples), ref
+
+
+def test_ransac_with_injected_draws(rng):
+    n_hyp = 64
+    scenes, p3d, p2d, w, samples, ref = _injected_draws(rng, n_hyp)
     Ks = np.stack([K, K])
-    out = tpnp.ransac_pnp(T(p3d), T(p2d), T(Ks), weights=T(w), n_hyp=n_hyp,
-                          samples=torch.from_numpy(np.stack(samples)))
+    out = tpnp.ransac_pnp(T(p3d), T(p2d), T(Ks), weights=T(w), n_hyp=n_hyp, samples=torch.from_numpy(samples))
     for b in range(2):
         np.testing.assert_array_equal(out.inliers[b].numpy(), np.asarray(ref[b].inliers))
         assert bool(out.success[b]) == bool(ref[b].success)
@@ -89,6 +96,70 @@ def test_ransac_with_injected_draws(rng):
     out2 = tpnp.ransac_pnp(T(p3d), T(p2d), T(Ks), weights=T(w), n_hyp=n_hyp, generator=g)
     for b in range(2):
         np.testing.assert_allclose(out2.R[b].numpy(), scenes[b][0], atol=2e-2)
+
+
+def _durand_kerner_host_roots(coeffs, n_iters=40):
+    """``durand_kerner`` as it was written before its starting roots were
+    cached on the device: built from a host list on every call."""
+    c = coeffs.to(torch.complex64)
+    lead = c[..., 0:1]
+    c = c / torch.where(lead.abs() < 1e-30, torch.full_like(lead, 1e-30), lead)
+    D = c.shape[-1] - 1
+    w = [1.0 + 0.0j]
+    for _ in range(D - 1):
+        w.append(w[-1] * (0.4 + 0.9j))
+    roots = torch.tensor(w, dtype=torch.complex64, device=c.device).expand(c.shape[:-1] + (D,))
+    eye = torch.eye(D, dtype=torch.bool, device=c.device)
+    one = torch.ones((), dtype=torch.complex64, device=c.device)
+    tiny = torch.full((), 1e-20, dtype=torch.complex64, device=c.device)
+    for _ in range(n_iters):
+        p = c[..., 0:1].expand(roots.shape)
+        for i in range(1, D + 1):
+            p = p * roots + c[..., i : i + 1]
+        diff = roots[..., :, None] - roots[..., None, :]
+        denom = torch.where(eye, one, diff).prod(-1)
+        denom = torch.where(denom.abs() < 1e-20, tiny, denom)
+        roots = roots - p / denom
+    return roots
+
+
+def _checked_solve_ex(A, B, *, check_errors=False):
+    """``linalg.solve`` (with its host-side check) in ``solve_ex``'s form."""
+    return torch.return_types.linalg_solve_ex((torch.linalg.solve(A, B), torch.zeros(A.shape[:-2], dtype=torch.int32)))
+
+
+def test_ransac_arithmetic_unchanged_by_graph_safe_forms(rng, monkeypatch):
+    """The cached Durand-Kerner starting roots and ``solve_ex`` without its
+    check give the injected-draws case bit for bit what the host-built
+    roots and the checked ``solve`` gave."""
+    n_hyp = 64
+    _, p3d, p2d, w, samples, _ = _injected_draws(rng, n_hyp)
+    args = (T(p3d), T(p2d), T(np.stack([K, K])))
+    kw = dict(weights=T(w), n_hyp=n_hyp, samples=torch.from_numpy(samples))
+    now = tpnp.ransac_pnp(*args, **kw)
+    monkeypatch.setattr(tpnp, "durand_kerner", _durand_kerner_host_roots)
+    monkeypatch.setattr(torch.linalg, "solve_ex", _checked_solve_ex)
+    before = tpnp.ransac_pnp(*args, **kw)
+    for a, b in zip(now, before):
+        assert torch.equal(a, b)
+    assert int(now.n_inliers.min()) > 0
+
+
+def test_durand_kerner_roots_unchanged_by_cached_start(rng):
+    coeffs = torch.from_numpy(rng.normal(size=(64, 5)).astype(np.float32))
+    for n_iters in (40, 50):
+        assert torch.equal(tpoly.durand_kerner(coeffs, n_iters), _durand_kerner_host_roots(coeffs, n_iters))
+
+
+def test_ransac_on_cpu_runs_eagerly(rng, monkeypatch):
+    """No CUDA graph on the CPU: the counter of graph captures, replays and
+    eager CUDA calls stays at zero."""
+    monkeypatch.setattr(tpnp, "GRAPH_COUNT", dict.fromkeys(tpnp.GRAPH_COUNT, 0))
+    _, _, p3d, p2d = _scene(rng)
+    out = tpnp.ransac_pnp(T(p3d)[None], T(p2d), T(K)[None], n_hyp=32, generator=torch.Generator().manual_seed(3))
+    assert out.R.shape == (1, 3, 3)
+    assert tpnp.GRAPH_COUNT == {"captures": 0, "replays": 0, "eager": 0}
+    assert not tpnp._GRAPHS
 
 
 def test_add_metric_matches(rng):
