@@ -11,16 +11,21 @@ feed, on batches that all differ), then a few more warm-up steps.  The
 window then calls ``train_step`` on the same states: a batch of
 ``cams_per_step`` views a half from shuffled epochs (the trainer's
 ``half_schedule`` rule), and the step's draws (ray xys, depth jitter,
-resampling uniforms), made by the benchmark and handed to the step.
+resampling uniforms), made by the benchmark and handed to the step, with
+the traffic's ``ray_chunk`` where it names one (else the step keeps its
+own).  A step of at most a chunk of rays a half, on a field the fused
+kernel takes, runs K4; any other runs the chunked step, through K5 / K6 or
+the field's own colour path.
 
 The check replays the checked steps through the plain reference
 (``portbench/reference/nerf.py``) from the same weights, views and draws,
-its fine passes on the program's fine depths, and compares each step's
-loss, the first gradient (from the program's Adam moments after one step),
-the parameters' change over the checked steps and the resampled depths;
-and it runs the steps a second time through the reference alone, which
-resamples its own fine depths, and compares each step's loss with that
-run's (``loss_own``).
+its fine passes on the program's fine depths (every resampling of a step,
+one a chunk on the chunked path, joined along the rays), and compares each
+step's loss, the first gradient (from the program's Adam moments after one
+step), the parameters' change over the checked steps and the resampled
+depths; and it runs the steps a second time through the reference alone,
+which resamples its own fine depths, and compares each step's loss with
+that run's (``loss_own``).
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ class Driver:
 
         self.nt = nerf_trainer
         tr, fc, dev = self.tr, self.cfg["field"], self.dev
+        self.chunk = {"ray_chunk": tr["ray_chunk"]} if "ray_chunk" in tr else {}
         H, V, S, B = tr["halves"], tr["views_per_half"], tr["image_size"], tr["cams_per_step"]
         self.gen = torch.Generator(device=dev).manual_seed(self.seed)
         halves = [scene.views(self.gen, V, S) for _ in range(H)]
@@ -97,8 +103,7 @@ class Driver:
         for k in range(tr["checked_steps"]):
             with _recording_depths() as z:
                 idx, draws, loss = self._step(keep=True)
-            R = B * tr["rays_per_image"]
-            self.checked["depths"].append([z[0][h] if z and z[0].shape[1] == R else None for h in range(H)])
+            self.checked["depths"].append(joined_depths(z, H, B * tr["rays_per_image"]))
             self.checked["batches"].append(idx)
             self.checked["draws"].append(draws)
             self.checked["losses"].append(loss)
@@ -140,7 +145,8 @@ class Driver:
             draws = self._draws()
         with span(self.trace, "nerf.train_step"):
             self.states, loss, _ = self.nt.train_step(self.states, cam, images, sils, self.opt, self.render_cfg,
-                                                      self.train_cfg, self.min_d, self.max_d, draws=draws)
+                                                      self.train_cfg, self.min_d, self.max_d, draws=draws,
+                                                      **self.chunk)
         self.i += 1
         return (idx, draws if keep else None, loss)
 
@@ -214,10 +220,19 @@ def compare_to(got: dict, ref: dict, limits: dict) -> list:
         ("loss_own", compare.rel_gap(got["losses"], ref["own_losses"]), limits["loss_own"])]
 
 
+def joined_depths(calls: list, H: int, R: int) -> list:
+    """A step's fine depths per half, (R, P) each: the outputs of its
+    ``importance_resample`` calls, (H, rays, P) each (one call on the K4
+    path, one a chunk on the chunked path, in ray order), joined along the
+    rays; None for each half where they do not make R rays."""
+    z = torch.cat(calls, 1) if calls else None
+    return [z[h] if z is not None and z.shape[:2] == (H, R) else None for h in range(H)]
+
+
 class _recording_depths:
-    """Records the fine depths the program's step resamples (its
-    ``raymarch.importance_resample`` output), for the reference to run
-    its fine pass on the same points."""
+    """Records the fine depths the program's step resamples (each output of
+    its ``raymarch.importance_resample``), for the reference to run its
+    fine pass on the same points."""
 
     def __enter__(self):
         from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import raymarch
@@ -252,14 +267,21 @@ def _unchanged():
 
 
 def _half_batch():
-    """Half of each step's rays left out, the mean taken over the rest."""
+    """Half of each step's rays left out, the mean taken over the rest: in
+    whichever of the K4 step (``_fused_sums``) and the chunked step
+    (``_chunked_losses``) the step takes."""
     def make(orig):
-        def fused(states, o, d, lengths, col, sil, u_pdf, render_cfg, train_cfg, n):
+        def half(states, o, d, lengths, col, sil, u_pdf, render_cfg, train_cfg, *rest):
             k = o.shape[1] // 2
             return orig(states, o[:, :k], d[:, :k], lengths[:, :k], col[:, :k], sil[:, :k], u_pdf[:, :k], render_cfg,
-                        train_cfg, k)
-        return fused
-    return _patch("_fused_sums", make)
+                        train_cfg, *rest[:-1], k)
+        return half
+    undo = [_patch(name, make) for name in ("_fused_sums", "_chunked_losses")]
+
+    def restore():
+        for u in undo:
+            u()
+    return restore
 
 
 # faults planted in the timed path, for the check's own tests and readings

@@ -16,6 +16,13 @@ key head of both halves at once.
 
 The random draws (xys, depth jitter, resampling uniforms) and the view
 batches come from the benchmark and are handed to both sides.
+
+A half's rays are taken in blocks (the traffic's ``ray_chunk`` rays;
+``BLOCK``, the published reference's ray chunk, where it names none), each
+block's share of the loss backpropagated before the next block's passes
+run, as the published chunked loss does: one block's activations are alive
+at a time, and each block's weight grads are rounded as a cast's cotangent
+is before the blocks' are summed.
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ from portbench.reference.adam import Adam, warmup_rate
 from portbench.reference.field import Field, is_head
 
 _ROT180_Z = ((-1.0, 0.0, 0.0), (0.0, -1.0, 0.0), (0.0, 0.0, 1.0))
+# rays of a half whose passes run (and backpropagate) at once, where the
+# traffic names no ``ray_chunk``: the published reference's ray chunk
+BLOCK = 4096
 
 
 def render_camera(R_bop, t_bop, K):
@@ -102,8 +112,10 @@ def huber(x, y, s: float):
 
 def half_loss(field: Field, batch: dict, draws, tr: dict, z_fine=None):
     """(One half's loss = scale * (colour + silhouette error) / rays, the
-    fine depths resampled from this pass's coarse weights).  ``z_fine``
-    given (rays, points), the fine pass runs on those depths instead."""
+    fine depths resampled from this pass's coarse weights), its grads
+    accumulated into the parameters' ``.grad`` a block of rays (the
+    traffic's ``ray_chunk``, else ``BLOCK``) at a time.  ``z_fine`` given
+    (rays, points), the fine pass runs on those depths instead."""
     xys, u, u_pdf = draws
     images, sils = batch["images"], batch["sils"]
     B, S = images.shape[0], images.shape[1]
@@ -117,16 +129,24 @@ def half_loss(field: Field, batch: dict, draws, tr: dict, z_fine=None):
     n = B * xys.shape[1]
     o, d, lengths, col, sil = (x.reshape(n, -1) for x in (o, d, lengths, col, sil))
     hs = tr["huber_scaling"]
-    total = 0.0
-    z = lengths
-    for p in ("coarse", "fine"):
-        dens, rgb = field[p].forward(o[:, None] + d[:, None] * z[..., None], d)
-        img, opac, w = composite(dens, rgb)
-        total = total + huber(img, col, hs).mean(-1).sum() + huber(opac, sil, hs).sum()
-        if p == "coarse":
-            own = resample(lengths, w.detach(), tr["n_pts_fine"], u_pdf, tr["add_input_samples"])
-            z = own if z_fine is None else z_fine
-    return tr["loss_scale"] * total / n, own
+    block = tr.get("ray_chunk", BLOCK)
+    losses, owns = [], []
+    for a in range(0, n, block):
+        c = slice(a, a + block)
+        total = 0.0
+        z = lengths[c]
+        for p in ("coarse", "fine"):
+            dens, rgb = field[p].forward(o[c, None] + d[c, None] * z[..., None], d[c])
+            img, opac, w = composite(dens, rgb)
+            total = total + huber(img, col[c], hs).mean(-1).sum() + huber(opac, sil[c], hs).sum()
+            if p == "coarse":
+                own = resample(lengths[c], w.detach(), tr["n_pts_fine"], u_pdf[c], tr["add_input_samples"])
+                z = own if z_fine is None else z_fine[c]
+        loss = tr["loss_scale"] * total / n
+        loss.backward()
+        losses.append(loss.detach())
+        owns.append(own)
+    return torch.stack(losses).sum(), torch.cat(owns)
 
 
 def train(cfg: dict, tr: dict, params, batches, draws, prec, fine_depths=None) -> dict:
@@ -153,8 +173,7 @@ def train(cfg: dict, tr: dict, params, batches, draws, prec, fine_depths=None) -
                      for p in ("coarse", "fine")}
             given = None if fine_depths is None else fine_depths[step][h]
             loss, own = half_loss(field, views[h], tuple(x[h] for x in dr), tr, given)
-            loss.backward()
-            step_losses.append(loss.detach())
+            step_losses.append(loss)
             step_depths.append(own)
         grads = [cur[k].grad for k in keys]
         if first_grads is None:
