@@ -24,7 +24,10 @@ Phases (any failure raises, and the script exits non-zero):
    the train step's shapes (2 halves x 1,200 rays x 64 coarse / 320 fine
    points, full-width random fields, both embeddings, synthetic targets),
    K5 / K6 at a chunk's shapes (one half, 4,096 rays and the ragged 704,
-   x 64 / 320 points, both embeddings);
+   x 64 / 320 points, both embeddings); K4-K6 once for each activation
+   dtype: the float32 variants (``_act32``, ``FieldConfig()``'s default)
+   against their float32 plain twins, their loss, EA weights and heads the
+   bf16 variants' bit for bit;
 4. NeRF training of both halves (``train_nerf_fused``) at the bench's
    settings: 8 views at 224 px, full-width bf16 field, 400 rays per image,
    batch 3, warmup 266, seed 1, ``--nerf-steps`` steps (default 800), with
@@ -38,7 +41,9 @@ Phases (any failure raises, and the script exits non-zero):
    versions (loss curves and surfaces reported side by side); a chunked
    step through K5 / K6 against one through their plain versions; exact
    resume through ``train.checkpoint``; each trained fine field's point
-   cloud (K1 grid, marching tetrahedra) against the analytic surface;
+   cloud (K1 grid, marching tetrahedra) against the analytic surface; then
+   a float32-activation field: 10 steps through K5 / K6's float32 variants
+   (launches counted) and a step of it against the plain versions;
 6. the serving path of the bench (8 views at 224 px, 128^3 grid,
    FeatConfig(mc_threshold=0.05, n_points=20000, sample_loops=3), 8 images
    through InferenceConfig(), ICP with 20 iterations) on a full-width
@@ -64,7 +69,9 @@ Phases (any failure raises, and the script exits non-zero):
    FPS in CUDA graphs against its launch sequence, and ``generate_cors``
    through K1 / K2 against the same call through their plain versions;
 10. the port's command-line program (``CLI``) in a temporary root, through
-   ``cli.main`` in this process: train-nerf (K4), generate-cors (K1, K2),
+   ``cli.main`` in this process: train-nerf (K4; and half 1's once more at
+   the default --act-dtype float32, which must launch K4's float32 variant
+   and no other of K4-K6), generate-cors (K1, K2),
    train-pose and gen-feat (K1, K2) of each half, then poses-est (K3),
    inference --dataset tless (K3, K2 through ADD-S), rel-poses,
    choose-image, icp (K2), verify (K2), check and, where Pillow imports,
@@ -141,6 +148,12 @@ TPU_KERNELS = {
     "field_color_fwd": "imagesequenceregistrationfor6dposeestimationlabeling_tpu/ops/field_kernel.py:248",
     "field_color_bwd": "imagesequenceregistrationfor6dposeestimationlabeling_tpu/ops/field_kernel.py:481",
 }
+# K4-K6's float32-activation variants (a field's act_dtype "float32",
+# FieldConfig()'s default): their own tile kernels and launch names, the
+# same TPU kernels replaced, the same sources
+ACT32 = {"bundle_loss": "bundle_loss_act32", "field_color_fwd": "field_color_fwd_act32",
+         "field_color_bwd": "field_color_bwd_act32"}
+TPU_KERNELS.update({v: TPU_KERNELS[k] for k, v in ACT32.items()})
 SOURCES = {
     "density": f"{PKG}/ops/csrc/density.cu",
     "nn_min": f"{PKG}/ops/csrc/nn_min.cu",
@@ -149,8 +162,10 @@ SOURCES = {
     "field_color_fwd": f"{PKG}/ops/csrc/field_color.cu",
     "field_color_bwd": f"{PKG}/ops/csrc/field_color.cu",
 }
+SOURCES.update({v: SOURCES[k] for k, v in ACT32.items()})
 # the device functions of each kernel in the built extension (K4 and K6 are
-# two each: the tile kernel and the weight-grad contraction kernel they share)
+# two each: the tile kernel and the weight-grad contraction kernel they
+# share; each float32-activation variant has a tile kernel of its own)
 DEVICE_FUNCTIONS = {
     "density": ("density_kernel",),
     "nn_min": ("nn_min_kernel", "nn_min_merge_kernel"),
@@ -158,9 +173,12 @@ DEVICE_FUNCTIONS = {
     "bundle_loss": ("bundle_loss_kernel", "dw_kernel"),
     "field_color_fwd": ("field_color_fwd_kernel",),
     "field_color_bwd": ("field_color_bwd_kernel", "dw_kernel"),
+    "bundle_loss_act32": ("bundle_loss_act32_kernel", "dw_kernel"),
+    "field_color_fwd_act32": ("field_color_fwd_act32_kernel",),
+    "field_color_bwd_act32": ("field_color_bwd_act32_kernel", "dw_kernel"),
 }
 # their products must run on the tensor cores
-TENSOR_CORE_KERNELS = ("density", "bundle_loss", "field_color_fwd", "field_color_bwd")
+TENSOR_CORE_KERNELS = ("density", "bundle_loss", "field_color_fwd", "field_color_bwd", *ACT32.values())
 # one H100 SXM (NVIDIA's data sheet, dense): device memory bytes/s, bf16
 # tensor-core and f32 FLOP/s (an FMA counted as two), for the bounds; and
 # at its 1.98 GHz boost clock on 132 SMs: unfused f32 operations a second
@@ -196,8 +214,10 @@ SERVE_KERNELS = ("density", "nn_min", "corr_argmax")
 TRAIN = {"n_views": 8, "image_size": 224, "n_rays": 400, "batch": 3, "warmup": 266, "seed": 1}
 # the reference's large-batch schedule (experiments/nerf_schedule.py:40) for
 # one half: 6 cams x 800 rays a step (4,800 rays: chunks of 4,096 and 704),
-# warmup min(300, steps // 3), seed 1; the resume check's step count
-CHUNKED = {"n_views": 8, "image_size": 224, "n_rays": 800, "batch": 6, "seed": 1, "resume_steps": 10}
+# warmup min(300, steps // 3), seed 1; the resume check's step count and
+# the steps of the float32-activation field's run (K5 / K6's variants)
+CHUNKED = {"n_views": 8, "image_size": 224, "n_rays": 800, "batch": 6, "seed": 1, "resume_steps": 10,
+           "act32_steps": 10}
 # K5 / K6 at a chunk's shapes, (rays, points): a full chunk and the ragged
 # last chunk of a 4,800-ray step, each of the coarse and the fine pass
 FIELD_COLOR_SHAPES = [(4096, 64), (4096, 320), (704, 64), (704, 320)]
@@ -220,10 +240,13 @@ PIPELINE = {"nerf_steps": 800, "pose_steps": 200, "timed_pose_steps": 12, "neg_l
             "aug": {"crop_res": 224, "min_mask_sum": 10.0, "p_distractor": 0.5, "scale_jitter": 0.15,
                     "trans_frac": 0.2}}
 # the command-line program's phase: the synthetic scene's 8 views a half, a
-# full-width bf16 field (the field kernels), 400 NeRF steps a half (the CLI's
+# full-width bf16 field (the field kernels; and one train-nerf at the CLI's
+# default float32 activations, K4's variant), 400 NeRF steps a half (the CLI's
 # checkpoint every 100), 100 descriptor steps, the CLI's defaults otherwise;
 # the resume check stops its run after the step-200 checkpoint
 CLI = {"views": 8, "nerf_steps": 400, "pose_steps": 100, "resume_at": 200, "flags": []}
+# the CLI phase's train-nerf of half 1 at the CLI's default --act-dtype
+CLI_DEFAULT_ACT = "train-nerf UH1 --act-dtype float32 (default)"
 # the CLI's SurfEmb, full-frame and mesh-scene paths (``surf_path``): the
 # --synthetic-mesh scene's 8 views a half (1,280 triangles), the CLI phase's
 # depth (400 NeRF steps a half, 100 descriptor steps), the surf-eval commands
@@ -462,7 +485,10 @@ def kernel_wrappers() -> dict:
 
 
 def launch_counts():
-    return {name: w.launches for name, w in kernel_wrappers().items()}
+    """Each kernel's launches since the last reset, by launch name: K4-K6's
+    float32-activation variants apart from the bf16 ones."""
+    return {name: w.by_name.get(name, 0) for base, w in kernel_wrappers().items()
+            for name in (base, *([ACT32[base]] if base in ACT32 else []))}
 
 
 def reset_launch_counts():
@@ -552,13 +578,15 @@ def compare_bundle(tag: str, got, want, again):
     return errs[worst]
 
 
-def bundle_loss_phase(dev, seed: int):
-    """K4 against its plain version at the train step's own shapes: both
-    halves in one launch, the coarse pass (64 points, with the EA weights)
-    and the fine pass (320 points, resampled from the kernel's weights),
-    full-width random fields (density bias 0), both embeddings, targets
-    from the synthetic scene.  Returns the worst scaled grad error and the
-    times and bound of the direct embedding's two passes (one step)."""
+def bundle_loss_phase(dev, seed: int, act_dtype: str):
+    """K4 (the variant of ``act_dtype``) against its plain version at the
+    train step's own shapes: both halves in one launch, the coarse pass (64
+    points, with the EA weights) and the fine pass (320 points, resampled
+    from the kernel's weights), full-width random fields (density bias 0),
+    both embeddings, targets from the synthetic scene; the float32
+    variant's loss and EA weights must be the bf16 variant's bit for bit
+    (one forward).  Returns the worst scaled grad error and the times and
+    bound of the direct embedding's two passes (one step)."""
     import torch
 
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
@@ -575,8 +603,9 @@ def bundle_loss_phase(dev, seed: int):
     r = step_rays(train_inputs(dev, seed), dev, seed, render)
     o, d, lengths, N = r["o"], r["d"], r["lengths"], r["d"].shape[1]
     worst, step_ms, step_bytes, step_ops = 0.0, {}, 0, 0
+    name = ACT32["bundle_loss"] if act_dtype == "float32" else "bundle_loss"
     for embed in ("direct", "grouped"):
-        cfg = FieldConfig(**FIELD, embed_method=embed)
+        cfg = FieldConfig(**{**FIELD, "act_dtype": act_dtype}, embed_method=embed)
         fields = []
         for h in range(2):
             f = NerfField(cfg).reset_parameters(torch.Generator().manual_seed(seed + 10 + h))
@@ -590,9 +619,14 @@ def bundle_loss_phase(dev, seed: int):
         for tag in ("coarse", "fine"):
             pts = (o[:, :, None] + d[:, :, None] * z[tag][..., None]).contiguous()
             want_w = tag == "coarse"
-            ms, got = cuda_ms(lambda: fk.bundle_loss_cuda(pts, *rest, want_w))
-            plain_ms, want = cuda_ms(lambda: fk.bundle_loss_plain(pts, *rest, want_w), reps=1)
-            again = fk.bundle_loss_cuda(pts, *rest, want_w)
+            ms, got = cuda_ms(lambda: fk.bundle_loss_cuda(pts, *rest, want_w, act_dtype))
+            plain_ms, want = cuda_ms(lambda: fk.bundle_loss_plain(pts, *rest, want_w, act_dtype), reps=1)
+            again = fk.bundle_loss_cuda(pts, *rest, want_w, act_dtype)
+            if act_dtype != "bfloat16":
+                _, loss16, w16 = fk.bundle_loss_cuda(pts, *rest, want_w, "bfloat16")
+                if not (torch.equal(got[1], loss16) and (w16 is None or torch.equal(got[2], w16))):
+                    raise AssertionError(f"{name}: loss or EA weights differ from the bf16 variant's ({embed} {tag})")
+                del loss16, w16
             # the function's work: the field forward once, the backward's
             # products and contractions (the kernel's recompute of the
             # forward is its own choice and not counted)
@@ -601,11 +635,12 @@ def bundle_loss_phase(dev, seed: int):
             n_bytes = n_pts * (12 + 4 * want_w) + H * N * (12 + 32) + 2 * H * weight_bytes(E, nh)
             n_ops = n_pts * (ff["fwd"] + ff["bwd"]) + H * N * 2 * ff["ray"]
             b = bound(n_bytes, n_ops, BF16_FLOPS)
-            log(f"K4 bundle_loss {embed} {tag}: 2 halves x {N} rays x {pts.shape[2]} points; kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}, {n_ops / 1e12:.3f} TFLOP)")
+            log(f"K4 {name} {embed} {tag}: 2 halves x {N} rays x {pts.shape[2]} points; kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}, {n_ops / 1e12:.3f} TFLOP)"
+                + ("; loss and EA weights the bf16 variant's bit for bit" if act_dtype != "bfloat16" else ""))
             if embed == "direct":
                 step_bytes, step_ops = step_bytes + n_bytes, step_ops + n_ops
-            worst = max(worst, compare_bundle(f"{embed} {tag}", got, want, again))
+            worst = max(worst, compare_bundle(f"{name} {embed} {tag}", got, want, again))
             step_ms[(embed, tag)] = (ms, plain_ms)
             if want_w:
                 z["fine"] = raymarch.importance_resample(lengths, got[2], render.n_pts_fine, u=r["u_pdf"])
@@ -613,8 +648,9 @@ def bundle_loss_phase(dev, seed: int):
     ms = step_ms[("direct", "coarse")][0] + step_ms[("direct", "fine")][0]
     plain_ms = step_ms[("direct", "coarse")][1] + step_ms[("direct", "fine")][1]
     b = bound(step_bytes, step_ops, BF16_FLOPS)
-    log(f"K4 per train step (direct, coarse + fine): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms "
-        f"({b[1]}); worst grad error / block max |g| over all passes {worst:.2e} (tol {TOL['grad_scaled']})")
+    log(f"K4 {name} per train step (direct, coarse + fine): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{b[0]:.3f} ms ({b[1]}); worst grad error / block max |g| over all passes {worst:.2e} (tol "
+        f"{TOL['grad_scaled']})")
     return result(worst, ms, plain_ms, b)
 
 
@@ -667,13 +703,14 @@ def kernel_step_vs_plain_step(states, data, dev, seed: int, render, train, tag: 
     pts = (r["o"][:, :, None] + r["d"][:, :, None] * r["lengths"][..., None]).contiguous()
     weights = tuple(torch.stack(x) for x in zip(*(fk.loss_weights(st.coarse) for st in states)))
     fm = torch.from_numpy(fk.fmat_of(cfg)).to(dev)
-    rest = (r["dn"], r["tgt"], fm, weights, fk.ladder_of(cfg), cfg.softplus_beta, train.huber_scaling, 1.0, True)
+    rest = (r["dn"], r["tgt"], fm, weights, fk.ladder_of(cfg), cfg.softplus_beta, train.huber_scaling, 1.0, True,
+            cfg.act_dtype)
     z = [raymarch.importance_resample(r["lengths"], op(pts, *rest)[2], render.n_pts_fine, u=r["u_pdf"])
          for op in (fk.bundle_loss_cuda, fk.bundle_loss_plain)]
     dz = (z[0] - z[1]).abs()
     fine_pts = (r["o"][:, :, None] + r["d"][:, :, None] * z[0][..., None]).contiguous()
     fine_w = tuple(torch.stack(x) for x in zip(*(fk.loss_weights(st.fine) for st in states)))
-    fine_rest = (*rest[:3], fine_w, *rest[4:-1], False)
+    fine_rest = (*rest[:3], fine_w, *rest[4:-2], False, cfg.act_dtype)
     fine_own = compare_bundle(f"{tag} state's fine pass on K4's resampled depths",
                               *(op(fine_pts, *fine_rest) for op in (fk.bundle_loss_cuda, fk.bundle_loss_plain,
                                                                      fk.bundle_loss_cuda)))
@@ -753,21 +790,31 @@ def chunk_rays(dev, R: int, P: int, seed: int):
 
 
 def field_color_pair(fwd, g, what: str, reps: int = 10):
-    """K5 on ``fwd`` (its wrapper's arguments) against its plain version
-    and a second launch, then K6 on K5's own records and outputs with
-    random cotangents from ``g`` likewise; raises unless both are within
-    their bounds.  Returns (K5's dens / rgb max abs err, K6's grad max err
-    / block max |g|, (K5 ms, plain ms), (K6 ms, plain ms), (dens, rgb))."""
+    """K5 on ``fwd`` (its wrapper's arguments, the activation dtype last)
+    against its plain version and a second launch, then K6 on K5's own
+    records and outputs with random cotangents from ``g`` likewise; raises
+    unless both are within their bounds.  The float32 variant's residuals
+    h1, h2, c1 are compared rounded to bf16, as the bf16 variant stores
+    them (f32 sums in another order move each f32 value), and its heads
+    must be the bf16 variant's bit for bit.  Returns (K5's dens / rgb max
+    abs err, K6's grad max err / block max |g|, (K5 ms, plain ms), (K6 ms,
+    plain ms), (dens, rgb))."""
     import torch
 
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel as fk
 
-    dn, fm, weights, ladder, beta = fwd[1:]
+    dn, fm, weights, ladder, beta, act = fwd[1:]
     ms, (dk, rk, res_k) = cuda_ms(lambda: fk.field_color_fwd_cuda(*fwd), reps=reps)
     plain_ms, (dp, rp, res_p) = cuda_ms(lambda: fk.field_color_fwd_plain(*fwd), reps=1)
     dk2, rk2, res_k2 = fk.field_color_fwd_cuda(*fwd)
+    if act != "bfloat16":
+        d16, r16, _ = fk.field_color_fwd_cuda(*fwd[:-1], "bfloat16")
+        if not (torch.equal(dk, d16) and torch.equal(rk, r16)):
+            raise AssertionError(f"K5's float32 variant: dens / rgb differ from the bf16 variant's ({what})")
+        del d16, r16
     err = max(float((dk - dp).abs().max()), float((rk - rp).abs().max()))
-    res_share = max(float((res_k[k] != res_p[k]).float().mean()) for k in fk.RESIDUALS)
+    rounded = {k: (res_k[k].to(torch.bfloat16), res_p[k].to(torch.bfloat16)) for k in fk.RESIDUALS}
+    res_share = max(float((a != b).float().mean()) for a, b in rounded.values())
     # each head reads one rounded residual (dens h1, rgb c1): from K5's own
     # it must agree to f32 sums, and move by more than 1e-4 only where that
     # residual differs from the plain version's
@@ -776,15 +823,16 @@ def field_color_pair(fwd, g, what: str, reps: int = 10):
     off, flip, own, unexplained = {}, {}, {}, 0
     for name, (got, want, src, from_own) in heads.items():
         moved = ((got - want).abs() > 1e-4).any(-1)
-        flipped = (res_k[src] != res_p[src]).any(-1)
+        flipped = (rounded[src][0] != rounded[src][1]).any(-1)
         off[name], flip[src] = float(moved.float().mean()), float(flipped.float().mean())
         own[name] = float((got - from_own).abs().max())
         unexplained += int((moved & ~flipped).sum())
-    del heads, own_heads, moved, flipped, from_own
+    del heads, own_heads, moved, flipped, from_own, rounded
     same = (torch.equal(dk, dk2) and torch.equal(rk, rk2)
             and all(torch.equal(res_k[k], res_k2[k]) for k in fk.RESIDUALS))
     del dp, rp, res_p, dk2, rk2, res_k2
-    log(f"K5 field_color_fwd {what} (dens std {float(dk.std()):.3f}): dens / rgb max abs err {err:.3e} (tol "
+    log(f"K5 {fk._variant('field_color_fwd', act == 'float32')} {what} (dens std {float(dk.std()):.3f}): dens / rgb "
+        f"max abs err {err:.3e} (tol "
         f"{TOL['color_abs']}); residuals not bit-equal {res_share:.2e} (tol {TOL['res_share']}); points off > 1e-4: "
         f"dens {off['dens']:.2e}, rgb {off['rgb']:.2e}; points whose h1 / c1 is not bit-equal {flip['h1']:.2e} / "
         f"{flip['c1']:.2e}; off where the residual is equal: {unexplained}; dens / rgb from K5's own h1 / c1 max abs "
@@ -794,7 +842,7 @@ def field_color_pair(fwd, g, what: str, reps: int = 10):
             and max(own.values()) <= TOL["head_own"] and unexplained == 0 and float(dk.std()) > 1e-3):
         raise AssertionError(f"K5 disagrees with its plain version ({what})")
     bwd = (dn, fm, weights, res_k, dk, rk, torch.randn(dk.shape, generator=g, device=dk.device),
-           torch.randn(rk.shape, generator=g, device=dk.device), ladder, beta)
+           torch.randn(rk.shape, generator=g, device=dk.device), ladder, beta, act)
     bms, gk = cuda_ms(lambda: fk.field_color_bwd_cuda(*bwd), reps=reps)
     plain_bms, gp = cuda_ms(lambda: fk.field_color_bwd_plain(*bwd), reps=1)
     gk2 = fk.field_color_bwd_cuda(*bwd)
@@ -802,20 +850,22 @@ def field_color_pair(fwd, g, what: str, reps: int = 10):
             for name, a, b in zip(fk.LOSS_BLOCKS, gk, gp)}
     bad = max(errs, key=errs.get)
     same = all(torch.equal(a, b) for a, b in zip(gk, gk2))
-    log(f"K6 field_color_bwd {what}: grad max err / block max |g| {errs[bad]:.2e} ({bad}, tol "
+    log(f"K6 {fk._variant('field_color_bwd', act == 'float32')} {what}: grad max err / block max |g| {errs[bad]:.2e} "
+        f"({bad}, tol "
         f"{TOL['grad_scaled']}); second launch bit-identical: {same}; kernel {bms:.3f} ms, plain {plain_bms:.3f} ms")
     if not (errs[bad] <= TOL["grad_scaled"] and same):
         raise AssertionError(f"K6 disagrees with its plain version ({what})")
     return err, errs[bad], (ms, plain_ms), (bms, plain_bms), (dk, rk)
 
 
-def field_color_phase(dev, seed: int):
-    """K5 and K6 against their plain versions at a chunk's shapes
-    (``FIELD_COLOR_SHAPES``, one half), full-width random fields (density
-    bias 0), both embeddings.  K6 runs on K5's own records and outputs with
-    random cotangents.  Returns {name: result}, the
-    times summed over the four shapes of the direct embedding: one
-    4,800-ray chunked step's launches (2 chunks x 2 passes)."""
+def field_color_phase(dev, seed: int, act_dtype: str):
+    """K5 and K6 (the variants of ``act_dtype``) against their plain
+    versions at a chunk's shapes (``FIELD_COLOR_SHAPES``, one half),
+    full-width random fields (density bias 0), both embeddings.  K6 runs on
+    K5's own records and outputs with random cotangents.  Returns {launch
+    name: result}, the times summed over the four shapes of the direct
+    embedding: one 4,800-ray chunked step's launches (2 chunks x 2
+    passes)."""
     import torch
 
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
@@ -827,7 +877,7 @@ def field_color_phase(dev, seed: int):
     work = {"field_color_fwd": [0, 0], "field_color_bwd": [0, 0]}  # bytes, operations of one chunked step
     chunk_ms = {}  # (rays, name) -> kernel ms of the chunk's two passes, direct embedding
     for embed in ("direct", "grouped"):
-        cfg = FieldConfig(**FIELD, embed_method=embed)
+        cfg = FieldConfig(**{**FIELD, "act_dtype": act_dtype}, embed_method=embed)
         field = NerfField(cfg).reset_parameters(torch.Generator().manual_seed(seed + 20))
         torch.nn.init.zeros_(field.density_layer.bias)
         weights = tuple(b[None] for b in fk.loss_weights(field.to(dev)))
@@ -835,7 +885,7 @@ def field_color_phase(dev, seed: int):
         ladder, beta = fk.ladder_of(cfg), cfg.softplus_beta
         for R, P in FIELD_COLOR_SHAPES:
             pts, dn = chunk_rays(dev, R, P, seed + R + P)
-            fwd = (pts, dn, fm, weights, ladder, beta)
+            fwd = (pts, dn, fm, weights, ladder, beta, act_dtype)
             err, bad_err, (ms, plain_ms), (bms, plain_bms), (dk, rk) = field_color_pair(
                 fwd, torch.Generator(device=dev).manual_seed(seed + R), f"{embed} {R} rays x {P} points")
             worst["field_color_fwd"] = max(worst["field_color_fwd"], err)
@@ -859,16 +909,18 @@ def field_color_phase(dev, seed: int):
                     work[name] = [a + b for a, b in zip(work[name], pair)]
             del dk, rk
     bounds = {name: bound(*work[name], BF16_FLOPS) for name in work}
+    act = ", float32 activations" if act_dtype == "float32" else ""
     for R in sorted({r for r, _ in FIELD_COLOR_SHAPES}, reverse=True):
-        log(f"K5 / K6 per {R}-ray chunk (direct, 64 + 320 points): K5 {chunk_ms[(R, 'field_color_fwd')]:.3f} ms, "
-            f"K6 {chunk_ms[(R, 'field_color_bwd')]:.3f} ms")
-    log(f"K5 / K6 per chunked step (direct, 4,096 + 704 rays x (64 + 320) points): K5 kernel "
+        log(f"K5 / K6 per {R}-ray chunk (direct, 64 + 320 points{act}): K5 {chunk_ms[(R, 'field_color_fwd')]:.3f} "
+            f"ms, K6 {chunk_ms[(R, 'field_color_bwd')]:.3f} ms")
+    log(f"K5 / K6 per chunked step (direct, 4,096 + 704 rays x (64 + 320) points{act}): K5 kernel "
         f"{step_ms['field_color_fwd'][0]:.3f} ms, plain "
         f"{step_ms['field_color_fwd'][1]:.3f} ms, bound {bounds['field_color_fwd'][0]:.3f} ms "
         f"({bounds['field_color_fwd'][1]}); K6 kernel {step_ms['field_color_bwd'][0]:.3f} ms, plain "
         f"{step_ms['field_color_bwd'][1]:.3f} ms, bound {bounds['field_color_bwd'][0]:.3f} ms "
         f"({bounds['field_color_bwd'][1]})")
-    return {name: result(worst[name], *step_ms[name], bounds[name]) for name in worst}
+    return {(ACT32[name] if act_dtype == "float32" else name): result(worst[name], *step_ms[name], bounds[name])
+            for name in worst}
 
 
 @contextlib.contextmanager
@@ -964,7 +1016,11 @@ def chunked_train_path(dev, seed: int, n_steps: int, profile: str | None = None)
     ``train.checkpoint``, and the trained fine field's point cloud.  The
     same run through K5 / K6's plain versions is a second witness of the
     trajectory: its loss curve and surface are reported beside the
-    kernels' (single steps agree within the bars, many steps need not)."""
+    kernels' (single steps agree within the bars, many steps need not).
+    Then a float32-activation field (``FieldConfig()``'s default):
+    ``act32_steps`` steps with K5 / K6's float32 variants counted over
+    exactly that run, and a step of it against the plain versions.
+    Returns the launches of both runs and the bf16 run's ms a step."""
     import numpy as np
     import torch
 
@@ -987,10 +1043,11 @@ def chunked_train_path(dev, seed: int, n_steps: int, profile: str | None = None)
     train = NerfTrainConfig(batch_size=c["batch"], warmup_steps=min(300, n_steps // 3))
     n_chunks = -(-c["batch"] * c["n_rays"] // nerf_trainer.RAY_CHUNK)
 
-    def run(steps: int, **kw):
+    def run(steps: int, field_cfg=cfg, **kw):
         sync(dev)
         t0 = time.perf_counter()
-        out = nerf_trainer.train_nerf(*data, cfg, render, train, n_steps=steps, seed=c["seed"], device=dev, **kw)
+        out = nerf_trainer.train_nerf(*data, field_cfg, render, train, n_steps=steps, seed=c["seed"], device=dev,
+                                      **kw)
         sync(dev)
         return out, time.perf_counter() - t0
 
@@ -1044,6 +1101,23 @@ def chunked_train_path(dev, seed: int, n_steps: int, profile: str | None = None)
         f"Adam moments and losses of steps {n_res // 2 + 1}-{n_res} bit-identical: {same}")
     if not same:
         raise AssertionError("a resumed chunked run differs from the uninterrupted one")
+
+    # the float32-activation field: K5 / K6's float32 variants, and nothing else of K4-K6
+    cfg32 = FieldConfig(**{**FIELD, "act_dtype": "float32"})
+    n32 = c["act32_steps"]
+    run(1, field_cfg=cfg32)
+    reset_launch_counts()
+    (_, losses32), wall32 = run(n32, field_cfg=cfg32)
+    counts32 = launch_counts()
+    want32 = {name: 2 * n_chunks * n32 if name in (ACT32["field_color_fwd"], ACT32["field_color_bwd"]) else 0
+              for name in counts32 if name not in SERVE_KERNELS}
+    log(f"chunked NeRF training at float32 activations, 1 half x {n32} steps: warm {1e3 * wall32 / n32:.2f} ms per "
+        f"step; launches " + json.dumps({k: v for k, v in counts32.items() if v}))
+    if {k: counts32[k] for k in want32} != want32 or not np.isfinite(np.asarray(losses32)).all():
+        raise AssertionError(f"float32-activation chunked run: expected launches {want32}, counted {counts32}")
+    fresh32 = nerf_trainer.init_state(cfg32, train, torch.Generator().manual_seed(c["seed"]), device=dev)
+    chunked_step_vs_plain_step(fresh32, data, dev, render, train, "initial float32-activation", whole_step=True)
+    counts.update({k: counts32[k] for k in (ACT32["field_color_fwd"], ACT32["field_color_bwd"])})
 
     # each trained fine field's point cloud against the analytic surface (reported)
     gt, ok = synthetic.analytic_surface_points(20000, torch.Generator(device=dev).manual_seed(9), device=dev)
@@ -2004,10 +2078,9 @@ def cli_path(dev, root: str) -> dict:
     c = CLI
     t_phase = time.perf_counter()
 
-    def base(r, uh):
+    def base(r, uh, act=("--act-dtype", "bfloat16")):
         return ["--objid", "1", "--dataset", "tless", "--UH", str(uh), "--root", r, "--synthetic", "--synthetic-views",
-                str(c["views"]), "--act-dtype", "bfloat16", "--field-preset", "full", "--viz-every", "0",
-                "--log-every", "0", *c["flags"]]
+                str(c["views"]), *act, "--field-preset", "full", "--viz-every", "0", "--log-every", "0", *c["flags"]]
 
     launches, walls = {}, {}
 
@@ -2025,6 +2098,9 @@ def cli_path(dev, root: str) -> dict:
     main_root, copy_root, cut_root = (os.path.join(root, n) for n in ("main", "copy", "cut"))
     for uh in (1, 0):
         run(f"train-nerf UH{uh}", ["train-nerf", *base(main_root, uh), "--steps", str(c["nerf_steps"])])
+    # and at the CLI's default --act-dtype (float32): K4's float32 variant alone
+    run(CLI_DEFAULT_ACT, ["train-nerf", *base(os.path.join(root, "default_act"), 1, ()), "--steps",
+                          str(c["nerf_steps"])])
     for uh in (1, 0):
         run(f"generate-cors UH{uh}", ["generate-cors", *base(main_root, uh)])
         if uh == 0:
@@ -2101,8 +2177,14 @@ def cli_path(dev, root: str) -> dict:
               "gen-feat UH1": ("density", "nn_min"), "gen-feat UH0": ("density", "nn_min"),
               "icp": ("nn_min",), "verify": ("nn_min",), "poses-est": ("corr_argmax",),
               "inference": ("corr_argmax", "nn_min")}
+    wanted[CLI_DEFAULT_ACT] = (ACT32["bundle_loss"],)
     missing = {k: [n for n in names if not launches[k][n]] for k, names in wanted.items()}
     missing = {k: v for k, v in missing.items() if v}
+    field_kernels = (*ACT32, *ACT32.values())
+    stray = {k: n for k, n in launches[CLI_DEFAULT_ACT].items()
+             if n and k in field_kernels and k != ACT32["bundle_loss"]}
+    if stray:
+        missing[CLI_DEFAULT_ACT + ": launched besides K4's float32 variant"] = stray
     if missing or not (resumed and repeat and outputs_ok):
         raise AssertionError(f"CLI phase: kernels that never launched {missing}; exact resume {resumed}; "
                              f"reproducible train-pose {repeat}; finite outputs of the right shapes {outputs_ok}")
@@ -2729,10 +2811,11 @@ def mesh_train_stages(mesh, dev, data, stages: dict) -> float:
         z = lengths
         for tag in ("coarse", "fine"):
             pts = (o[:, :, None] + dd[:, :, None] * z[..., None]).contiguous()
-            got = fk.bundle_loss_cuda(pts, *rest, tag == "coarse")
+            want_w = tag == "coarse"
+            got = fk.bundle_loss_cuda(pts, *rest, want_w, cfg.act_dtype)
             worst = max(worst, compare_bundle(f"K4 on entry {i} ({d}), {tag}, {pts.shape[1]} rays", got,
-                                              fk.bundle_loss_plain(pts, *rest, tag == "coarse"),
-                                              fk.bundle_loss_cuda(pts, *rest, tag == "coarse")))
+                                              fk.bundle_loss_plain(pts, *rest, want_w, cfg.act_dtype),
+                                              fk.bundle_loss_cuda(pts, *rest, want_w, cfg.act_dtype)))
             if tag == "coarse":
                 z = raymarch.importance_resample(lengths, got[2], render.n_pts_fine, u=r["u_pdf"][:, sl].to(d))
     return worst
@@ -2823,8 +2906,8 @@ def mesh_chunked_stage(mesh, dev, seed: int, stages: dict) -> dict:
     torch.nn.init.zeros_(field.density_layer.bias)
     worst = {"field_color_fwd": 0.0, "field_color_bwd": 0.0}
     with torch.no_grad():
-        for j, (pts, dn, fm, _, ladder, beta) in enumerate(first):
-            args = (pts, dn, fm, tuple(b[None] for b in fk.loss_weights(field.to(pts.device))), ladder, beta)
+        for j, (pts, dn, fm, _, ladder, beta, act) in enumerate(first):
+            args = (pts, dn, fm, tuple(b[None] for b in fk.loss_weights(field.to(pts.device))), ladder, beta, act)
             err, bad, *_ = field_color_pair(args, torch.Generator(device=pts.device).manual_seed(seed + j),
                                             f"on entry {j // per_entry} ({pts.device}), {pts.shape[1]} rays x "
                                             f"{pts.shape[2]} points", reps=1)
@@ -3149,8 +3232,11 @@ def main(argv=None) -> int:
     sass_phase(ext.__file__)
 
     with one_card():
-        phases = {"density": density_phase(dev, args.seed), "bundle_loss": bundle_loss_phase(dev, args.seed)}
-        phases.update(field_color_phase(dev, args.seed))
+        phases = {"density": density_phase(dev, args.seed),
+                  "bundle_loss": bundle_loss_phase(dev, args.seed, "bfloat16"),
+                  ACT32["bundle_loss"]: bundle_loss_phase(dev, args.seed, "float32")}
+        for act in ("bfloat16", "float32"):
+            phases.update(field_color_phase(dev, args.seed, act))
         train_counts, train_s, train_states = train_path(dev, args.seed, args.nerf_steps, args.profile)
         chunked_counts, _ = chunked_train_path(dev, args.seed, args.chunk_steps, args.profile)
         out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3167,7 +3253,7 @@ def main(argv=None) -> int:
             shutil.rmtree(out_dir, ignore_errors=True)
         out_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
         try:
-            cli_path(dev, out_dir)
+            cli_launches = cli_path(dev, out_dir)
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
         out_dir = tempfile.mkdtemp(prefix="chip_smoke_surf_")
@@ -3188,7 +3274,10 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     counts["bundle_loss"] = train_counts["bundle_loss"]
-    counts.update({k: chunked_counts[k] for k in ("field_color_fwd", "field_color_bwd")})
+    counts.update({k: chunked_counts[k] for k in ("field_color_fwd", "field_color_bwd", ACT32["field_color_fwd"],
+                                                 ACT32["field_color_bwd"])})
+    # K4's float32 variant: the CLI's train-nerf at its default --act-dtype
+    counts[ACT32["bundle_loss"]] = cli_launches[CLI_DEFAULT_ACT][ACT32["bundle_loss"]]
     # the surf phase's commands' and the nosiren phase's stages' launches join the paths' counts
     for per_stage in (*surf_launches.values(), *nosiren_launches.values()):
         for name, n in per_stage.items():

@@ -23,8 +23,8 @@ runs without downloaded data.  ``poses-est`` / ``inference
 refinement instead of argmax-PnP, and ``inference --full-frames`` reads
 raw BOP frames and their visibility masks through the SurfEmb crop.  Every
 command runs on the card (``--device cuda``, the default, raises on a host
-without one); the CPU runs only for ``--device cpu``.  ``--act-dtype
-bfloat16`` selects the field kernels (K1, K4-K6).  Random draws come from
+without one); the CPU runs only for ``--device cpu``.  The field kernels
+(K1, K4-K6) run at either ``--act-dtype``, each in its variant.  Random draws come from
 ``torch.Generator``s seeded as the reference seeds its keys.
 """
 
@@ -94,8 +94,8 @@ def exp_dir(args):
 def field_config(args):
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
 
-    # --act-dtype bfloat16 also selects the field kernels on the card
-    # (ops/field_kernel.enabled: their numerics ARE bf16 activations)
+    # the field kernels run on the card at either --act-dtype, in its variant
+    # (ops/field_kernel.enabled): float32, the default, keeps them unrounded
     act = getattr(args, "act_dtype", "float32")
     if getattr(args, "field_preset", "full") == "small":
         return FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype=act)
@@ -716,7 +716,7 @@ def build_parser():
         sp.add_argument("--log-every", default=100, type=int)
         sp.add_argument("--grid-res", default=128, type=int)
         sp.add_argument("--act-dtype", default="float32", choices=("float32", "bfloat16"),
-                        help="field activation storage; bfloat16 selects the field kernels on the card")
+                        help="field activation storage (the field kernels run in its variant on the card)")
         sp.add_argument("--image-size", default=0, type=int, help="override stage image size (smoke runs)")
         sp.add_argument("--field-preset", default="full", choices=["full", "small"],
                         help="small = tiny NeRF for smoke runs")

@@ -30,11 +30,12 @@ class FieldConfig:
     softplus_beta: float = 10.0             # nerf.py:174
     # dtype of the MLP matmuls' operands (params and accumulation stay f32)
     compute_dtype: str = "bfloat16"
-    # storage dtype of the activations between layers; "bfloat16" is what
-    # the field kernels compute with
+    # storage dtype of the activations between layers; the field kernels
+    # have a variant for each
     act_dtype: str = "float32"
     # the field kernels for this field: None = auto (on for a CUDA device
-    # with bf16 matmuls and activations), True / False to force
+    # with bf16 matmuls and bf16 or float32 activations), True / False to
+    # force
     fused_kernel: bool | None = None
 
 

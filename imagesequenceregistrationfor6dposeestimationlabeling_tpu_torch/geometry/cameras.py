@@ -127,8 +127,10 @@ def depth_edges(min_depth: float, max_depth: float, n_pts: int, device=None) -> 
     an ulp away on most edges."""
     device = resolve_device(device)
     step = torch.arange(n_pts, dtype=torch.float32, device=device) / n_pts
-    start = torch.tensor(min_depth, dtype=torch.float32, device=device)
-    stop = torch.tensor(max_depth, dtype=torch.float32, device=device)
+    # filled on the device: a tensor made from a host value is a copy that
+    # waits for everything queued there
+    start = torch.full((), min_depth, dtype=torch.float32, device=device)
+    stop = torch.full((), max_depth, dtype=torch.float32, device=device)
     return torch.cat([start * (1 - step) + stop * step, stop[None]])
 
 

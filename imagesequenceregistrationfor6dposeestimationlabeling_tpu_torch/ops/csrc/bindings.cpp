@@ -52,34 +52,35 @@ void bundle_loss(uintptr_t pts, uintptr_t dirs, uintptr_t tgt, int n_halves, int
                  uintptr_t wc1ht, uintptr_t w2t, uintptr_t b1, uintptr_t b2, uintptr_t wd, uintptr_t bd,
                  uintptr_t wc1ds, uintptr_t wc1dc, uintptr_t bc1, uintptr_t wc2, uintptr_t bc2, int n_hidden,
                  float beta, float hs, float hs2, float scale, float scale3, uintptr_t vwork, int n_blocks,
-                 uintptr_t rec, uintptr_t rrec, uintptr_t part, int n_splits, uintptr_t vec_out, uintptr_t mat_out,
-                 uintptr_t w_out, uintptr_t stream) {
+                 uintptr_t rec, uintptr_t rrec, uintptr_t act, uintptr_t part, int n_splits, uintptr_t vec_out,
+                 uintptr_t mat_out, uintptr_t w_out, uintptr_t stream) {
   const FieldWeights w({w1, w2, wc1h, wc1ht, w2t}, {b1, b2, wd, bd, wc1ds, wc1dc, bc1, wc2, bc2});
   launch_bundle_loss(ptr<const float>(pts), ptr<const float>(dirs), ptr<const float>(tgt), n_halves, n_rays, n_pts,
                      ptr<const float>(fmat), n_base, ladder, ep, w.mats, w.vecs, n_hidden, beta, hs, hs2, scale,
-                     scale3, ptr<float>(vwork), n_blocks, ptr<void>(rec), ptr<void>(rrec), ptr<float>(part), n_splits,
-                     ptr<float>(vec_out), ptr<float>(mat_out), ptr<float>(w_out), ptr<void>(stream));
+                     scale3, ptr<float>(vwork), n_blocks, ptr<void>(rec), ptr<void>(rrec), ptr<float>(act),
+                     ptr<float>(part), n_splits, ptr<float>(vec_out), ptr<float>(mat_out), ptr<float>(w_out),
+                     ptr<void>(stream));
 }
 
 void field_color_fwd(uintptr_t pts, uintptr_t dirs, int n_halves, int n_rays, int n_pts, uintptr_t fmat, int n_base,
                      int ladder, int ep, uintptr_t w1, uintptr_t w2, uintptr_t wc1h, uintptr_t b1, uintptr_t b2,
                      uintptr_t wd, uintptr_t bd, uintptr_t wc1ds, uintptr_t wc1dc, uintptr_t bc1, uintptr_t wc2,
-                     uintptr_t bc2, int n_hidden, float beta, uintptr_t rec, uintptr_t dens, uintptr_t rgb,
-                     int n_blocks, uintptr_t stream) {
+                     uintptr_t bc2, int n_hidden, float beta, uintptr_t rec, uintptr_t act, uintptr_t dens,
+                     uintptr_t rgb, int n_blocks, uintptr_t stream) {
   const FieldWeights w({w1, w2, wc1h, 0, 0}, {b1, b2, wd, bd, wc1ds, wc1dc, bc1, wc2, bc2});
   launch_field_color_fwd(ptr<const float>(pts), ptr<const float>(dirs), n_halves, n_rays, n_pts,
                          ptr<const float>(fmat), n_base, ladder, ep, w.mats, w.vecs, n_hidden, beta, ptr<void>(rec),
-                         ptr<float>(dens), ptr<float>(rgb), n_blocks, ptr<void>(stream));
+                         ptr<float>(act), ptr<float>(dens), ptr<float>(rgb), n_blocks, ptr<void>(stream));
 }
 
 void field_color_bwd(uintptr_t dirs, int n_halves, int n_rays, int n_pts, uintptr_t fmat, int n_base, int ladder,
                      int ep, uintptr_t wc1ht, uintptr_t w2t, uintptr_t wd, uintptr_t wc2, int n_hidden, float beta,
-                     uintptr_t rec, uintptr_t dens, uintptr_t rgb, uintptr_t gdens, uintptr_t grgb, uintptr_t vwork,
-                     int n_blocks, uintptr_t rrec, uintptr_t part, int n_splits, uintptr_t vec_out, uintptr_t mat_out,
-                     uintptr_t stream) {
+                     uintptr_t rec, uintptr_t act, uintptr_t dens, uintptr_t rgb, uintptr_t gdens, uintptr_t grgb,
+                     uintptr_t vwork, int n_blocks, uintptr_t rrec, uintptr_t part, int n_splits, uintptr_t vec_out,
+                     uintptr_t mat_out, uintptr_t stream) {
   const FieldWeights w({0, 0, 0, wc1ht, w2t}, {0, 0, wd, 0, 0, 0, 0, wc2, 0});
   launch_field_color_bwd(ptr<const float>(dirs), n_halves, n_rays, n_pts, ptr<const float>(fmat), n_base, ladder, ep,
-                         w.mats, w.vecs, n_hidden, beta, ptr<void>(rec), ptr<const float>(dens),
+                         w.mats, w.vecs, n_hidden, beta, ptr<void>(rec), ptr<const float>(act), ptr<const float>(dens),
                          ptr<const float>(rgb), ptr<const float>(gdens), ptr<const float>(grgb), ptr<float>(vwork),
                          n_blocks, ptr<void>(rrec), ptr<float>(part), n_splits, ptr<float>(vec_out),
                          ptr<float>(mat_out), ptr<void>(stream));

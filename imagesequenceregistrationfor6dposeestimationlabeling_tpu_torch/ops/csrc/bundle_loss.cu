@@ -13,10 +13,18 @@
 //              feat = sum w rgb, opacity = 1 - exp(-sum raw)
 //   loss    ce = v mean_c huber(feat - col), se = v huber(opacity - sil)
 //   backward   exactly the reference's composite backward and _grad_math:
-//              sigmoid' recovered from the stored bf16 activations, every
-//              product operand rounded to bf16, dwd on the rounded h2.
+//              sigmoid' recovered from the stored activations, every
+//              product operand rounded to bf16, dwd on the stored h2.
 // Outputs: the 13 weight grads and (ce_sum, se_sum) per half, and the EA
 // weights w (H, R, P) when asked.  Rows with valid = 0 contribute nothing.
+//
+// Two variants by the field's activation storage (field_tc.cuh, kAct32):
+// bundle_loss_kernel stores bf16 activations (the backward reads the
+// rounded h1, h2, c1); bundle_loss_act32_kernel stores f32 activations, as
+// FieldConfig()'s act_dtype float32 does: the forward is the same, and the
+// backward's sigmoid' and dwd read the unrounded h1, h2, c1 from an f32
+// record of 3,072 B a point beside the bf16 one (~2.8 GB a train step more
+// written and read back).
 //
 // What bounds it: arithmetic.  The function's work is ~1.15 MFLOP of bf16
 // products a point at the reference width (H = 60, 256 hidden): the
@@ -152,8 +160,8 @@ __device__ __forceinline__ void composite_ray(const LossArgs& a, const field_tc:
 }
 
 // Block b of half h walks rays b, b + n_blocks, ...
-__global__ void __launch_bounds__(NTH, 1) bundle_loss_kernel(LossArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+template <bool kAct32>
+__device__ __forceinline__ void bundle_loss_blocks(const LossArgs& a, unsigned char* smem_raw) {
   const field_tc::Smem s = field_tc::carve(smem_raw, a.Ep, a.P);
   const int h = blockIdx.y;
   const int b = blockIdx.x;
@@ -178,21 +186,34 @@ __global__ void __launch_bounds__(NTH, 1) bundle_loss_kernel(LossArgs a) {
     if (tid < WN) s.ddpart[tid] = 0.f;
     // pass A: raw and rgb of every point of the ray
     for (int p0 = 0; p0 < P; p0 += MT)
-      field_tc::tile_forward<true>(a, hw, s, pts_ray, p0, min(MT, P - p0), a.rec + (ray * P + p0) * RW, slot, acc,
-                                   none);
+      field_tc::tile_forward<true, kAct32>(a, hw, s, pts_ray, p0, min(MT, P - p0), a.rec + (ray * P + p0) * RW,
+                                           kAct32 ? a.act + (ray * P + p0) * field_tc::ACT_W : nullptr, slot, acc,
+                                           none);
     __syncthreads();
     if (tid < 32) composite_ray(a, s, a.tgt + ray * 8, a.w_out ? a.w_out + ray * P : nullptr);
     __syncthreads();
     // pass B: each tile's backward from its stored activations
     for (int p0 = 0; p0 < P; p0 += MT)
-      field_tc::tile_backward<true>(a, hw, s, vs, p0, min(MT, P - p0), a.rec + (ray * P + p0) * RW, slot, acc,
-                                    none);
+      field_tc::tile_backward<true, kAct32>(a, hw, s, vs, p0, min(MT, P - p0), a.rec + (ray * P + p0) * RW,
+                                            kAct32 ? a.act + (ray * P + p0) * field_tc::ACT_W : nullptr, slot, acc,
+                                            none);
     field_tc::write_ray_record(a, s, a.rrec + ray * RRW);
   }
   if (tid == 0) {
     vs[o.ce] = s.misc[3];
     vs[o.se] = s.misc[4];
   }
+}
+
+// The two variants, each under its own name in a trace.
+__global__ void __launch_bounds__(NTH, 1) bundle_loss_kernel(LossArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bundle_loss_blocks<false>(a, smem_raw);
+}
+
+__global__ void __launch_bounds__(NTH, 1) bundle_loss_act32_kernel(LossArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bundle_loss_blocks<true>(a, smem_raw);
 }
 
 }  // namespace
@@ -205,8 +226,8 @@ int field_dw_tiles(int e, int n_hidden) { return field_tc::dw_tiles(e, n_hidden)
 void launch_bundle_loss(const float* pts, const float* dirs, const float* tgt, int n_halves, int n_rays, int n_pts,
                         const float* fmat, int n_base, int ladder, int ep, const void* const* mats,
                         const float* const* vecs, int n_hidden, float beta, float hs, float hs2, float scale,
-                        float scale3, float* vwork, int n_blocks, void* rec, void* rrec, float* part, int n_splits,
-                        float* vec_out, float* mat_out, float* w_out, void* stream) {
+                        float scale3, float* vwork, int n_blocks, void* rec, void* rrec, float* act, float* part,
+                        int n_splits, float* vec_out, float* mat_out, float* w_out, void* stream) {
   if (n_halves <= 0 || n_rays <= 0 || n_pts <= 0) return;
   TORCH_CHECK(n_hidden > 0 && n_hidden <= WN, "bundle-loss kernel: n_hidden must be in [1, 256]");
   TORCH_CHECK(n_blocks > 0 && n_splits > 0, "bundle-loss kernel: n_blocks and n_splits must be positive");
@@ -216,7 +237,8 @@ void launch_bundle_loss(const float* pts, const float* dirs, const float* tgt, i
   const size_t smem = field_tc::smem_bytes(ep, n_pts);
   TORCH_CHECK(smem <= 232448, "bundle-loss kernel: ", smem, " bytes of shared memory for ", n_pts,
               " points per ray exceed the block's 227 KB");
-  C10_CUDA_CHECK(cudaFuncSetAttribute(bundle_loss_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  const auto kernel = act ? bundle_loss_act32_kernel : bundle_loss_kernel;
+  C10_CUDA_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   LossArgs a;
   static_cast<field_tc::FieldArgs&>(a) =
       field_tc::field_args(pts, dirs, n_rays, n_pts, fmat, n_base, ladder, ep, mats, vecs, n_hidden, beta);
@@ -229,9 +251,10 @@ void launch_bundle_loss(const float* pts, const float* dirs, const float* tgt, i
   a.n_blocks = n_blocks;
   a.rec = static_cast<bf16*>(rec);
   a.rrec = static_cast<bf16*>(rrec);
+  a.act = act;
   a.w_out = w_out;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bundle_loss_kernel<<<dim3(n_blocks, n_halves), NTH, smem, st>>>(a);
+  kernel<<<dim3(n_blocks, n_halves), NTH, smem, st>>>(a);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   const int64_t V = field_tc::VecOffsets(n_hidden).total;
   field::sum_slices<<<dim3((unsigned)((V + 255) / 256), n_halves), 256, 0, st>>>(vwork, n_blocks, V, vec_out);

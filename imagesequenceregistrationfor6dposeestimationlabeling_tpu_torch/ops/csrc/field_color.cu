@@ -16,7 +16,7 @@
 //       out: dens, rgb (f32); es, ec, h1, h2, c1 (bf16) in each point's record
 //   K6  du = gdens (1 - dens) (1 - exp(beta log1p(-dens))), dc2p = grgb rgb (1 - rgb),
 //       then exactly the reference's _grad_math: bf16 product operands, dwd
-//       on the rounded h2, sigmoid' from the stored bf16 activations; a
+//       on the stored h2, sigmoid' from the stored activations; a
 //       ray's ddpart is summed over all its points in f32 and rounded to
 //       bf16 once before its contraction with the direction embedding,
 //       which is recomputed per ray.
@@ -53,6 +53,13 @@
 // sum_slices adds the slices in a fixed order.  No float atomics: two
 // launches give bit-identical results.  Build without --use_fast_math:
 // sincosf keeps its full range reduction.
+//
+// Two variants of each by the field's activation storage (field_tc.cuh,
+// kAct32): field_color_fwd_kernel / field_color_bwd_kernel store bf16
+// activations; field_color_fwd_act32_kernel / field_color_bwd_act32_kernel
+// f32 ones: K5 also writes each point's unrounded h1 | h2 | c1 to an f32
+// record (3,072 B a point, ~8 GB for the 4,096-ray fine chunk), from which
+// K6 takes sigmoid' and dwd.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -78,8 +85,8 @@ struct ColorArgs : field_tc::FieldArgs {
 
 // K5: block b of half h walks rays b, b + n_blocks, ... tile by tile,
 // computing the ray's direction part once.
-__global__ void __launch_bounds__(NTH, 1) field_color_fwd_kernel(ColorArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+template <bool kAct32>
+__device__ __forceinline__ void color_fwd_blocks(const ColorArgs& a, unsigned char* smem_raw) {
   const field_tc::Smem s = field_tc::carve(smem_raw, a.Ep, MT);
   const int h = blockIdx.y;
   const int P = a.P;
@@ -96,14 +103,15 @@ __global__ void __launch_bounds__(NTH, 1) field_color_fwd_kernel(ColorArgs a) {
     for (int p0 = 0; p0 < P; p0 += MT) {
       const int64_t pt = ray * P + p0;
       const field_tc::Heads hd{a.dens + pt, a.rgb + pt * 3, nullptr, nullptr};
-      field_tc::tile_forward<false>(a, hw, s, pts_ray, p0, min(MT, P - p0), a.rec + pt * RW, slot, acc, hd);
+      field_tc::tile_forward<false, kAct32>(a, hw, s, pts_ray, p0, min(MT, P - p0), a.rec + pt * RW,
+                                            kAct32 ? a.act + pt * field_tc::ACT_W : nullptr, slot, acc, hd);
     }
   }
 }
 
 // K6's pass: block b of half h walks rays b, b + n_blocks, ... tile by tile.
-__global__ void __launch_bounds__(NTH, 1) field_color_bwd_kernel(ColorArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+template <bool kAct32>
+__device__ __forceinline__ void color_bwd_blocks(const ColorArgs& a, unsigned char* smem_raw) {
   const field_tc::Smem s = field_tc::carve(smem_raw, a.Ep, MT);
   const int h = blockIdx.y;
   const int tid = threadIdx.x;
@@ -124,10 +132,32 @@ __global__ void __launch_bounds__(NTH, 1) field_color_bwd_kernel(ColorArgs a) {
     for (int p0 = 0; p0 < P; p0 += MT) {
       const int64_t pt = ray * P + p0;
       const field_tc::Heads hd{a.dens + pt, a.rgb + pt * 3, a.gdens + pt, a.grgb + pt * 3};
-      field_tc::tile_backward<false>(a, hw, s, vs, p0, min(MT, P - p0), a.rec + pt * RW, slot, acc, hd);
+      field_tc::tile_backward<false, kAct32>(a, hw, s, vs, p0, min(MT, P - p0), a.rec + pt * RW,
+                                             kAct32 ? a.act + pt * field_tc::ACT_W : nullptr, slot, acc, hd);
     }
     field_tc::write_ray_record(a, s, a.rrec + ray * RRW);
   }
+}
+
+// The variants, each under its own name in a trace.
+__global__ void __launch_bounds__(NTH, 1) field_color_fwd_kernel(ColorArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  color_fwd_blocks<false>(a, smem_raw);
+}
+
+__global__ void __launch_bounds__(NTH, 1) field_color_fwd_act32_kernel(ColorArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  color_fwd_blocks<true>(a, smem_raw);
+}
+
+__global__ void __launch_bounds__(NTH, 1) field_color_bwd_kernel(ColorArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  color_bwd_blocks<false>(a, smem_raw);
+}
+
+__global__ void __launch_bounds__(NTH, 1) field_color_bwd_act32_kernel(ColorArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  color_bwd_blocks<true>(a, smem_raw);
 }
 
 void check_shapes(const char* what, int n_hidden, int E, int ep) {
@@ -139,8 +169,8 @@ void check_shapes(const char* what, int n_hidden, int E, int ep) {
 
 void launch_field_color_fwd(const float* pts, const float* dirs, int n_halves, int n_rays, int n_pts,
                             const float* fmat, int n_base, int ladder, int ep, const void* const* mats,
-                            const float* const* vecs, int n_hidden, float beta, void* rec, float* dens, float* rgb,
-                            int n_blocks, void* stream) {
+                            const float* const* vecs, int n_hidden, float beta, void* rec, float* act, float* dens,
+                            float* rgb, int n_blocks, void* stream) {
   if (n_halves <= 0 || n_rays <= 0 || n_pts <= 0) return;
   ColorArgs a;
   static_cast<field_tc::FieldArgs&>(a) =
@@ -148,23 +178,24 @@ void launch_field_color_fwd(const float* pts, const float* dirs, int n_halves, i
   check_shapes("field-colour forward kernel", n_hidden, a.E, ep);
   TORCH_CHECK(n_blocks > 0, "field-colour forward kernel: n_blocks must be positive");
   const size_t smem = field_tc::smem_bytes(ep, MT);
-  C10_CUDA_CHECK(cudaFuncSetAttribute(field_color_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)smem));
+  const auto kernel = act ? field_color_fwd_act32_kernel : field_color_fwd_kernel;
+  C10_CUDA_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   a.rec = static_cast<bf16*>(rec);
+  a.act = act;
   a.dens = dens;
   a.rgb = rgb;
   a.gdens = nullptr;
   a.grgb = nullptr;
   a.n_blocks = n_blocks;
-  field_color_fwd_kernel<<<dim3(n_blocks, n_halves), NTH, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<dim3(n_blocks, n_halves), NTH, smem, static_cast<cudaStream_t>(stream)>>>(a);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 void launch_field_color_bwd(const float* dirs, int n_halves, int n_rays, int n_pts, const float* fmat, int n_base,
                             int ladder, int ep, const void* const* mats, const float* const* vecs, int n_hidden,
-                            float beta, void* rec, const float* dens, const float* rgb, const float* gdens,
-                            const float* grgb, float* vwork, int n_blocks, void* rrec, float* part, int n_splits,
-                            float* vec_out, float* mat_out, void* stream) {
+                            float beta, void* rec, const float* act, const float* dens, const float* rgb,
+                            const float* gdens, const float* grgb, float* vwork, int n_blocks, void* rrec, float* part,
+                            int n_splits, float* vec_out, float* mat_out, void* stream) {
   if (n_halves <= 0 || n_rays <= 0 || n_pts <= 0) return;
   ColorArgs a;
   static_cast<field_tc::FieldArgs&>(a) =
@@ -172,18 +203,19 @@ void launch_field_color_bwd(const float* dirs, int n_halves, int n_rays, int n_p
   check_shapes("field-colour backward kernel", n_hidden, a.E, ep);
   TORCH_CHECK(n_blocks > 0 && n_splits > 0, "field-colour backward kernel: n_blocks and n_splits must be positive");
   const size_t smem = field_tc::smem_bytes(ep, MT);
-  C10_CUDA_CHECK(cudaFuncSetAttribute(field_color_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)smem));
+  const auto kernel = act ? field_color_bwd_act32_kernel : field_color_bwd_kernel;
+  C10_CUDA_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   a.vwork = vwork;
   a.n_blocks = n_blocks;
   a.rec = static_cast<bf16*>(rec);
   a.rrec = static_cast<bf16*>(rrec);
+  a.act = const_cast<float*>(act);
   a.dens = const_cast<float*>(dens);
   a.rgb = const_cast<float*>(rgb);
   a.gdens = gdens;
   a.grgb = grgb;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  field_color_bwd_kernel<<<dim3(n_blocks, n_halves), NTH, smem, st>>>(a);
+  kernel<<<dim3(n_blocks, n_halves), NTH, smem, st>>>(a);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   const int64_t V = field_tc::VecOffsets(n_hidden).total;
   field::sum_slices<<<dim3((unsigned)((V + 255) / 256), n_halves), 256, 0, st>>>(vwork, n_blocks, V, vec_out);

@@ -4,9 +4,10 @@
 //   tile_forward   the field forward of a tile (embedding, trunk, density
 //                  head, colour head; every product on mma.sync through
 //                  field_mma.cuh), writing each point's bf16 es | ec | h1 |
-//                  h2 | c1 to its workspace record;
+//                  h2 | c1 to its workspace record (and, with f32
+//                  activations, its f32 h1 | h2 | c1 to a second record);
 //   tile_backward  the reference's _grad_math for a tile from the h1, h2 and
-//                  c1 in its record (no recompute: the same bits), its two
+//                  c1 in its records (no recompute: the same bits), its two
 //                  products on the tensor cores, writing the cotangents dh1 |
 //                  dh2 | dc1 beside them and adding the vector grads to the
 //                  block's f32 slice;
@@ -25,12 +26,32 @@
 //                        du = gdens (1 - dens) (1 - exp(beta log1p(-dens))),
 //                        dc2p = grgb rgb (1 - rgb) from device memory.
 //
+// A second compile-time choice (kAct32) is the field's activation storage.
+// The forward does not depend on it: every stored activation feeds a bf16
+// product but h2 into the density head, which reads it unrounded either way.
+// The backward reads h1, h2 and c1 outside a product in sigmoid'(x) = 1 -
+// exp(-beta h) and in the density head's weight grad (dwd = h2 . du):
+//   bf16 activations (kAct32 = false)  from the bf16 values in the record;
+//   f32 activations (kAct32 = true)    from the f32 values tile_forward
+//                        keeps, unrounded, in a second per-point record.
+// The f32 values are kept, not sigmoid' (h2 is needed as well) and not
+// recomputed (that is the forward again): 3 x 256 f32 a point (3,072 B),
+// written from the accumulators in pass A and read back in pass B's
+// epilogues straight from device memory, so the shared-memory budget is the
+// bf16 variant's.  The products' operands stay the bf16 record's.  That
+// traffic sits between the tile's barriers, not behind its products: on an
+// H100 it makes K4's train step 22.0 ms against the bf16 variant's 16.4.
+//
 // The per-point record (bf16, rec_width(Ep) values a point, Ep = E padded to
 // a multiple of 16, columns past E and units past nh zero):
 //   es | ec (Ep each)        written by tile_forward (K4 pass A, K5)
 //   h1 | h2 | c1 (256 each)  written by tile_forward, read by tile_backward
+//                            (the products' operands, and with bf16
+//                            activations sigmoid' and dwd)
 //   dh1 | dh2 | dc1 (256)    written by tile_backward (K4 pass B, K6)
-// dw_kernel reads es, ec, h1, h2 against dh1, dh1, dh2, dc1.  The per-ray
+// dw_kernel reads es, ec, h1, h2 against dh1, dh1, dh2, dc1.  With f32
+// activations, the f32 record (ACT_W = 3 x 256 f32 a point): h1 | h2 | c1
+// unrounded, written by tile_forward, read by tile_backward.  The per-ray
 // record (ray_rec_width(Ep)): ds | dc (Ep each) | bf16(ddpart) (256), the
 // ray's direction embedding and its dc1p summed over all its points in f32,
 // rounded once; written by write_ray_record (K4, K6).
@@ -58,6 +79,7 @@ constexpr int NTH = 512;  // threads of a tile kernel: one block of 16 warps an 
 using T = mma::Tile<NTH>;
 
 __host__ __device__ inline int rec_width(int Ep) { return 2 * Ep + 6 * WN; }
+constexpr int ACT_W = 3 * WN;  // f32 values a point of the f32 activation record: h1 | h2 | c1
 __host__ __device__ inline int ray_rec_width(int Ep) { return 2 * Ep + WN; }
 // Vector grads of a slice (f32): b1 b2 wd (nh each), bd, bc1 (nh), wc2 (nh x 3), bc2 (3), then K4's ce_sum, se_sum.
 struct VecOffsets {
@@ -98,6 +120,7 @@ struct FieldArgs {
   int n_blocks;
   bf16* rec;   // (H, R, P, rec_width) per-point records
   bf16* rrec;  // (H, R, ray_rec_width) per-ray records
+  float* act;  // (H, R, P, ACT_W) f32 activations of the kAct32 variant, else null
 };
 
 // The FieldArgs of a launch: mats[5] = w1 w2 wc1h wc1ht w2t, vecs[9] = b1 b2
@@ -124,6 +147,7 @@ inline FieldArgs field_args(const float* pts, const float* dirs, int R, int P, c
   a.n_blocks = 0;
   a.rec = nullptr;
   a.rrec = nullptr;
+  a.act = nullptr;
   return a;
 }
 
@@ -196,14 +220,42 @@ __device__ inline Smem carve(unsigned char* base, int Ep, int P) {
   return s;
 }
 
+// Rows [0, tn) of the f32 accumulators v (units past nh hold 0) to one
+// 256-wide slot of the f32 activation record act (row stride ACT_W).
+__device__ __forceinline__ void store_act(const T::Acc v, int tn, float* act) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < T::JN; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = T::row(i, 2 * h);
+        if (r < tn)
+          *reinterpret_cast<float2*>(act + (int64_t)r * ACT_W + T::col(j, 2 * h)) =
+              make_float2(v[i][j][2 * h], v[i][j][2 * h + 1]);
+      }
+}
+
+// The stored activations at (row, col) and (row, col + 1) of a tile: its
+// bf16 tile's, or (kAct32) one slot of the f32 activation record's, zeros
+// for rows past tn there (never read past a ray).
+template <bool kAct32>
+__device__ __forceinline__ float2 stored_pair(const bf16* tile, const float* act, int row, int col, int tn) {
+  if constexpr (kAct32)
+    return row < tn ? *reinterpret_cast<const float2*>(act + (int64_t)row * ACT_W + col) : make_float2(0.f, 0.f);
+  else
+    return make_float2(mma::tile_at(tile, row, col), mma::tile_at(tile, row, col + 1));
+}
+
 // Forward of points [p0, p0 + tn) of one ray, the products on the tensor
 // cores: writes the tile's bf16 embedding, h1, h2 and c1 to its records
-// rec, and raw and rgb per point to shared memory (kLoss) or dens and rgb to
-// hd (else).  dpart holds the ray's direction part (ray_dir_part).
-template <bool kLoss>
+// rec (kAct32: its f32 h1, h2 and c1 to its records act too), and raw and
+// rgb per point to shared memory (kLoss) or dens and rgb to hd (else).
+// dpart holds the ray's direction part (ray_dir_part).
+template <bool kLoss, bool kAct32>
 __device__ __forceinline__ void tile_forward(const FieldArgs& a, const HalfWeights& hw, const Smem& s,
-                                             const float* pts_ray, int p0, int tn, bf16* rec, int& slot, T::Acc acc,
-                                             const Heads& hd) {
+                                             const float* pts_ray, int p0, int tn, bf16* rec, float* act, int& slot,
+                                             T::Acc acc, const Heads& hd) {
   const int tid = threadIdx.x;
   const int E = a.E, Ep = a.Ep, nh = a.nh;
   const int lda = 2 * Ep + 8;
@@ -228,6 +280,7 @@ __device__ __forceinline__ void tile_forward(const FieldArgs& a, const HalfWeigh
         const int c = T::col(j, e);
         acc[i][j][e] = c < nh ? softplus_b(acc[i][j][e] + hw.b1[c], a.beta) : 0.f;
       }
+  if constexpr (kAct32) store_act(acc, tn, act);
   T::store_tile(acc, s.h1);
   T::zero(acc);
   T::stream_mma(s.h1, LDW, hw.w2, WN, hw.wc1h, s.ring, slot, acc);
@@ -242,6 +295,7 @@ __device__ __forceinline__ void tile_forward(const FieldArgs& a, const HalfWeigh
         const int c = T::col(j, e);
         acc[i][j][e] = c < nh ? softplus_b(acc[i][j][e] + hw.b2[c], a.beta) : 0.f;
       }
+  if constexpr (kAct32) store_act(acc, tn, act + WN);
   T::store_tile(acc, s.h2);
   {
 #pragma unroll
@@ -265,7 +319,8 @@ __device__ __forceinline__ void tile_forward(const FieldArgs& a, const HalfWeigh
   T::zero(acc);
   T::stream_mma(s.h2, LDW, hw.wc1h, WN, nullptr, s.ring, slot, acc);
   T::to_global(s.h2, LDW, tn, WN, rec + 2 * Ep + WN, RW);
-  // c1, rounded: to X (the embedding is consumed)
+  // c1, rounded: to X (the embedding is consumed); kAct32: unrounded to
+  // act first, rounded by store_tile
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -273,8 +328,10 @@ __device__ __forceinline__ void tile_forward(const FieldArgs& a, const HalfWeigh
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = T::col(j, e);
-        acc[i][j][e] = c < nh ? bf16_round(softplus_b(acc[i][j][e] + s.dpart[c], a.beta)) : 0.f;
+        const float v = softplus_b(acc[i][j][e] + s.dpart[c], a.beta);
+        acc[i][j][e] = c < nh ? (kAct32 ? v : bf16_round(v)) : 0.f;
       }
+  if constexpr (kAct32) store_act(acc, tn, act + 2 * WN);
   T::store_tile(acc, s.X);
   // rgb = sigmoid(c1b . wc2 + bc2), per point over the tile's units; each
   // thread reads back its own rounded c1 values
@@ -302,15 +359,17 @@ __device__ __forceinline__ void tile_forward(const FieldArgs& a, const HalfWeigh
 }
 
 // Backward of points [p0, p0 + tn) of one ray, from the bf16 h1, h2 and c1
-// that tile_forward wrote to the tile's records rec: the heads' cotangents
-// (kLoss: from the composite's backward in shared memory, du over the ray
-// and the ray's gf in misc; else: from hd), the vector grads over the
-// tile's points into the block's slice vs, the ray's summed dc1p into
-// ddpart, and the cotangents dc1, dh2, dh1 (their two products on the
-// tensor cores), each written to the records beside the activations.
-template <bool kLoss>
+// that tile_forward wrote to the tile's records rec (kAct32: sigmoid' and
+// dwd from the f32 ones in act): the heads' cotangents (kLoss: from the
+// composite's backward in shared memory, du over the ray and the ray's gf
+// in misc; else: from hd), the vector grads over the tile's points into the
+// block's slice vs, the ray's summed dc1p into ddpart, and the cotangents
+// dc1, dh2, dh1 (their two products on the tensor cores), each written to
+// the records beside the activations.
+template <bool kLoss, bool kAct32>
 __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeights& hw, const Smem& s, float* vs,
-                                              int p0, int tn, bf16* rec, int& slot, T::Acc acc, const Heads& hd) {
+                                              int p0, int tn, bf16* rec, const float* act, int& slot, T::Acc acc,
+                                              const Heads& hd) {
   const int tid = threadIdx.x;
   const int Ep = a.Ep, nh = a.nh;
   const int RW = rec_width(Ep);
@@ -364,7 +423,7 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
   }
   __syncthreads();
   // the heads' grads over the tile's points: wc2 on the rounded c1, wd on
-  // the rounded h2 with an f32 du, and their biases
+  // the stored h2 (rounded, or kAct32 f32) with an f32 du, and their biases
   const float* du = kLoss ? s.du + p0 : s.du;
   if (tid < nh) {
     float g0 = 0.f, g1 = 0.f, g2 = 0.f, gd = 0.f;
@@ -373,7 +432,10 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
       g0 += c1 * s.dc2pb[t * 3];
       g1 += c1 * s.dc2pb[t * 3 + 1];
       g2 += c1 * s.dc2pb[t * 3 + 2];
-      gd += mma::tile_at(s.h2, t, tid) * du[t];
+      if constexpr (kAct32)
+        gd += act[(int64_t)t * ACT_W + WN + tid] * du[t];
+      else
+        gd += mma::tile_at(s.h2, t, tid) * du[t];
     }
     vs[o.wc2 + tid * 3] += g0;
     vs[o.wc2 + tid * 3 + 1] += g1;
@@ -391,21 +453,27 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
     vs[o.bd] += sum;
   }
   __syncthreads();  // c1b is read before dc1pb replaces it
-  // dc1p = (dc2pb Wc2^T) sigmoid'(c1b); dc1pb replaces c1b in X
+  // dc1p = (dc2pb Wc2^T) sigmoid'(c1); dc1pb replaces c1b in X.  The
+  // epilogues take a column pair (e = 2 h + q) of the stored activations.
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < T::JN; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int t = T::row(i, e), c = T::col(j, e);
-        float v = 0.f;
-        if (t < tn && c < nh) {
-          const float dc1 = s.dc2pb[t * 3] * hw.wc2[c * 3] + s.dc2pb[t * 3 + 1] * hw.wc2[c * 3 + 1] +
-                            s.dc2pb[t * 3 + 2] * hw.wc2[c * 3 + 2];
-          v = dc1 * sig_from_act(mma::tile_at(s.X, t, c), beta);
+      for (int h = 0; h < 2; ++h) {
+        const int t = T::row(i, 2 * h), c0 = T::col(j, 2 * h);
+        const float2 c1 = stored_pair<kAct32>(s.X, act + 2 * WN, t, c0, tn);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int c = c0 + q;
+          float v = 0.f;
+          if (t < tn && c < nh) {
+            const float dc1 = s.dc2pb[t * 3] * hw.wc2[c * 3] + s.dc2pb[t * 3 + 1] * hw.wc2[c * 3 + 1] +
+                              s.dc2pb[t * 3 + 2] * hw.wc2[c * 3 + 2];
+            v = dc1 * sig_from_act(q ? c1.y : c1.x, beta);
+          }
+          acc[i][j][2 * h + q] = v;
         }
-        acc[i][j][e] = v;
       }
   T::store_tile(acc, s.X);
   float cs = T::col_sum(acc, s.red);
@@ -413,7 +481,7 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
     vs[o.bc1 + tid] += cs;
     s.ddpart[tid] += cs;
   }
-  // dh2p = (dc1pb Wc1h^T + du wd) sigmoid'(h2b); dh2pb replaces h2b
+  // dh2p = (dc1pb Wc1h^T + du wd) sigmoid'(h2); dh2pb replaces h2b
   T::zero(acc);
   T::stream_mma(s.X, LDW, hw.wc1ht, WN, hw.w2t, s.ring, slot, acc);
   T::to_global(s.X, LDW, tn, WN, rec + 2 * Ep + 5 * WN, RW);
@@ -422,15 +490,20 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
 #pragma unroll
     for (int j = 0; j < T::JN; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int t = T::row(i, e), c = T::col(j, e);
-        acc[i][j][e] = t < tn && c < nh ? (acc[i][j][e] + du[t] * hw.wd[c]) * sig_from_act(mma::tile_at(s.h2, t, c), beta)
-                                        : 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const int t = T::row(i, 2 * h), c0 = T::col(j, 2 * h);
+        const float2 h2 = stored_pair<kAct32>(s.h2, act + WN, t, c0, tn);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int c = c0 + q, e = 2 * h + q;
+          acc[i][j][e] = t < tn && c < nh ? (acc[i][j][e] + du[t] * hw.wd[c]) * sig_from_act(q ? h2.y : h2.x, beta)
+                                          : 0.f;
+        }
       }
   T::store_tile(acc, s.h2);
   cs = T::col_sum(acc, s.red);
   if (tid < nh) vs[o.b2 + tid] += cs;
-  // dh1p = (dh2pb W2^T) sigmoid'(h1b); dh1pb replaces h1b
+  // dh1p = (dh2pb W2^T) sigmoid'(h1); dh1pb replaces h1b
   T::zero(acc);
   T::stream_mma(s.h2, LDW, hw.w2t, WN, nullptr, s.ring, slot, acc);
   T::to_global(s.h2, LDW, tn, WN, rec + 2 * Ep + 4 * WN, RW);
@@ -439,9 +512,14 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
 #pragma unroll
     for (int j = 0; j < T::JN; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int t = T::row(i, e), c = T::col(j, e);
-        acc[i][j][e] = t < tn && c < nh ? acc[i][j][e] * sig_from_act(mma::tile_at(s.h1, t, c), beta) : 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const int t = T::row(i, 2 * h), c0 = T::col(j, 2 * h);
+        const float2 h1 = stored_pair<kAct32>(s.h1, act, t, c0, tn);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int c = c0 + q, e = 2 * h + q;
+          acc[i][j][e] = t < tn && c < nh ? acc[i][j][e] * sig_from_act(q ? h1.y : h1.x, beta) : 0.f;
+        }
       }
   T::store_tile(acc, s.h1);
   cs = T::col_sum(acc, s.red);

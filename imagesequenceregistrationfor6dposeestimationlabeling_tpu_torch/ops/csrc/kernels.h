@@ -50,31 +50,36 @@ int field_dw_tiles(int e, int n_hidden);
 // (2 ep rows), w2, wc1h, wc1h^T, w2^T (256 rows).  vecs[9] are f32 with a
 // leading half axis: b1, b2, wd, bd, wc1ds, wc1dc, bc1, wc2, bc2.  Scratch:
 // vwork (H, n_blocks, vec width), rec (H, R, P, rec width) and rrec (H, R,
-// ray rec width) bf16, part (H, n_splits, G), G = 4 E nh + 2 nh^2.  Out:
+// ray rec width) bf16, part (H, n_splits, G), G = 4 E nh + 2 nh^2; act
+// (H, R, P, 3 x 256) f32: null for bf16 activations, else the act32
+// variant's (bundle_loss_act32_kernel) record of the f32 activations.  Out:
 // vec_out (H, vec width) = b1 b2 wd bd bc1 wc2 bc2 ce_sum se_sum, mat_out
 // (H, G) = w1s w1c w2 wc1h wc1ds wc1dc, flat; w_out (H, R, P) may be null.
 void launch_bundle_loss(const float* pts, const float* dirs, const float* tgt, int n_halves, int n_rays, int n_pts,
                         const float* fmat, int n_base, int ladder, int ep, const void* const* mats,
                         const float* const* vecs, int n_hidden, float beta, float hs, float hs2, float scale,
-                        float scale3, float* vwork, int n_blocks, void* rec, void* rrec, float* part, int n_splits,
-                        float* vec_out, float* mat_out, float* w_out, void* stream);
+                        float scale3, float* vwork, int n_blocks, void* rec, void* rrec, float* act, float* part,
+                        int n_splits, float* vec_out, float* mat_out, float* w_out, void* stream);
 
 // K5: NeRF field colour forward for n_halves fields, residuals stored
 // (field_color.cu).  pts (H, R, P, 3), unit dirs (H, R, 3); mats and vecs
 // as for K4 (K5 reads w1, w2, wc1h and every vec).  Writes dens (H, R, P,
 // 1) and rgb (H, R, P, 3) in f32, and each point's es | ec | h1 | h2 | c1
-// into rec (H, R, P, rec width).  n_blocks blocks per half walk the rays.
+// into rec (H, R, P, rec width); act as K4's (non-null: the act32 variant,
+// which also writes each point's f32 h1 | h2 | c1 there).  n_blocks blocks
+// per half walk the rays.
 void launch_field_color_fwd(const float* pts, const float* dirs, int n_halves, int n_rays, int n_pts,
                             const float* fmat, int n_base, int ladder, int ep, const void* const* mats,
-                            const float* const* vecs, int n_hidden, float beta, void* rec, float* dens, float* rgb,
-                            int n_blocks, void* stream);
+                            const float* const* vecs, int n_hidden, float beta, void* rec, float* act, float* dens,
+                            float* rgb, int n_blocks, void* stream);
 
-// K6: its backward (field_color.cu).  From K5's record and outputs and the
-// cotangents gdens (H, R, P, 1), grgb (H, R, P, 3): K6 reads mats wc1ht,
-// w2t and vecs wd, wc2; fills the record's cotangent slots and rrec; out
-// vec_out and mat_out as K4's (ce_sum, se_sum zero).  Scratch as K4's.
+// K6: its backward (field_color.cu).  From K5's records (act: null, or
+// the act32 variant's f32 record) and outputs and the cotangents gdens (H,
+// R, P, 1), grgb (H, R, P, 3): K6 reads mats wc1ht, w2t and vecs wd, wc2;
+// fills the record's cotangent slots and rrec; out vec_out and mat_out as
+// K4's (ce_sum, se_sum zero).  Scratch as K4's.
 void launch_field_color_bwd(const float* dirs, int n_halves, int n_rays, int n_pts, const float* fmat, int n_base,
                             int ladder, int ep, const void* const* mats, const float* const* vecs, int n_hidden,
-                            float beta, void* rec, const float* dens, const float* rgb, const float* gdens,
-                            const float* grgb, float* vwork, int n_blocks, void* rrec, float* part, int n_splits,
-                            float* vec_out, float* mat_out, void* stream);
+                            float beta, void* rec, const float* act, const float* dens, const float* rgb,
+                            const float* gdens, const float* grgb, float* vwork, int n_blocks, void* rrec, float* part,
+                            int n_splits, float* vec_out, float* mat_out, void* stream);

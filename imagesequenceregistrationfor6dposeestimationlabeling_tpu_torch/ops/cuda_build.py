@@ -49,12 +49,15 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def count(wrapper, device) -> None:
+def count(wrapper, device, name: str | None = None) -> None:
     """One launch of ``wrapper``'s kernel on ``device``: its total
-    (``wrapper.launches``) and its count per device index
-    (``wrapper.per_device``)."""
+    (``wrapper.launches``), its count per device index
+    (``wrapper.per_device``) and per launch name (``wrapper.by_name``: a
+    wrapper whose kernel has variants launches each under its own name)."""
     wrapper.launches += 1
     wrapper.per_device[device.index] = wrapper.per_device.get(device.index, 0) + 1
+    if name is not None:
+        wrapper.by_name[name] = wrapper.by_name.get(name, 0) + 1
 
 
 @contextlib.contextmanager
@@ -63,20 +66,21 @@ def launch(wrapper, name: str, device):
     ``device``: that device current, for the launch itself and for the
     launcher's attribute calls (dynamic shared memory limits are set per
     device); the program's span ``kernel.<name>`` around the launch; and
-    the launch counted (``count``) once it returns."""
+    the launch counted (``count``, under ``name`` too) once it returns."""
     import torch
 
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils import profiling
 
     with torch.cuda.device(device), profiling.span("kernel." + name):
         yield
-    count(wrapper, device)
+    count(wrapper, device, name)
 
 
 def reset(wrapper) -> None:
     """Set ``wrapper``'s launch counts to 0."""
     wrapper.launches = 0
     wrapper.per_device = {}
+    wrapper.by_name = {}
 
 
 def check(t, name: str, dtype, shape, device):

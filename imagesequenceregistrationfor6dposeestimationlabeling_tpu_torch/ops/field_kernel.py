@@ -10,9 +10,14 @@ forward, EA composite, huber loss and backward.  K5/K6 are the
 counterpart of ``_fwd_kernel`` / ``_bwd_kernel`` / ``field_color``: the
 field's colour forward with stored residuals and its backward, as one
 ``torch.autograd.Function`` (``FieldColor``).  Numerics are the kernels',
-not flax's: angles are exact f32 products, the embedding, the bf16
-weights and the stored activations are rounded to bf16 with f32
-accumulation, the density head is f32 on the unrounded h2.
+not flax's: angles are exact f32 products, every product takes bf16
+operands (the embedding, the weights, the activations) with f32
+accumulation, the density head is f32 on the unrounded h2.  The field's
+``act_dtype`` picks K4's, K5's and K6's variant: with "bfloat16" the
+backward takes sigmoid' and the density head's weight grad from the
+rounded h1, h2 and c1; with "float32" (``FieldConfig()``'s default; the
+``*_act32`` kernels) from the unrounded ones, which the kernels keep in a
+second, f32 record.  The forward is the same in both, so K1 has one.
 
 The host helpers (frequency matrices, the ladder's row permutation, the
 weight splits) are shared by both versions.  ``density_op``,
@@ -22,6 +27,7 @@ run the plain version for a CPU tensor and the kernel for a CUDA tensor.
 
 from __future__ import annotations
 
+import functools
 import math
 from types import SimpleNamespace
 
@@ -36,18 +42,37 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.field
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import cuda_build
 
 
+# the activation dtypes the field kernels have a variant for
+ACT_DTYPES = ("bfloat16", "float32")
+
+
 def enabled(cfg, device) -> bool:
-    """Use the density kernel for this field?  Auto (``fused_kernel=None``):
-    only on a CUDA device and only for a field configured for the kernel's
-    numerics (bf16 matmuls and bf16 activations)."""
+    """Use the field kernels (K1, K4-K6) for this field?  ``fused_kernel``
+    True or False forces them on or off.  Auto (None): on for a CUDA device
+    when the field's products take bf16 operands (``compute_dtype``), the
+    kernels' numerics, and its activations are stored in one of
+    ``ACT_DTYPES``: K4-K6 run the variant of the field's ``act_dtype``, K1
+    (forward only) is the same for both.  Products in float32 stay on the
+    field's own path: the tensor cores' products cannot compute them."""
     flag = getattr(cfg, "fused_kernel", None)
     if flag is None:
-        return (
-            torch.device(device).type == "cuda"
-            and getattr(cfg, "compute_dtype", None) == "bfloat16"
-            and getattr(cfg, "act_dtype", None) == "bfloat16"
-        )
+        return (torch.device(device).type == "cuda" and getattr(cfg, "compute_dtype", None) == "bfloat16"
+                and getattr(cfg, "act_dtype", None) in ACT_DTYPES)
     return bool(flag)
+
+
+def _act32(act_dtype: str) -> bool:
+    """Does ``act_dtype`` select the float32-activation variant?"""
+    if act_dtype not in ACT_DTYPES:
+        raise ValueError(f"field kernels: activation dtype {act_dtype!r} is not one of {ACT_DTYPES}")
+    return act_dtype == "float32"
+
+
+def _variant(name: str, act32: bool) -> str:
+    """A kernel's launch name, ``_act32`` for the float32-activation
+    variant: its span ``kernel.<name>`` and its key in the wrapper's
+    ``by_name`` launch counts."""
+    return name + "_act32" if act32 else name
 
 
 def ladder_of(cfg) -> int:
@@ -95,12 +120,37 @@ def fmat_of(cfg) -> np.ndarray:
     return freq_matrix_g(H, cfg.omega0, ladder) if ladder else freq_matrix(H, cfg.omega0)
 
 
+def fmat_on(cfg, device) -> torch.Tensor:
+    """``fmat_of(cfg)`` on ``device``, read-only and shared."""
+    return _fmat_on(torch.device(device), int(cfg.n_harmonic_functions), float(cfg.omega0), ladder_of(cfg))
+
+
+def ladder_perm_on(n_harmonic: int, ladder: int, device, inverse: bool = False) -> torch.Tensor:
+    """``ladder_perm`` (or its inverse) on ``device``, read-only and shared."""
+    return _perm_on(torch.device(device), n_harmonic, ladder, inverse)
+
+
+# The field ops' host constants are copied to a device once: a copy from
+# the host waits for everything queued on the device, and the NeRF step
+# would pay that wait at every field call.
+@functools.lru_cache(maxsize=None)
+def _fmat_on(device: torch.device, n_harmonic: int, omega0: float, ladder: int) -> torch.Tensor:
+    F = freq_matrix_g(n_harmonic, omega0, ladder) if ladder else freq_matrix(n_harmonic, omega0)
+    return torch.from_numpy(F).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _perm_on(device: torch.device, n_harmonic: int, ladder: int, inverse: bool) -> torch.Tensor:
+    perm = ladder_perm(n_harmonic, ladder)
+    return torch.from_numpy(np.argsort(perm) if inverse else perm).to(device)
+
+
 def density_weights(field):
     """The field's density path in the kernel's layout, f32 (in, out):
     (fmat, w1s, w1c, b1, w2, b2, wd (nh,), bd (1,)); W1's rows permuted to
     the ladder's rung-major order for the grouped embedding."""
     w = dict(zip(LOSS_BLOCKS, loss_weights(field)))
-    fm = torch.from_numpy(fmat_of(field.cfg)).to(w["w1s"].device)
+    fm = fmat_on(field.cfg, w["w1s"].device)
     return (fm,) + tuple(w[k] for k in ("w1s", "w1c", "b1", "w2", "b2", "wd", "bd"))
 
 
@@ -265,7 +315,7 @@ def color_weights(field):
     )
     ladder = ladder_of(cfg)
     if ladder:
-        perm = torch.from_numpy(ladder_perm(H, ladder)).to(w1.device)
+        perm = ladder_perm_on(H, ladder, w1.device)
         for k in _EMBED_ROW_BLOCKS:
             blocks[k] = blocks[k].index_select(0, perm)
     return tuple(blocks[k] for k in LOSS_BLOCKS)
@@ -302,7 +352,10 @@ def _color_head(c1b, weights):
 def _field_forward(pts, dirs, fmat, weights, ladder: int, beta: float):
     """The plain field forward of K4 and K5, with the TPU kernels' rounding
     points: pts (nH, R, P, 3), unit dirs (nH, R, 3).  Returns its
-    intermediates by name, flat over (R, P) points."""
+    intermediates by name, flat over (R, P) points: the products' rounded
+    activations (h1b, h2b, c1b) and the unrounded ones (h1, h2, c1), which
+    the float32-activation variant stores.  The same at either activation
+    dtype."""
     w1s, w1c, b1, wc1h, wc1ds, wc1dc, bc1 = (weights[i] for i in (0, 1, 2, 7, 8, 9, 10))
     nH, R, P, _ = pts.shape
     N = R * P
@@ -319,37 +372,41 @@ def _field_forward(pts, dirs, fmat, weights, ladder: int, beta: float):
     c1 = softplus_beta((h2b @ bf(wc1h)).reshape(nH, R, P, -1) + dpart[:, :, None], beta)
     c1b = bf(c1).reshape(nH, N, -1)
     rgb = _color_head(c1b, weights)                                                # (nH, N, 3)
-    return SimpleNamespace(es=es, ec=ec, h1b=h1b, h2b=h2b, raw=raw, dsb=dsb, dcb=dcb, c1b=c1b, rgb=rgb)
+    return SimpleNamespace(es=es, ec=ec, h1b=h1b, h2b=h2b, raw=raw, dsb=dsb, dcb=dcb, c1b=c1b, rgb=rgb, h1=h1, h2=h2,
+                           c1=c1.reshape(nH, N, -1))
 
 
-def _field_backward(f, du, grgb, weights, R: int, P: int, beta: float):
+def _field_backward(f, du, grgb, weights, R: int, P: int, beta: float, act_dtype: str):
     """The reference's _grad_math in plain PyTorch: the 13 weight grads
-    (leading nH) from the stored activations ``f`` (as ``_field_forward``
-    names them), the density head's pre-activation cotangent du (nH, N, 1)
-    and the rgb cotangent grgb (nH, N, 3).  Every product operand is bf16;
-    sigmoid' comes from the rounded activations; a ray's ddpart is summed
-    in f32 and rounded once."""
+    (leading nH) from the activations ``f`` (as ``_field_forward`` names
+    them), the density head's pre-activation cotangent du (nH, N, 1) and
+    the rgb cotangent grgb (nH, N, 3).  Every product operand is bf16, and
+    every cotangent is rounded to bf16 where it enters a product; sigmoid'
+    and the density head's weight grad read the activations as stored in
+    ``act_dtype``: rounded to bf16 ("bfloat16"), or unrounded ("float32");
+    a ray's ddpart is summed in f32 and rounded once."""
     w2, wd, wc1h, wc2 = weights[3], weights[5], weights[7], weights[11]
     nH = du.shape[0]
     bf = _bf16
+    h1, h2, c1 = (f.h1, f.h2, f.c1) if _act32(act_dtype) else (f.h1b, f.h2b, f.c1b)
     dc2p = grgb * f.rgb * (1.0 - f.rgb)
     dc2pb = bf(dc2p)
     dwc2 = _t(f.c1b) @ dc2pb
     dbc2 = dc2p.sum(1)
-    dc1p = (dc2pb @ _t(bf(wc2))) * _sig_from_act(f.c1b, beta)
+    dc1p = (dc2pb @ _t(bf(wc2))) * _sig_from_act(c1, beta)
     dc1pb = bf(dc1p)
     dwc1h = _t(f.h2b) @ dc1pb
     dbc1 = dc1p.sum(1)
     ddpart = bf(dc1p.reshape(nH, R, P, -1).sum(2))                                # (nH, R, C)
     dwc1ds = _t(f.dsb) @ ddpart
     dwc1dc = _t(f.dcb) @ ddpart
-    dwd = (_t(f.h2b) @ du)[..., 0]
+    dwd = (_t(h2) @ du)[..., 0]
     dbd = du.sum(1)
-    dh2p = (dc1pb @ _t(bf(wc1h)) + du @ wd[:, None, :]) * _sig_from_act(f.h2b, beta)
+    dh2p = (dc1pb @ _t(bf(wc1h)) + du @ wd[:, None, :]) * _sig_from_act(h2, beta)
     dh2pb = bf(dh2p)
     dw2 = _t(f.h1b) @ dh2pb
     db2 = dh2p.sum(1)
-    dh1p = (dh2pb @ _t(bf(w2))) * _sig_from_act(f.h1b, beta)
+    dh1p = (dh2pb @ _t(bf(w2))) * _sig_from_act(h1, beta)
     dh1pb = bf(dh1p)
     return (_t(f.es) @ dh1pb, _t(f.ec) @ dh1pb, dh1p.sum(1), dw2, db2, dwd, dbd, dwc1h, dwc1ds, dwc1dc, dbc1,
             dwc2, dbc2)
@@ -380,11 +437,12 @@ def _bundle_forward(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs:
 
 
 def bundle_loss_plain(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float, scale: float,
-                      want_weights: bool):
+                      want_weights: bool, act_dtype: str):
     """Plain PyTorch version of K4: one expression per line of the
     reference kernel's forward, composite, loss and hand backward, with
     its rounding points (bf16 operands of every product but the density
-    head's, f32 accumulation; the backward reads the rounded activations)."""
+    head's, f32 accumulation; the backward reads the activations as stored
+    in ``act_dtype``, rounded to bf16 or unrounded)."""
     nH, R, P, _ = pts.shape
     N = R * P
     b = _bundle_forward(pts, dirs, tgt, fmat, weights, ladder, beta, hs)
@@ -400,7 +458,7 @@ def bundle_loss_plain(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, h
     rev_excl = T.sum(-1, keepdim=True) - torch.cumsum(T, -1)
     g_raw = gw * (A - w) - rev_excl + gO * b.eS
     du = g_raw.reshape(nH, N, 1) * _sig_from_act(f.raw, beta)
-    grads = _field_backward(f, du, grgb, weights, R, P, beta)
+    grads = _field_backward(f, du, grgb, weights, R, P, beta, act_dtype)
     return grads, b.loss, (w if want_weights else None)
 
 
@@ -460,6 +518,18 @@ def _mma_operands(wts: dict, ep: int, names) -> list:
     return [make[k]() for k in names]
 
 
+def _act_record(lead: tuple, dev) -> torch.Tensor:
+    """The float32-activation variant's per-point record of f32
+    activations, h1 | h2 | c1 (256 each, as csrc/field_tc.cuh's ACT_W), for
+    points of shape ``lead``."""
+    return torch.empty(lead + (3 * _TILE_N,), dtype=torch.float32, device=dev)
+
+
+def _ptr(t) -> int:
+    """A tensor's device pointer, 0 for None (a kernel's null)."""
+    return 0 if t is None else t.data_ptr()
+
+
 # The weight grads of K4 and K6: the matrix grads (from the contraction
 # kernel) and the vector grads, then K4's (ce_sum, se_sum) (from per-block
 # slices), each flat
@@ -490,13 +560,17 @@ def _grads_of(buf, shapes: dict) -> tuple:
 
 
 def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float, scale: float,
-                     want_weights: bool):
+                     want_weights: bool, act_dtype: str):
     """K4 on the card (``csrc/bundle_loss.cu``): the same contract as
     ``bundle_loss_plain``.  A persistent grid walks the rays and writes
-    each point's activations and cotangents to a bf16 workspace; a second
-    kernel contracts them into the weight grads over fixed slices of the
-    points, and small kernels sum the slices in a fixed order, so two
-    launches give bit-identical grads."""
+    each point's activations and cotangents to a bf16 workspace (with
+    ``act_dtype`` "float32", ``bundle_loss_act32_kernel``: its f32
+    activations to a second one); a second kernel contracts them into the
+    weight grads over fixed slices of the points, and small kernels sum the
+    slices in a fixed order, so two launches give bit-identical grads.
+    Launches count on ``bundle_loss_cuda``, each variant's under its launch
+    name (``by_name``: "bundle_loss", "bundle_loss_act32")."""
+    act32 = _act32(act_dtype)
     dev = pts.device
     f32 = torch.float32
     nH, R, P, _ = pts.shape
@@ -518,14 +592,15 @@ def bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs
         ext = cuda_build.kernels()
         buf = _grad_buffers(ext, dev, nH, R, P, E, nh)
         rec = torch.empty((nH, R * P, ext.field_rec_width(ep)), dtype=torch.bfloat16, device=dev)
+        act = _act_record((nH, R * P), dev) if act32 else None
         mats = _mma_operands(wts, ep, ("w1", "w2", "wc1h", "wc1ht", "w2t"))
-        with cuda_build.launch(bundle_loss_cuda, "bundle_loss", dev):
+        with cuda_build.launch(bundle_loss_cuda, _variant("bundle_loss", act32), dev):
             ext.bundle_loss(
                 pts.data_ptr(), dirs.data_ptr(), tgt.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
                 *(m.data_ptr() for m in mats),
                 *(wts[k].data_ptr() for k in ("b1", "b2", "wd", "bd", "wc1ds", "wc1dc", "bc1", "wc2", "bc2")),
                 nh, float(beta), float(hs), float(hs * hs), float(scale), float(scale / 3.0), buf.vwork.data_ptr(),
-                buf.n_blocks, rec.data_ptr(), buf.rrec.data_ptr(), buf.part.data_ptr(), buf.n_splits,
+                buf.n_blocks, rec.data_ptr(), buf.rrec.data_ptr(), _ptr(act), buf.part.data_ptr(), buf.n_splits,
                 buf.vec.data_ptr(), buf.mats.data_ptr(), 0 if w_out is None else w_out.data_ptr(),
                 cuda_build.stream_ptr(dev),
             )
@@ -536,12 +611,13 @@ cuda_build.reset(bundle_loss_cuda)
 
 
 def bundle_loss_op(pts, dirs, tgt, fmat, weights, ladder: int, beta: float, hs: float, scale: float,
-                   want_weights: bool):
-    """K4 for a CUDA tensor, its plain version for a CPU tensor."""
+                   want_weights: bool, act_dtype: str):
+    """K4 (the variant of ``act_dtype``) for a CUDA tensor, its plain
+    version for a CPU tensor."""
     if pts.device.type == "cuda":
-        return bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder, beta, hs, scale, want_weights)
+        return bundle_loss_cuda(pts, dirs, tgt, fmat, weights, ladder, beta, hs, scale, want_weights, act_dtype)
     if pts.device.type == "cpu":
-        return bundle_loss_plain(pts, dirs, tgt, fmat, weights, ladder, beta, hs, scale, want_weights)
+        return bundle_loss_plain(pts, dirs, tgt, fmat, weights, ladder, beta, hs, scale, want_weights, act_dtype)
     raise ValueError(f"bundle loss op: unsupported device {pts.device}")
 
 
@@ -567,7 +643,8 @@ def _set_grads(field, grads, inv):
 def bundle_loss_grads(fields, pts, dirs, col, sil, valid, cfg, huber_scaling: float, scale: float,
                       want_weights: bool = False):
     """Field forward + EA composite + huber loss + backward for H fields in
-    one K4 call (the kernel on a CUDA device, its plain version on the CPU).
+    one K4 call (the kernel on a CUDA device, its plain version on the CPU;
+    the variant of ``cfg.act_dtype``).
 
     ``fields``: one NerfField per half, all of config ``cfg``.  pts (H, R,
     P, 3); dirs (H, R, 3) un-normalized; col (H, R, 3); sil, valid (H, R,
@@ -581,11 +658,12 @@ def bundle_loss_grads(fields, pts, dirs, col, sil, valid, cfg, huber_scaling: fl
     tgt = torch.cat([col, sil, valid, torch.zeros_like(col)], -1).to(torch.float32).contiguous()
     weights = tuple(torch.stack(blocks) for blocks in zip(*(loss_weights(f) for f in fields)))
     grads, loss, w = bundle_loss_op(pts.detach().contiguous(), dn.detach().contiguous(), tgt,
-                                    torch.from_numpy(fmat_of(cfg)).to(dev), weights, ladder,
-                                    float(cfg.softplus_beta), float(huber_scaling), float(scale), want_weights)
+                                    fmat_on(cfg, dev), weights, ladder,
+                                    float(cfg.softplus_beta), float(huber_scaling), float(scale), want_weights,
+                                    cfg.act_dtype)
     inv = None
     if ladder:
-        inv = torch.from_numpy(np.argsort(ladder_perm(cfg.n_harmonic_functions, ladder))).to(dev)
+        inv = ladder_perm_on(cfg.n_harmonic_functions, ladder, dev, inverse=True)
     for h, f in enumerate(fields):
         _set_grads(f, [g[h] for g in grads], inv)
     return loss[:, 0], loss[:, 1], w
@@ -598,10 +676,12 @@ def bundle_loss_grads(fields, pts, dirs, col, sil, valid, cfg, huber_scaling: fl
 # and the backward from them into the 13 weight grads (K6), bound as one
 # autograd.Function.  Shapes as K4's: pts (H, R, P, 3), unit view dirs
 # (H, R, 3), each weight block with a leading H.  The residuals are the
-# bf16 activations h1, h2, c1 (H, R, P, nh) and the embedding es, ec
-# (H, R, P, E), E in the kernels' (rung-major) column order.  On the card
-# they are views of K4's per-point record (``record_views``), which K6
-# fills with the cotangents and contracts.
+# activations h1, h2, c1 (H, R, P, nh) in the field's ``act_dtype`` (bf16
+# or f32) and the bf16 embedding es, ec (H, R, P, E), E in the kernels'
+# (rung-major) column order.  On the card they are views of K4's per-point
+# record (``record_views``), which K6 fills with the cotangents and
+# contracts; with f32 activations h1, h2, c1 are views of the f32 record
+# ("acts") instead.
 
 RESIDUALS = ("h1", "h2", "c1", "es", "ec")
 
@@ -629,14 +709,17 @@ def record_views(rec: torch.Tensor, E: int, nh: int) -> dict:
     return {k: rec[..., start[k]:start[k] + (E if k in ("es", "ec") else nh)] for k in RESIDUALS}
 
 
-def field_color_fwd_plain(pts, dirs, fmat, weights, ladder: int, beta: float):
+def field_color_fwd_plain(pts, dirs, fmat, weights, ladder: int, beta: float, act_dtype: str):
     """Plain PyTorch version of K5: (dens (H, R, P, 1), rgb (H, R, P, 3),
-    residuals {name: bf16 (H, R, P, .)}), with the TPU kernel's rounding
-    points."""
+    residuals {name: (H, R, P, .)}), with the TPU kernel's rounding points.
+    The residuals are bf16 but h1, h2 and c1, which are stored in
+    ``act_dtype`` (with "float32" unrounded)."""
     nH, R, P, _ = pts.shape
     f = _field_forward(pts, dirs, fmat, weights, ladder, beta)
-    res = dict(h1=f.h1b, h2=f.h2b, c1=f.c1b, es=f.es, ec=f.ec)
-    res = {k: v.reshape(nH, R, P, -1).to(torch.bfloat16) for k, v in res.items()}
+    act = torch.float32 if _act32(act_dtype) else torch.bfloat16
+    acts = dict(h1=f.h1, h2=f.h2, c1=f.c1) if act == torch.float32 else dict(h1=f.h1b, h2=f.h2b, c1=f.c1b)
+    res = {**acts, "es": f.es, "ec": f.ec}
+    res = {k: v.reshape(nH, R, P, -1).to(act if k in acts else torch.bfloat16) for k, v in res.items()}
     dens = (1.0 - torch.exp(-f.raw)).reshape(nH, R, P, 1)
     return dens, f.rgb.reshape(nH, R, P, 3), res
 
@@ -644,36 +727,44 @@ def field_color_fwd_plain(pts, dirs, fmat, weights, ladder: int, beta: float):
 def field_color_heads(res, weights, beta: float):
     """dens (H, R, P, 1) and rgb (H, R, P, 3) of the plain K5's heads from
     given residuals: the density head reads only h1, the colour head only
-    c1, both rounded.  Holds a kernel's heads to its own residuals."""
+    c1, both rounded (bf16 or f32 residuals).  Holds a kernel's heads to
+    its own residuals."""
     h1, c1 = res["h1"], res["c1"]
     nH, lead = h1.shape[0], h1.shape[:-1]
-    _, raw = _density_head(h1.float().reshape(nH, -1, h1.shape[-1]), weights, beta)
-    rgb = _color_head(c1.float().reshape(nH, -1, c1.shape[-1]), weights)
+    _, raw = _density_head(_bf16(h1.float()).reshape(nH, -1, h1.shape[-1]), weights, beta)
+    rgb = _color_head(_bf16(c1.float()).reshape(nH, -1, c1.shape[-1]), weights)
     return (1.0 - torch.exp(-raw)).reshape(lead + (1,)), rgb.reshape(lead + (3,))
 
 
-def field_color_bwd_plain(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder: int, beta: float):
+def field_color_bwd_plain(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder: int, beta: float,
+                          act_dtype: str):
     """Plain PyTorch version of K6: the 13 weight grads (leading H) from
     K5's residuals and outputs and the cotangents gdens (H, R, P, 1), grgb
     (H, R, P, 3).  The density head's sigmoid' comes from the stored dens,
-    the direction embedding is recomputed per ray."""
+    the direction embedding is recomputed per ray; the products take the
+    activations rounded to bf16, sigmoid' and dwd the stored ones (in
+    ``act_dtype``)."""
     nH, R, P, _ = dens.shape
     N = R * P
     ds, dc = _embed_plain(dirs.reshape(-1, 3), fmat, ladder)
     acts = {k: res[k].to(torch.float32).reshape(nH, N, -1) for k in RESIDUALS}
-    f = SimpleNamespace(h1b=acts["h1"], h2b=acts["h2"], c1b=acts["c1"], es=acts["es"], ec=acts["ec"],
+    f = SimpleNamespace(h1b=_bf16(acts["h1"]), h2b=_bf16(acts["h2"]), c1b=_bf16(acts["c1"]), h1=acts["h1"],
+                        h2=acts["h2"], c1=acts["c1"], es=acts["es"], ec=acts["ec"],
                         dsb=_bf16(ds).reshape(nH, R, -1), dcb=_bf16(dc).reshape(nH, R, -1),
                         rgb=rgb.reshape(nH, N, 3))
     d = dens.reshape(nH, N, 1)
     du = gdens.reshape(nH, N, 1) * (1.0 - d) * (1.0 - torch.exp(beta * torch.log1p(-d)))
-    return _field_backward(f, du, grgb.reshape(nH, N, 3), weights, R, P, beta)
+    return _field_backward(f, du, grgb.reshape(nH, N, 3), weights, R, P, beta, act_dtype)
 
 
-def field_color_fwd_cuda(pts, dirs, fmat, weights, ladder: int, beta: float):
+def field_color_fwd_cuda(pts, dirs, fmat, weights, ladder: int, beta: float, act_dtype: str):
     """K5 on the card (``csrc/field_color.cu``): the contract of
     ``field_color_fwd_plain``, the residuals as views of the points'
-    records, which the dict also holds under "record" for K6.  A persistent
-    grid whose blocks walk whole rays."""
+    records, which the dict also holds under "record" (and with
+    ``act_dtype`` "float32", ``field_color_fwd_act32_kernel``, the f32 one
+    under "acts") for K6.  A persistent grid whose blocks walk whole rays.
+    Launches count on ``field_color_fwd_cuda``, by variant in ``by_name``."""
+    act32 = _act32(act_dtype)
     dev = pts.device
     f32 = torch.float32
     nH, R, P, _ = pts.shape
@@ -688,34 +779,42 @@ def field_color_fwd_cuda(pts, dirs, fmat, weights, ladder: int, beta: float):
     dens = torch.empty((nH, R, P, 1), dtype=f32, device=dev)
     rgb = torch.empty((nH, R, P, 3), dtype=f32, device=dev)
     rec = torch.empty((nH, R, P, _rec_width(ep)), dtype=torch.bfloat16, device=dev)
+    act = _act_record((nH, R, P), dev) if act32 else None
     if R and P:
         ext = _record_kernels(ep)
         mats = _mma_operands(wts, ep, ("w1", "w2", "wc1h"))
-        with cuda_build.launch(field_color_fwd_cuda, "field_color_fwd", dev):
+        with cuda_build.launch(field_color_fwd_cuda, _variant("field_color_fwd", act32), dev):
             ext.field_color_fwd(
                 pts.data_ptr(), dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
                 *(m.data_ptr() for m in mats),
                 *(wts[k].data_ptr() for k in ("b1", "b2", "wd", "bd", "wc1ds", "wc1dc", "bc1", "wc2", "bc2")),
-                nh, float(beta), rec.data_ptr(), dens.data_ptr(), rgb.data_ptr(),
+                nh, float(beta), rec.data_ptr(), _ptr(act), dens.data_ptr(), rgb.data_ptr(),
                 _resident_blocks(dev, R, nH), cuda_build.stream_ptr(dev),
             )
-    return dens, rgb, {**record_views(rec, E, nh), "record": rec}
+    res = {**record_views(rec, E, nh), "record": rec}
+    if act32:
+        res.update({k: act[..., i * _TILE_N:i * _TILE_N + nh] for i, k in enumerate(("h1", "h2", "c1"))}, acts=act)
+    return dens, rgb, res
 
 
 cuda_build.reset(field_color_fwd_cuda)
 
 
-def field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder: int, beta: float):
+def field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder: int, beta: float,
+                         act_dtype: str):
     """K6 on the card (``csrc/field_color.cu``): the contract of
     ``field_color_bwd_plain``.  It reads the residuals from K5's records
-    (``res["record"]``, which it requires) and writes each point's
-    cotangents into them.  A persistent grid walks
-    whole rays, each block adding the vector grads into its own f32 slice;
-    a contraction kernel computes the matrix grads over fixed slices of the
-    points, and small kernels sum the slices in a fixed order: two launches
-    give bit-identical grads."""
-    if "record" not in res:
-        raise ValueError("field colour backward: K6 reads K5's records, res['record'] is missing")
+    (``res["record"]``, and with ``act_dtype`` "float32" ``res["acts"]``,
+    which it requires) and writes each point's cotangents into them.  A
+    persistent grid walks whole rays, each block adding the vector grads
+    into its own f32 slice; a contraction kernel computes the matrix grads
+    over fixed slices of the points, and small kernels sum the slices in a
+    fixed order: two launches give bit-identical grads.  Launches count on
+    ``field_color_bwd_cuda``, by variant in ``by_name``."""
+    act32 = _act32(act_dtype)
+    for key in ("record", "acts") if act32 else ("record",):
+        if key not in res:
+            raise ValueError(f"field colour backward: K6 reads K5's records, res[{key!r}] is missing")
     dev = dens.device
     f32 = torch.float32
     nH, R, P, _ = dens.shape
@@ -729,6 +828,9 @@ def field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladde
         cuda_build.check(t, name, f32, (nH, R, P, shape), dev)
     rec = res["record"]
     cuda_build.check(rec, "record", torch.bfloat16, (nH, R, P, _rec_width(ep)), dev)
+    act = res["acts"] if act32 else None
+    if act32:
+        cuda_build.check(act, "acts", f32, (nH, R, P, 3 * _TILE_N), dev)
     shapes = _block_shapes(E, nh)
     wts = _kernel_weights(weights, shapes, nH, dev)
     if not (R and P):
@@ -737,11 +839,11 @@ def field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladde
     ext = _record_kernels(ep)
     buf = _grad_buffers(ext, dev, nH, R, P, E, nh)
     mats = _mma_operands(wts, ep, ("wc1ht", "w2t"))
-    with cuda_build.launch(field_color_bwd_cuda, "field_color_bwd", dev):
+    with cuda_build.launch(field_color_bwd_cuda, _variant("field_color_bwd", act32), dev):
         ext.field_color_bwd(
             dirs.data_ptr(), nH, R, P, fmat.data_ptr(), n_base, ladder, ep,
             *(m.data_ptr() for m in mats), wts["wd"].data_ptr(),
-            wts["wc2"].data_ptr(), nh, float(beta), rec.data_ptr(), dens.data_ptr(), rgb.data_ptr(),
+            wts["wc2"].data_ptr(), nh, float(beta), rec.data_ptr(), _ptr(act), dens.data_ptr(), rgb.data_ptr(),
             gdens.data_ptr(), grgb.data_ptr(), buf.vwork.data_ptr(), buf.n_blocks, buf.rrec.data_ptr(),
             buf.part.data_ptr(), buf.n_splits, buf.vec.data_ptr(), buf.mats.data_ptr(), cuda_build.stream_ptr(dev),
         )
@@ -751,39 +853,42 @@ def field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladde
 cuda_build.reset(field_color_bwd_cuda)
 
 
-def field_color_fwd_op(pts, dirs, fmat, weights, ladder: int, beta: float):
-    """K5 for a CUDA tensor, its plain version for a CPU tensor."""
+def field_color_fwd_op(pts, dirs, fmat, weights, ladder: int, beta: float, act_dtype: str):
+    """K5 (the variant of ``act_dtype``) for a CUDA tensor, its plain
+    version for a CPU tensor."""
     if pts.device.type == "cuda":
-        return field_color_fwd_cuda(pts, dirs, fmat, weights, ladder, beta)
+        return field_color_fwd_cuda(pts, dirs, fmat, weights, ladder, beta, act_dtype)
     if pts.device.type == "cpu":
-        return field_color_fwd_plain(pts, dirs, fmat, weights, ladder, beta)
+        return field_color_fwd_plain(pts, dirs, fmat, weights, ladder, beta, act_dtype)
     raise ValueError(f"field colour op: unsupported device {pts.device}")
 
 
-def field_color_bwd_op(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder: int, beta: float):
-    """K6 for a CUDA tensor, its plain version for a CPU tensor."""
+def field_color_bwd_op(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder: int, beta: float,
+                       act_dtype: str):
+    """K6 (the variant of ``act_dtype``) for a CUDA tensor, its plain
+    version for a CPU tensor."""
     if dens.device.type == "cuda":
-        return field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder, beta)
+        return field_color_bwd_cuda(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder, beta, act_dtype)
     if dens.device.type == "cpu":
-        return field_color_bwd_plain(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder, beta)
+        return field_color_bwd_plain(dirs, fmat, weights, res, dens, rgb, gdens, grgb, ladder, beta, act_dtype)
     raise ValueError(f"field colour op: unsupported device {dens.device}")
 
 
 class FieldColor(torch.autograd.Function):
-    """(pts, unit dirs, fmat, ladder, beta, *13 blocks) -> (dens, rgb):
-    K5 forward, residuals saved, K6 backward into the 13 blocks.  No
-    gradient flows to the points or directions (the reference's custom VJP
-    returns zeros for them)."""
+    """(pts, unit dirs, fmat, ladder, beta, act_dtype, *13 blocks) ->
+    (dens, rgb): K5 forward, residuals saved, K6 backward into the 13
+    blocks.  No gradient flows to the points or directions (the reference's
+    custom VJP returns zeros for them)."""
 
     @staticmethod
-    def forward(ctx, pts, dirs, fmat, ladder, beta, *weights):
-        dens, rgb, res = field_color_fwd_op(pts, dirs, fmat, weights, ladder, beta)
+    def forward(ctx, pts, dirs, fmat, ladder, beta, act_dtype, *weights):
+        dens, rgb, res = field_color_fwd_op(pts, dirs, fmat, weights, ladder, beta, act_dtype)
         # on the card K6 reads only the records (the named residuals are
         # views of them); the plain version's named residuals otherwise
         if "record" in res:
-            res = {"record": res["record"]}
+            res = {k: res[k] for k in ("record", "acts") if k in res}
         ctx.save_for_backward(dirs, fmat, dens, rgb, *res.values(), *weights)
-        ctx.res_names, ctx.ladder, ctx.beta = tuple(res), ladder, beta
+        ctx.res_names, ctx.ladder, ctx.beta, ctx.act_dtype = tuple(res), ladder, beta, act_dtype
         return dens, rgb
 
     @staticmethod
@@ -792,19 +897,19 @@ class FieldColor(torch.autograd.Function):
         n = len(ctx.res_names)
         res = dict(zip(ctx.res_names, rest[:n]))
         grads = field_color_bwd_op(dirs, fmat, tuple(rest[n:]), res, dens, rgb, gdens.contiguous(),
-                                   grgb.contiguous(), ctx.ladder, ctx.beta)
-        return (None, None, None, None, None) + tuple(grads)
+                                   grgb.contiguous(), ctx.ladder, ctx.beta, ctx.act_dtype)
+        return (None, None, None, None, None, None) + tuple(grads)
 
 
 def field_color(fields, pts, dirs, cfg):
     """Densities (H, R, P, 1) and rgb (H, R, P, 3) of H NerfFields of config
     ``cfg`` at pts (H, R, P, 3) with per-ray view dirs (H, R, 3), through
-    K5 (the kernel for CUDA tensors, its plain version for CPU ones); the
-    backward runs K6 into each field's parameters.  Points and directions
-    carry no gradient."""
+    K5 (the kernel for CUDA tensors, its plain version for CPU ones; the
+    variant of ``cfg.act_dtype``); the backward runs K6 into each
+    field's parameters.  Points and directions carry no gradient."""
     # the field's own normalization expression (NerfField.color)
     dn = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True).clamp_min(1e-12)
     weights = tuple(torch.stack(blocks) for blocks in zip(*(color_weights(f) for f in fields)))
-    fm = torch.from_numpy(fmat_of(cfg)).to(pts.device)
+    fm = fmat_on(cfg, pts.device)
     return FieldColor.apply(pts.detach().contiguous(), dn.detach().contiguous(), fm, ladder_of(cfg),
-                            float(cfg.softplus_beta), *weights)
+                            float(cfg.softplus_beta), cfg.act_dtype, *weights)

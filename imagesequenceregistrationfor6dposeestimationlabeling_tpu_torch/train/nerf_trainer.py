@@ -11,12 +11,14 @@ every launch on a leading half axis (the reference gets that axis from
 ``vmap``).
 
 A step with at most ``ray_chunk`` rays per half runs through K4, one
-launch per pass.  A larger step, or any step where ``field_kernel.enabled``
-is false (the CPU, or a field with f32 activations), is the reference's
-chunked ``loss_fn``: rays in ``ray_chunk`` groups, each chunk's field
-evaluated through K5/K6 (``field_kernel.field_color``) where enabled and
-the field's own colour path otherwise, composited with the eps-cumprod
-form, and its share of the loss backpropagated at once.
+launch per pass, in the variant of the field's activation dtype (bf16, or
+float32 as ``FieldConfig()`` stores them).  A larger step, or any step
+where ``field_kernel.enabled`` is false (the CPU, or a field with float32
+products), is the reference's chunked ``loss_fn``: rays in ``ray_chunk``
+groups, each chunk's field evaluated through K5/K6
+(``field_kernel.field_color``) where enabled and the field's own colour
+path otherwise, composited with the eps-cumprod form, and its share of the
+loss backpropagated at once.
 
 Random draws come from generators, or are passed in (``draws``), so tests
 can replay the reference's ``jax.random`` streams.

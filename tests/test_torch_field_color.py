@@ -116,13 +116,13 @@ def test_field_color_hand_backward_matches_autograd(monkeypatch):
     rng = np.random.default_rng(5)
     gdens = torch.from_numpy(rng.normal(size=(2, 5, 10, 1)).astype(np.float32))
     grgb = torch.from_numpy(rng.normal(size=(2, 5, 10, 3)).astype(np.float32))
-    dens, rgb, res = tfk.field_color_fwd_plain(p, dn, fm, weights, ladder, beta)
+    dens, rgb, res = tfk.field_color_fwd_plain(p, dn, fm, weights, ladder, beta, "bfloat16")
     assert all(res[k].dtype == torch.bfloat16 for k in tfk.RESIDUALS)
     assert res["es"].shape == (2, 5, 10, 3 * 8) and res["h1"].shape == (2, 5, 10, 48)
-    hand = tfk.field_color_bwd_plain(dn, fm, weights, res, dens, rgb, gdens, grgb, ladder, beta)
+    hand = tfk.field_color_bwd_plain(dn, fm, weights, res, dens, rgb, gdens, grgb, ladder, beta, "bfloat16")
     monkeypatch.setattr(tfk, "_bf16", lambda x: x + (x.to(torch.bfloat16).float() - x).detach())
     ws = [w.clone().requires_grad_(True) for w in weights]
-    d2, r2, _ = tfk.field_color_fwd_plain(p, dn, fm, ws, ladder, beta)
+    d2, r2, _ = tfk.field_color_fwd_plain(p, dn, fm, ws, ladder, beta, "bfloat16")
     torch.testing.assert_close(d2, dens, rtol=0, atol=0)
     torch.testing.assert_close(r2, rgb, rtol=0, atol=0)
     ((d2 * gdens).sum() + (r2 * grgb).sum()).backward()
@@ -148,7 +148,7 @@ def test_record_views_round_trip(embed, n_halves, R, P, n_hidden):
     dn = torch.from_numpy(dirs)
     dn = dn / dn.norm(dim=-1, keepdim=True)
     dens, rgb, res = tfk.field_color_fwd_plain(torch.from_numpy(pts), dn, torch.from_numpy(tfk.fmat_of(cfg)),
-                                               weights, tfk.ladder_of(cfg), cfg.softplus_beta)
+                                               weights, tfk.ladder_of(cfg), cfg.softplus_beta, "bfloat16")
     # the heads read only the rounded h1 and c1: from the residuals alone, the same bits
     heads = tfk.field_color_heads(res, weights, cfg.softplus_beta)
     assert torch.equal(heads[0], dens) and torch.equal(heads[1], rgb)
@@ -177,14 +177,14 @@ def test_field_color_dispatch_on_cpu():
     w = tuple(b[None] for b in tfk.loss_weights(tf[0]))
     meta = torch.zeros((1, 3, 5, 3), device="meta")
     with pytest.raises(ValueError):
-        tfk.field_color_fwd_op(meta, None, None, w, 0, 10.0)
+        tfk.field_color_fwd_op(meta, None, None, w, 0, 10.0, cfg.act_dtype)
     with pytest.raises(ValueError):
-        tfk.field_color_bwd_op(None, None, w, None, meta[..., :1], None, None, None, 0, 10.0)
+        tfk.field_color_bwd_op(None, None, w, None, meta[..., :1], None, None, None, 0, 10.0, cfg.act_dtype)
     # K6 reads K5's records; named residuals alone are refused
     _, _, res = tfk.field_color_fwd_plain(torch.from_numpy(pts), torch.from_numpy(dirs),
-                                          torch.from_numpy(tfk.fmat_of(cfg)), w, 0, 10.0)
+                                          torch.from_numpy(tfk.fmat_of(cfg)), w, 0, 10.0, "bfloat16")
     with pytest.raises(ValueError, match="record"):
-        tfk.field_color_bwd_cuda(None, None, w, res, None, None, None, None, 0, 10.0)
+        tfk.field_color_bwd_cuda(None, None, w, res, None, None, None, None, 0, 10.0, "bfloat16")
 
 
 def test_color_weights_carry_grads_back_unpermuted():

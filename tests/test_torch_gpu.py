@@ -17,7 +17,7 @@ import torch
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import FieldConfig
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import NerfField, softplus_beta
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import eval_features as eval_keys
-from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import field_kernel, point_kernels
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import cuda_build, field_kernel, point_kernels
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -179,6 +179,11 @@ def test_corr_kernel_first_occurrence_across_splits(cuda, e):
     _corr_matches(q, k, i_k, c_k)
 
 
+def _by_name(wrapper, *names) -> tuple:
+    """``wrapper``'s launches under each launch name (a kernel's variants)."""
+    return tuple(wrapper.by_name.get(n, 0) for n in names)
+
+
 def _bundle_inputs(cfg, n_halves, R, P, dev, seed):
     """Random full fields (density bias 0, so densities spread over (0, 1))
     and rays through the object's box from a sphere of radius 4."""
@@ -216,13 +221,36 @@ def _bundle_inputs(cfg, n_halves, R, P, dev, seed):
     (FieldConfig(act_dtype="bfloat16"), 2, 5, 77),
     (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16"), 2, 5, 77),
     (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16", embed_method="grouped"), 1, 9, 77),
+    # the float32-activation variant (FieldConfig()'s default) at the same
+    # shapes: the train step's coarse and fine passes, the grouped ladder,
+    # masked tiles
+    (FieldConfig(), 2, 1201, 64),
+    (FieldConfig(), 2, 1200, 320),
+    (FieldConfig(embed_method="grouped"), 2, 257, 320),
+    (FieldConfig(), 2, 5, 77),
+    (FieldConfig(n_harmonic_functions=8, n_hidden=48), 2, 5, 77),
+    (FieldConfig(n_harmonic_functions=8, n_hidden=48, embed_method="grouped"), 1, 9, 77),
 ])
 def test_bundle_loss_kernel_matches_plain(cuda, cfg, n_halves, R, P):
+    """K4 (the variant of the field's ``act_dtype``) against its plain
+    version; the float32 variant's loss and EA weights are the bf16
+    variant's bit for bit (one forward), and its launches count apart."""
     pts, dn, tgt, fm, weights, ladder = _bundle_inputs(cfg, n_halves, R, P, cuda, R + P)
-    args = (pts, dn, tgt, fm, weights, ladder, cfg.softplus_beta, 0.1, 500.0 / R, True)
+    args = (pts, dn, tgt, fm, weights, ladder, cfg.softplus_beta, 0.1, 500.0 / R, True, cfg.act_dtype)
+    counted = _by_name(field_kernel.bundle_loss_cuda, "bundle_loss", "bundle_loss_act32")
     gk, lk, wk = field_kernel.bundle_loss_cuda(*args)
     gp, lp, wp = field_kernel.bundle_loss_plain(*args)
     torch.cuda.synchronize()
+    act32 = cfg.act_dtype == "float32"
+    launched = _by_name(field_kernel.bundle_loss_cuda, "bundle_loss", "bundle_loss_act32")
+    assert tuple(a - b for a, b in zip(launched, counted)) == ((0, 1) if act32 else (1, 0))
+    if act32:
+        _, lb, wb = field_kernel.bundle_loss_cuda(*args[:-1], "bfloat16")
+        assert torch.equal(lk, lb) and torch.equal(wk, wb)
+        gaps = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3) for a, b in zip(gk, gp)]
+        print(f"float32-activation K4 {n_halves} x {R} x {P}: grads {max(gaps):.3e} of a block's max "
+              f"({field_kernel.LOSS_BLOCKS[gaps.index(max(gaps))]}), loss rel "
+              f"{float(((lk - lp).abs() / lp.abs().clamp_min(1e-12)).max()):.3e}, w {float((wk - wp).abs().max()):.3e}")
     # same rounding points, f32 sums in another order: a flipped bf16
     # rounding moves a point's activation by one bf16 ulp
     assert torch.allclose(lk, lp, rtol=1e-3, atol=0), (lk, lp)
@@ -240,7 +268,7 @@ def test_bundle_loss_kernel_matches_plain(cuda, cfg, n_halves, R, P):
     assert all(torch.equal(a, b) for a, b in zip(gk, gk3)) and torch.equal(lk, lk3)
 
 
-FIELD_COLOR_CASES = [  # cfg, halves, rays, points: a chunk's shapes, ragged R, both embeddings
+FIELD_COLOR_CASES = [  # cfg, halves, rays, points: a chunk's shapes, ragged R, both embeddings; both activation dtypes
     (FieldConfig(act_dtype="bfloat16"), 1, 4096, 64),
     (FieldConfig(act_dtype="bfloat16"), 2, 704, 320),
     (FieldConfig(act_dtype="bfloat16", embed_method="grouped"), 1, 1001, 320),
@@ -253,15 +281,24 @@ FIELD_COLOR_CASES = [  # cfg, halves, rays, points: a chunk's shapes, ragged R, 
     (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16"), 2, 5, 77),
     (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16", embed_method="grouped"), 1, 9, 77),
     (FieldConfig(act_dtype="bfloat16"), 1, 704, 320),
+    (FieldConfig(), 1, 4096, 64),
+    (FieldConfig(), 2, 704, 320),
+    (FieldConfig(embed_method="grouped"), 2, 257, 64),
+    (FieldConfig(), 2, 5, 77),
+    (FieldConfig(n_harmonic_functions=8, n_hidden=48), 2, 5, 77),
+    (FieldConfig(n_harmonic_functions=8, n_hidden=48, embed_method="grouped"), 1, 9, 77),
 ]
 
 
 @pytest.mark.parametrize("cfg,n_halves,R,P", FIELD_COLOR_CASES)
 def test_field_color_kernels_match_plain(cuda, cfg, n_halves, R, P):
+    """K5 / K6 (the variant of the field's ``act_dtype``) against their
+    plain versions; the float32 variant's heads are the bf16 variant's bit
+    for bit, and its f32 residuals the unrounded activations."""
     pts, dn, _, fm, weights, ladder = _bundle_inputs(cfg, n_halves, R, P, cuda, R + P)
-    beta = cfg.softplus_beta
-    dk, rk, res_k = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta)
-    dp, rp, res_p = field_kernel.field_color_fwd_plain(pts, dn, fm, weights, ladder, beta)
+    beta, act = cfg.softplus_beta, cfg.act_dtype
+    dk, rk, res_k = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta, act)
+    dp, rp, res_p = field_kernel.field_color_fwd_plain(pts, dn, fm, weights, ladder, beta, act)
     torch.cuda.synchronize()
     # K5: the same rounding points, f32 sums in another order.  The tensor
     # cores' sum order flips some bf16 roundings of the residuals; a head
@@ -269,30 +306,43 @@ def test_field_color_kernels_match_plain(cuda, cfg, n_halves, R, P):
     # (dens reads h1, rgb reads c1), and from K5's own residual it agrees
     # to f32 sums
     assert float(dp.std()) > 1e-3
+    rounded = {k: (res_k[k].to(torch.bfloat16), res_p[k].to(torch.bfloat16)) for k in field_kernel.RESIDUALS}
     for k in field_kernel.RESIDUALS:
-        assert res_k[k].dtype == torch.bfloat16 and res_k[k].shape == res_p[k].shape, k
-        assert float((res_k[k] != res_p[k]).float().mean()) < 1e-2, k
+        want = torch.float32 if act == "float32" and k in ("h1", "h2", "c1") else torch.bfloat16
+        assert res_k[k].dtype == res_p[k].dtype == want and res_k[k].shape == res_p[k].shape, k
+        assert float((rounded[k][0] != rounded[k][1]).float().mean()) < 1e-2, k
+        if want == torch.float32:
+            close = (res_k[k] - res_p[k]).abs() <= 1e-5 + 1e-5 * res_p[k].abs()
+            assert float(close.float().mean()) > 0.98, k
+    if act == "float32":
+        db, rb, _ = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta, "bfloat16")
+        assert torch.equal(dk, db) and torch.equal(rk, rb)
     heads = field_kernel.field_color_heads(res_k, weights, beta)
     for got, want, src, own in ((dk, dp, "h1", heads[0]), (rk, rp, "c1", heads[1])):
         err = (got - want).abs()
         assert float(err.max()) < 2e-2
         assert float((got - own).abs().max()) < 1e-5, src
-        assert not ((err > 1e-4).any(-1) & ~(res_k[src] != res_p[src]).any(-1)).any(), src
+        assert not ((err > 1e-4).any(-1) & ~(rounded[src][0] != rounded[src][1]).any(-1)).any(), src
     # K6 on the kernel's own residuals and random cotangents: each block
     # within 3e-2 of its max |g|, the reference's own bar for its kernels
     g = torch.Generator(device=cuda).manual_seed(R)
     gdens = torch.randn(dk.shape, generator=g, device=cuda)
     grgb = torch.randn(rk.shape, generator=g, device=cuda)
-    args = (dn, fm, weights, res_k, dk, rk, gdens, grgb, ladder, beta)
+    args = (dn, fm, weights, res_k, dk, rk, gdens, grgb, ladder, beta, act)
     gk = field_kernel.field_color_bwd_cuda(*args)
     gp = field_kernel.field_color_bwd_plain(*args)
     torch.cuda.synchronize()
+    gaps = []
     for name, a, b in zip(field_kernel.LOSS_BLOCKS, gk, gp):
         assert a.shape == b.shape, name
         s = max(float(b.abs().max()), 1e-3)
-        assert float((a - b).abs().max()) / s < 3e-2, name
+        gaps.append(float((a - b).abs().max()) / s)
+        assert gaps[-1] < 3e-2, name
+    if act == "float32":
+        print(f"float32-activation K6 {n_halves} x {R} x {P}: grads {max(gaps):.3e} of a block's max "
+              f"({field_kernel.LOSS_BLOCKS[gaps.index(max(gaps))]})")
     # no atomics, fixed-order sums: a second launch of each is bit-identical
-    dk2, rk2, res_k2 = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta)
+    dk2, rk2, res_k2 = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta, act)
     gk2 = field_kernel.field_color_bwd_cuda(*args)
     assert torch.equal(dk, dk2) and torch.equal(rk, rk2)
     assert all(torch.equal(res_k[k], res_k2[k]) for k in field_kernel.RESIDUALS)
@@ -301,6 +351,41 @@ def test_field_color_kernels_match_plain(cuda, cfg, n_halves, R, P):
     loose = {k: res_k[k] for k in field_kernel.RESIDUALS}
     with pytest.raises(ValueError, match="record"):
         field_kernel.field_color_bwd_cuda(dn, fm, weights, loose, *args[4:])
+    if act == "float32":  # and the float32 variant its f32 record too
+        with pytest.raises(ValueError, match="acts"):
+            field_kernel.field_color_bwd_cuda(dn, fm, weights, {"record": res_k["record"]}, *args[4:])
+
+
+@pytest.mark.parametrize("path", ["k4", "k5k6"])
+@pytest.mark.parametrize("embed", ["direct", "grouped"])
+def test_act32_kernels_are_the_kernel_forwards_gradient(cuda, path, embed):
+    """The field kernels' float32-activation variants (K4, or K5 / K6
+    through ``FieldColor``) against autograd through the kernels' own
+    forward (``test_torch_field_act32._kernel_forward``, on the CPU) at 48
+    hidden units, with the bf16 variants on the same inputs: on the
+    sigmoid'-carrying leaves the float32 kernels' worst gap is under a
+    third of the bf16 kernels', which part from that gradient by the
+    activations' bf16 rounding.  So a float32 variant that read the bf16
+    activations fails here (the plain twins on the CPU: 1.4e-5 to 2.0e-5
+    against 1.57e-3)."""
+    import test_torch_field_act32 as act32
+
+    H, R, P, hs = 2, 24, 16, 0.1
+    scale = 500.0 / R
+    pts, d, col, sil = act32._rays(H, R, P, 7)
+    gaps = {}
+    for act in ("float32", "bfloat16"):
+        cfg = FieldConfig(**act32.SMALL, embed_method=embed, act_dtype=act, fused_kernel=True)
+        fields = act32._init_fields(cfg, H, 11)
+        want = act32._autograd_grads(cfg, fields, pts, d, col, sil, hs, scale)
+        on_card = [f.to(cuda) for f in copy.deepcopy(fields)]
+        got = act32._twin_grads(path, cfg, on_card, *(x.to(cuda) for x in (pts, d, col, sil)), hs, scale)
+        gaps[act] = act32._leaf_gaps({k: v.cpu() for k, v in got.items()}, want)
+    sig = [k for k in gaps["float32"] if k[1] in act32.SIG_LEAVES]
+    worst = {act: max(g[k] for k in sig) for act, g in gaps.items()}
+    print(f"{path} {embed}: sigmoid'-carrying leaves' worst gap, float32 kernels {worst['float32']:.3e}, bf16 "
+          f"kernels {worst['bfloat16']:.3e}; every leaf, float32 kernels {max(gaps['float32'].values()):.3e}")
+    assert worst["float32"] < worst["bfloat16"] / 3.0, gaps
 
 
 @pytest.mark.parametrize("cfg,n_halves,R,P", [
@@ -315,9 +400,9 @@ def test_bundle_loss_and_field_color_share_the_forward_tile(cuda, cfg, n_halves,
     with bit-identical relaunches."""
     pts, dn, tgt, fm, weights, ladder = _bundle_inputs(cfg, n_halves, R, P, cuda, R + P)
     beta = cfg.softplus_beta
-    args = (pts, dn, tgt, fm, weights, ladder, beta, 0.1, 500.0 / R, True)
+    args = (pts, dn, tgt, fm, weights, ladder, beta, 0.1, 500.0 / R, True, cfg.act_dtype)
     gk, lk, wk = field_kernel.bundle_loss_cuda(*args)
-    dens, _, _ = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta)
+    dens, _, _ = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta, cfg.act_dtype)
     torch.cuda.synchronize()
     assert torch.equal(wk[:, :, 0], dens[:, :, 0, 0])
     gp, lp, wp = field_kernel.bundle_loss_plain(*args)
@@ -573,15 +658,18 @@ def test_train_pose_is_bit_reproducible_on_card(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def _cli_argv(root, *extra, uh=1):
+def _cli_argv(root, *extra, uh=1, act="bfloat16"):
+    """``act`` None: the CLI's default ``--act-dtype`` (float32)."""
     return ["--objid", "1", "--dataset", "ruapc", "--UH", str(uh), "--root", str(root), "--synthetic",
-            "--synthetic-views", "4", "--image-size", "64", "--act-dtype", "bfloat16", "--viz-every", "0",
-            "--log-every", "0", *extra]
+            "--synthetic-views", "4", "--image-size", "64", *(["--act-dtype", act] if act else []), "--viz-every",
+            "0", "--log-every", "0", *extra]
 
 
-def test_cli_train_nerf_resumes_exactly_on_card(cuda, tmp_path, monkeypatch):
-    """``train-nerf --act-dtype bfloat16 --steps 40`` on the card (K4 a
-    pass on each card of the default mesh: every card where there are
+@pytest.mark.parametrize("act", ["bfloat16", None])
+def test_cli_train_nerf_resumes_exactly_on_card(cuda, tmp_path, monkeypatch, act):
+    """``train-nerf --steps 40`` on the card at ``--act-dtype bfloat16`` and
+    at the CLI's default (float32: K4's float32-activation variant), K4 a
+    pass on each card of the default mesh (every card where there are
     several), stopped after its step-20 checkpoint and resumed with
     ``--cont --steps 40``, equals the straight 40-step run bit for bit."""
     import functools
@@ -591,10 +679,13 @@ def test_cli_train_nerf_resumes_exactly_on_card(cuda, tmp_path, monkeypatch):
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import checkpoint
 
     monkeypatch.setattr(config, "NerfTrainConfig", functools.partial(config.NerfTrainConfig, ckpt_every=20))
-    field_kernel.bundle_loss_cuda.launches = 0
-    cli.main(["train-nerf", *_cli_argv(tmp_path / "straight", "--steps", "40")])
+    argv = functools.partial(_cli_argv, act=act)
+    cuda_build.reset(field_kernel.bundle_loss_cuda)
+    cli.main(["train-nerf", *argv(tmp_path / "straight", "--steps", "40")])
     cards = torch.cuda.device_count() if torch.cuda.device_count() >= 2 else 1
-    assert field_kernel.bundle_loss_cuda.launches == 80 * cards  # 40 steps x (coarse + fine) x entries
+    # 40 steps x (coarse + fine) x entries, all of the variant of the activation dtype
+    want = "bundle_loss" if act == "bfloat16" else "bundle_loss_act32"
+    assert field_kernel.bundle_loss_cuda.by_name == {want: 80 * cards}
 
     class Stop(Exception):
         pass
@@ -608,9 +699,9 @@ def test_cli_train_nerf_resumes_exactly_on_card(cuda, tmp_path, monkeypatch):
 
     monkeypatch.setattr(checkpoint, "save_latest", stop_at_20)
     with pytest.raises(Stop):
-        cli.main(["train-nerf", *_cli_argv(tmp_path / "cut", "--steps", "40")])
+        cli.main(["train-nerf", *argv(tmp_path / "cut", "--steps", "40")])
     monkeypatch.setattr(checkpoint, "save_latest", save_latest)
-    cli.main(["train-nerf", *_cli_argv(tmp_path / "cut", "--steps", "40", "--cont")])
+    cli.main(["train-nerf", *argv(tmp_path / "cut", "--steps", "40", "--cont")])
     paths = [os.path.join(artifacts.nerf_dir(str(tmp_path / r / "1_ruapc_obj_1"), 1), checkpoint.STATE)
              for r in ("straight", "cut")]
     a, b = (torch.load(p, weights_only=True) for p in paths)
@@ -798,13 +889,14 @@ def _kernel_runs(dev):
     pts, dn, tgt, fm, weights, _ = _bundle_inputs(cfg, 2, 257, 64, torch.device("cpu"), 5)
     pts, dn, tgt, fm = (x.to(dev) for x in (pts, dn, tgt, fm))
     weights = tuple(w.to(dev) for w in weights)
-    gk, lk, wk = field_kernel.bundle_loss_cuda(pts, dn, tgt, fm, weights, ladder, beta, 0.1, 500.0 / 257, True)
+    gk, lk, wk = field_kernel.bundle_loss_cuda(pts, dn, tgt, fm, weights, ladder, beta, 0.1, 500.0 / 257, True,
+                                               cfg.act_dtype)
     out["bundle_loss"] = [*gk, lk, wk]
-    dk, rk, res = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta)
+    dk, rk, res = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta, cfg.act_dtype)
     out["field_color_fwd"] = [dk, rk, res["record"]]
     gdens, grgb = torch.randn(dk.shape, generator=g).to(dev), torch.randn(rk.shape, generator=g).to(dev)
     out["field_color_bwd"] = list(field_kernel.field_color_bwd_cuda(dn, fm, weights, res, dk, rk, gdens, grgb,
-                                                                    ladder, beta))
+                                                                    ladder, beta, cfg.act_dtype))
     torch.cuda.synchronize(dev)
     return {k: [t.cpu() for t in v] for k, v in out.items()}
 
@@ -969,6 +1061,83 @@ def test_fused_nerf_step_spans_on_card(cuda, tmp_path):
     assert sum(inside(s, "nerf.coarse") for s in launches) == sum(inside(s, "nerf.fine") for s in launches) == 2
     k4 = _launched_in(events, "kernel.bundle_loss")["kernel.bundle_loss"]
     assert sorted(k4) == sorted(["bundle_loss_kernel", "sum_slices", "dw_kernel", "sum_slices"] * 4)
+
+
+def test_field_config_default_trains_through_the_act32_kernels(cuda, tmp_path):
+    """``FieldConfig()`` (float32 activations) on the card: a fused NeRF
+    step runs K4's float32-activation variant, its launches counted apart,
+    its ``kernel.bundle_loss_act32`` spans holding ``bundle_loss_act32_kernel``
+    and no ``bundle_loss_kernel`` anywhere in the trace; a chunked step runs
+    K5 / K6's float32 variants; the density grid runs K1."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import NerfTrainConfig, RenderConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.render import renderer
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    halves = [synthetic.make_scene(8, 64, torch.Generator(device=cuda).manual_seed(h), device=cuda) for h in (0, 1)]
+    args = [torch.stack([getattr(h, f) for h in halves]) for f in ("images", "sils", "R_bop", "t_bop", "K")]
+    kw = dict(field_cfg=FieldConfig(), render_cfg=RenderConfig(n_rays_per_image=200),
+              train_cfg=NerfTrainConfig(batch_size=2, warmup_steps=10), n_steps=2, seed=1, device=cuda, mesh=None)
+    cuda_build.reset(field_kernel.bundle_loss_cuda)
+    states, _ = nerf_trainer.train_nerf_fused(*args, **kw)
+    assert field_kernel.bundle_loss_cuda.by_name == {"bundle_loss_act32": 4}  # 2 steps x (coarse + fine)
+    events = _traced(lambda: nerf_trainer.train_nerf_fused(*args, **kw), tmp_path)
+    k4 = _launched_in(events, "kernel.")
+    assert set(k4) == {"kernel.bundle_loss_act32"}, set(k4)
+    assert sorted(k4["kernel.bundle_loss_act32"]) == sorted(
+        ["bundle_loss_act32_kernel", "sum_slices", "dw_kernel", "sum_slices"] * 4)
+    assert not any(e.get("cat") == "kernel" and "bundle_loss_kernel" in e["name"] for e in events)
+    # a chunked step (400 rays a half in chunks of 256 + 144): K5 / K6's float32 variants
+    cuda_build.reset(field_kernel.field_color_fwd_cuda)
+    cuda_build.reset(field_kernel.field_color_bwd_cuda)
+    nerf_trainer.train_nerf_fused(*args, **kw, ray_chunk=256)
+    assert field_kernel.field_color_fwd_cuda.by_name == {"field_color_fwd_act32": 8}
+    assert field_kernel.field_color_bwd_cuda.by_name == {"field_color_bwd_act32": 8}
+    events = _traced(lambda: nerf_trainer.train_nerf_fused(*args, **kw, ray_chunk=256), tmp_path)
+    assert set(_launched_in(events, "kernel.")) == {"kernel.field_color_fwd_act32", "kernel.field_color_bwd_act32"}
+    # K1 for the density grid of a FieldConfig() field
+    field = states[0].fine
+    assert field_kernel.density_eval_fn(field) != field.density
+    dens = field_kernel.density_cuda.launches
+    renderer.density_grid_cached(field, grid_res=32)
+    assert field_kernel.density_cuda.launches > dens
+
+
+@pytest.mark.parametrize("act", ["bfloat16", "float32"])
+def test_fused_nerf_step_waits_on_no_host_copy(cuda, act):
+    """A fused NeRF step (K4) on the card makes no host sync: a copy of a
+    host value to the card waits for everything queued there, and the host,
+    not the card, then sets the step's pace."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import NerfTrainConfig, RenderConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import nerf_trainer
+
+    halves = [synthetic.make_scene(8, 64, torch.Generator(device=cuda).manual_seed(h), device=cuda) for h in (0, 1)]
+    images, sils, R, t, K = (torch.stack([getattr(h, f) for h in halves])[:, :2]
+                             for f in ("images", "sils", "R_bop", "t_bop", "K"))
+    min_d, max_d = nerf_trainer.depth_bounds(t.reshape(-1, 3).cpu().numpy())
+    cam = cameras.camera_from_bop(R, t, K, 64)
+    field_cfg = FieldConfig(act_dtype=act)
+    render_cfg, train_cfg = RenderConfig(n_rays_per_image=200), NerfTrainConfig(batch_size=2, warmup_steps=10)
+    states = [nerf_trainer.init_state(field_cfg, train_cfg, torch.Generator().manual_seed(h), device=cuda)
+              for h in (0, 1)]
+    opt = nerf_trainer.make_optimizer(train_cfg)
+    gens = [torch.Generator(device=cuda).manual_seed(h) for h in (0, 1)]
+
+    def step(sts):
+        return nerf_trainer.train_step(sts, cam, images, sils, opt, render_cfg, train_cfg, min_d, max_d,
+                                       generators=gens)[0]
+
+    states = step(states)                      # builds the kernels
+    torch.cuda.synchronize()
+    cuda_build.reset(field_kernel.bundle_loss_cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states = step(states)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert field_kernel.bundle_loss_cuda.by_name == {field_kernel._variant("bundle_loss", act == "float32"): 2}
 
 
 # ------------------------------------------------------------ RANSAC as a CUDA graph

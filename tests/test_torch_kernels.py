@@ -52,12 +52,29 @@ def test_density_dispatch_on_cpu():
     assert tfk.density_eval_fn(tf) == tf.density
     assert not tfk.enabled(cfg, "cpu") and tfk.enabled(cfg, "cuda")
     assert tfk.enabled(FieldConfig(fused_kernel=True), "cpu")
-    assert not tfk.enabled(FieldConfig(), "cuda")  # f32 activations: not the kernel's numerics
+    assert tfk.enabled(FieldConfig(), "cuda")  # f32 activations: the kernels' float32-activation variant
+    assert not tfk.enabled(FieldConfig(compute_dtype="float32"), "cuda")  # f32 products: not the kernels'
     before = tfk.density_cuda.launches
     tfk.field_density(tf, pts)
     assert tfk.density_cuda.launches == before  # CPU tensors take the plain version
     with pytest.raises(ValueError):
         tfk.density_op(torch.zeros((4, 3), device="meta"), tfk.density_weights(tf), 0, 10.0)
+
+
+@pytest.mark.parametrize("embed", ["direct", "grouped"])
+def test_field_constants_made_once_per_device(embed):
+    """The frequency matrix and the ladder's permutations on a device are
+    the host arrays, made there once and shared by later calls."""
+    cfg = FieldConfig(n_harmonic_functions=8, embed_method=embed)
+    fm = tfk.fmat_on(cfg, "cpu")
+    np.testing.assert_array_equal(fm.numpy(), tfk.fmat_of(cfg))
+    assert tfk.fmat_on(cfg, torch.device("cpu")) is fm
+    ladder = tfk.ladder_of(cfg)
+    if ladder:
+        perm = tfk.ladder_perm_on(8, ladder, "cpu")
+        np.testing.assert_array_equal(perm.numpy(), tfk.ladder_perm(8, ladder))
+        assert torch.equal(perm[tfk.ladder_perm_on(8, ladder, "cpu", inverse=True)], torch.arange(len(perm)))
+        assert tfk.ladder_perm_on(8, ladder, "cpu") is perm
 
 
 @pytest.mark.parametrize("n,m", [(333, 3001), (64, 700)])

@@ -135,6 +135,25 @@ def test_launch_counts_once_a_launch_under_its_span(monkeypatch):
     assert [e.name for e in prof.events() if e.name.startswith("kernel.")] == ["kernel.nn_min"] * 3
 
 
+def test_launch_counts_each_variant_under_its_name(monkeypatch):
+    """A wrapper whose kernel has variants launches each under its own
+    name: the wrapper's total counts both, ``by_name`` each, and ``reset``
+    clears all three counts."""
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+
+    def wrapper():
+        pass
+
+    cuda_build.reset(wrapper)
+    dev = torch.device("cuda", 0)
+    for name in ("bundle_loss", "bundle_loss_act32", "bundle_loss_act32"):
+        with cuda_build.launch(wrapper, name, dev):
+            pass
+    assert wrapper.launches == 3 and wrapper.by_name == {"bundle_loss": 1, "bundle_loss_act32": 2}
+    cuda_build.reset(wrapper)
+    assert (wrapper.launches, wrapper.per_device, wrapper.by_name) == (0, {}, {})
+
+
 # ------------------------------------------------------------ the NeRF step
 
 

@@ -192,7 +192,8 @@ def test_bundle_loss_hand_backward_matches_autograd(monkeypatch):
     dn = dn / dn.norm(dim=-1, keepdim=True)
     tgt = torch.cat([_t(col), _t(sil), _t(valid), torch.zeros(6, 3)], -1)[None]
     hs, scale = 0.1, 500.0 / 6
-    hand, loss, _ = tfk.bundle_loss_plain(_t(pts)[None], dn, tgt, fm, weights, ladder, 10.0, hs, scale, False)
+    hand, loss, _ = tfk.bundle_loss_plain(_t(pts)[None], dn, tgt, fm, weights, ladder, 10.0, hs, scale, False,
+                                          "bfloat16")
     monkeypatch.setattr(tfk, "_bf16", lambda x: x + (x.to(torch.bfloat16).float() - x).detach())
     ws = [w.clone().requires_grad_(True) for w in weights]
     f = tfk._bundle_forward(_t(pts)[None], dn, tgt, fm, ws, ladder, 10.0, hs)
@@ -210,7 +211,8 @@ def test_bundle_loss_dispatch_on_cpu():
     assert tfk.bundle_loss_cuda.launches == before      # CPU tensors take the plain version
     w = tuple(b[None] for b in tfk.loss_weights(tf))
     with pytest.raises(ValueError):
-        tfk.bundle_loss_op(torch.zeros((1, 3, 5, 3), device="meta"), None, None, None, w, 0, 10.0, 0.1, 1.0, False)
+        tfk.bundle_loss_op(torch.zeros((1, 3, 5, 3), device="meta"), None, None, None, w, 0, 10.0, 0.1, 1.0, False,
+                           cfg.act_dtype)
 
 
 def test_freeze_spec_partition():

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -142,7 +143,9 @@ def tree_run(root: str) -> dict:
         tgt = torch.cat([col, sil, torch.ones_like(sil), torch.zeros_like(col)], -1).contiguous()
         weights = tuple(torch.stack(b) for b in zip(*(fk.loss_weights(f) for f in fields)))
         fm = torch.from_numpy(fk.fmat_of(cfg)).to(dev)
-        args = (pts, dn, tgt, fm, weights, fk.ladder_of(cfg), cfg.softplus_beta, 0.1, 500.0 / R, True)
+        # a tree from before the float32-activation variant takes no act_dtype
+        act = ("bfloat16",) if "act_dtype" in inspect.signature(fk.bundle_loss_cuda).parameters else ()
+        args = (pts, dn, tgt, fm, weights, fk.ladder_of(cfg), cfg.softplus_beta, 0.1, 500.0 / R, True, *act)
 
         def k4():
             grads, loss, w = fk.bundle_loss_cuda(*args)

@@ -30,13 +30,16 @@ sys.path.insert(0, ROOT)
 from portbench import run as bench_run  # noqa: E402  (its import starts set-up's clock)
 
 # per driver: the benchmark's step span, the program's top-level stages in
-# it, and the roofline read again over a launch span
+# it, and the rooflines read again over a launch span (each where its span
+# is in the trace: K4's bf16 or float32-activation variant)
+NERF = ("nerf.train_step", ["nerf.rays", "nerf.field", "nerf.adam"],
+        (("k4_roofline_pct", "kernel.bundle_loss"), ("k4_act32_roofline_pct", "kernel.bundle_loss_act32")))
 CELLS = {
-    "nerf_train": ("nerf.train_step", ["nerf.rays", "nerf.field", "nerf.adam"],
-                   ("k4_roofline_pct", "kernel.bundle_loss")),
-    "pose_train": ("pose.train_step", ["pose.augment", "pose.forward", "pose.backward", "pose.adam"], None),
+    "nerf_train": NERF,
+    "nerf_train_act32": NERF,  # nerf_train's window, its check with a probe step more
+    "pose_train": ("pose.train_step", ["pose.augment", "pose.forward", "pose.backward", "pose.adam"], ()),
     "serve": ("serve.estimate_poses", ["infer.unet", "infer.k3", "infer.filter", "infer.draw", "infer.ransac"],
-              ("k3_roofline_pct", "kernel.corr_argmax")),
+              (("k3_roofline_pct", "kernel.corr_argmax"),)),
 }
 
 
@@ -74,17 +77,18 @@ def main(argv=None) -> int:
     st = stages.reduce(seen["events"], prefixes)
     steps = out["attempted"]
     ctx = {"steps": steps, "config": cell.config, "traffic": cell.traffic["params"], **st}
-    step_span, top, roof = CELLS[cell.traffic["driver"]]
+    step_span, top, roofs = CELLS[cell.traffic["driver"]]
     derived = {"stage_ms": {s: stages.ms_a_step(ctx, s) for s in top},
                "launches_a_step": st["launches"] / steps}
     whole = stages.ms_a_step(ctx, step_span)
     derived["coverage"] = sum(v or 0.0 for v in derived["stage_ms"].values()) / whole if whole else None
-    if roof is not None:
-        metric, span = roof
-        reader = runner.load_module(runner.metric_path(metric), "stage_table_" + metric)
+    for metric, span in roofs:
         rec = st["stages"].get(span)
+        if rec is None:
+            continue
+        reader = runner.load_module(runner.metric_path(metric), "stage_table_" + metric)
         # the span's device time, under the first of the names the reader sums
-        derived[metric.replace("_roofline", "_span_roofline")] = None if rec is None else reader.read(
+        derived[metric.replace("_roofline", "_span_roofline")] = reader.read(
             {**ctx, "kernels": {reader.KERNELS[0]: rec["busy_s"]}})
     print(f"stages of {args.workload}, seed {args.seed}, {steps} steps:", file=sys.stderr)
     for line in stages.table(st["stages"], steps):
