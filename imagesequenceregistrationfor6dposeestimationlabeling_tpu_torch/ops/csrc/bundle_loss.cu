@@ -24,7 +24,8 @@
 // FieldConfig()'s act_dtype float32 does: the forward is the same, and the
 // backward's sigmoid' and dwd read the unrounded h1, h2, c1 from an f32
 // record of 3,072 B a point beside the bf16 one (~2.8 GB a train step more
-// written and read back).
+// written and read back), each slot staged in shared memory ahead of the
+// epilogue that reads it (field_tc.cuh).
 //
 // What bounds it: arithmetic.  The function's work is ~1.15 MFLOP of bf16
 // products a point at the reference width (H = 60, 256 hidden): the
@@ -173,6 +174,7 @@ __device__ __forceinline__ void bundle_loss_blocks(const LossArgs& a, unsigned c
   for (int i = tid; i < o.total; i += NTH) vs[i] = 0.f;
   if (tid < 8) s.misc[tid] = 0.f;
   __syncthreads();
+  if constexpr (kAct32) field_tc::init_stage_bar(s);  // over misc[6..7], zeroed above
   const int RW = field_tc::rec_width(Ep), RRW = field_tc::ray_rec_width(Ep);
   const field_tc::Heads none{};
   int slot = 0;

@@ -120,6 +120,7 @@ __device__ __forceinline__ void color_bwd_blocks(const ColorArgs& a, unsigned ch
   const field_tc::VecOffsets o(a.nh);
   float* vs = a.vwork + ((int64_t)h * a.n_blocks + blockIdx.x) * o.total;
   for (int i = tid; i < o.total; i += NTH) vs[i] = 0.f;
+  if constexpr (kAct32) field_tc::init_stage_bar(s);
   const int RW = field_tc::rec_width(a.Ep), RRW = field_tc::ray_rec_width(a.Ep);
   int slot = 0;
   T::Acc acc;

@@ -36,11 +36,17 @@
 //                        keeps, unrounded, in a second per-point record.
 // The f32 values are kept, not sigmoid' (h2 is needed as well) and not
 // recomputed (that is the forward again): 3 x 256 f32 a point (3,072 B),
-// written from the accumulators in pass A and read back in pass B's
-// epilogues straight from device memory, so the shared-memory budget is the
-// bf16 variant's.  The products' operands stay the bf16 record's.  That
-// traffic sits between the tile's barriers, not behind its products: on an
-// H100 it makes K4's train step 22.0 ms against the bf16 variant's 16.4.
+// written from the accumulators in pass A.  Pass B reads each slot from
+// shared memory, at a row stride of LDW floats in the space of the bf16 h1 |
+// h2 tiles that this variant does not stage, so the shared-memory budget is
+// the bf16 variant's: c1 by cp.async at the tile's entry, beside the rounded
+// c1 tile; h2 over c1, then h1 (its rows 32-63 in X), by bulk copies (TMA,
+// one row a thread, completing on an mbarrier) requested before the product
+// that precedes their epilogue, so they land behind it.  Every read evicts
+// first from L2.  The products' operands stay the bf16 record's.  On an H100
+// K4's train step takes 20.9 ms against 22.1 ms reading each slot from
+// device memory at its epilogue, and the bf16 variant's 16.4: most of what
+// is left is pass A's f32 stores.
 //
 // The per-point record (bf16, rec_width(Ep) values a point, Ep = E padded to
 // a multiple of 16, columns past E and units past nh zero):
@@ -216,7 +222,7 @@ __device__ inline Smem carve(unsigned char* base, int Ep, int P) {
   s.rgb = s.du + Pp;
   s.dc2p = s.rgb + 3 * Pp;
   s.dc2pb = s.dc2p + 3 * MT;
-  s.misc = s.dc2pb + 3 * MT;  // K4: the ray's gf[3], then the block's ce_sum, se_sum
+  s.misc = s.dc2pb + 3 * MT;  // K4: the ray's gf[3], then the block's ce_sum, se_sum; kAct32: 6-7 stage_bar
   return s;
 }
 
@@ -236,15 +242,78 @@ __device__ __forceinline__ void store_act(const T::Acc v, int tn, float* act) {
       }
 }
 
-// The stored activations at (row, col) and (row, col + 1) of a tile: its
-// bf16 tile's, or (kAct32) one slot of the f32 activation record's, zeros
-// for rows past tn there (never read past a ray).
-template <bool kAct32>
-__device__ __forceinline__ float2 stored_pair(const bf16* tile, const float* act, int row, int col, int tn) {
-  if constexpr (kAct32)
-    return row < tn ? *reinterpret_cast<const float2*>(act + (int64_t)row * ACT_W + col) : make_float2(0.f, 0.f);
-  else
-    return make_float2(mma::tile_at(tile, row, col), mma::tile_at(tile, row, col + 1));
+// kAct32: the mbarrier that tile_backward's staged f32 slots complete on,
+// 8 bytes of misc that no kernel uses otherwise.  init_stage_bar (thread 0,
+// once a launch, before a barrier) sets it to MT arrivals a phase.
+__device__ __forceinline__ uint32_t stage_bar(const Smem& s) { return mma::smem_addr(s.misc + 6); }
+__device__ __forceinline__ void init_stage_bar(const Smem& s) {
+  if (threadIdx.x == 0)
+    asm volatile(
+        "mbarrier.init.shared::cta.b64 [%0], %1;\n"
+        "fence.mbarrier_init.release.cluster;\n" ::"r"(stage_bar(s)),
+        "r"(MT)
+        : "memory");
+}
+
+// kAct32: an L2 policy that evicts first the lines it reads: pass B reads
+// each f32 activation once, and L2 keeps the weights and records instead.
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+
+// kAct32: mma::cp_async16 under the L2 policy pol.
+__device__ __forceinline__ void cp_async16_policy(void* dst, const void* src, bool valid, uint64_t pol) {
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(mma::smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0), "l"(pol)
+               : "memory");
+}
+
+// kAct32: one 256-wide slot of a tile's f32 activation record (src, row
+// stride ACT_W) to shared memory at a row stride of LDW floats, rows [0, 32)
+// from lo and [32, MT) from hi, completing one phase of the mbarrier bar.
+// Thread r < MT copies row r by one bulk copy (TMA) under the L2 policy pol,
+// or zeroes it when r >= tn.  Issued after a barrier that follows every
+// thread's fence_async_shared, so the copies land after the rows' earlier
+// accesses.
+__device__ __forceinline__ void stage_slot(float* lo, float* hi, const float* src, int tn, uint32_t bar,
+                                           uint64_t pol) {
+  const int r = threadIdx.x;
+  if (r >= MT) return;
+  float* const dst = r < 32 ? lo + r * LDW : hi + (r - 32) * LDW;
+  constexpr uint32_t kRow = WN * sizeof(float);
+  if (r < tn) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(kRow) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], "
+        "%4;\n" ::"r"(mma::smem_addr(dst)),
+        "l"(src + (int64_t)r * ACT_W), "r"(kRow), "r"(bar), "l"(pol)
+        : "memory");
+  } else {
+    for (int q = 0; q < WN / 4; ++q) reinterpret_cast<float4*>(dst)[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+  }
+}
+
+// kAct32: waits until the phase of bar with this parity has completed.
+__device__ __forceinline__ void wait_stage(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// kAct32: orders this thread's earlier accesses to shared memory before the
+// bulk copies' writes.
+__device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// The bf16 values at (row, col) and (row, col + 1) of a shared tile.
+__device__ __forceinline__ float2 tile_pair(const bf16* tile, int row, int col) {
+  return make_float2(mma::tile_at(tile, row, col), mma::tile_at(tile, row, col + 1));
 }
 
 // Forward of points [p0, p0 + tn) of one ray, the products on the tensor
@@ -360,7 +429,8 @@ __device__ __forceinline__ void tile_forward(const FieldArgs& a, const HalfWeigh
 
 // Backward of points [p0, p0 + tn) of one ray, from the bf16 h1, h2 and c1
 // that tile_forward wrote to the tile's records rec (kAct32: sigmoid' and
-// dwd from the f32 ones in act): the heads' cotangents (kLoss: from the
+// dwd from the f32 ones in act, staged in shared memory): the heads'
+// cotangents (kLoss: from the
 // composite's backward in shared memory, du over the ray and the ray's gf
 // in misc; else: from hd), the vector grads over the tile's points into the
 // block's slice vs, the ray's summed dc1p into ddpart, and the cotangents
@@ -377,12 +447,33 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
   const VecOffsets o(nh);
   __syncthreads();  // the previous tile's copies out of the tiles are done
   T::issue_slab(hw.wc1ht, s.ring + slot * mma::SLAB);
-  // the tile's activations; rows past tn read as zeros, and every output masks them
-  bf16* const tiles[3] = {s.h1, s.h2, s.X};
-  for (int c = tid; c < 3 * MT * (WN / 8); c += NTH) {
-    const int k = c / (MT * (WN / 8)), r = (c / (WN / 8)) % MT, q = c % (WN / 8);
-    const bf16* src = rec + (r < tn ? r : 0) * (int64_t)RW + 2 * Ep + k * WN + q * 8;
-    mma::cp_async16(tiles[k] + r * LDW + q * 8, src, r < tn);
+  // the tile's activations; rows past tn read as zeros, and every output masks them.
+  // kAct32: each f32 slot at a row stride of LDW floats (the epilogues'
+  // float2 reads free of bank conflicts) over the bf16 h1 | h2 tiles (fa),
+  // h1's rows 32-63 in X (fx) once dc1pb is copied out
+  float* const fa = reinterpret_cast<float*>(s.h1);
+  float* const fx = reinterpret_cast<float*>(s.X);
+  const uint32_t bar = stage_bar(s);
+  uint64_t pol = 0;
+  if constexpr (kAct32) pol = evict_first();
+  if constexpr (kAct32) {
+    // the rounded c1 (the wc2 grad's operand) to X and the f32 c1 to fa
+    for (int c = tid; c < MT * (WN / 8); c += NTH) {
+      const int r = c / (WN / 8), q = c % (WN / 8);
+      const bf16* src = rec + (r < tn ? r : 0) * (int64_t)RW + 2 * Ep + 2 * WN + q * 8;
+      mma::cp_async16(s.X + r * LDW + q * 8, src, r < tn);
+    }
+    for (int c = tid; c < MT * (WN / 4); c += NTH) {
+      const int r = c / (WN / 4), q = c % (WN / 4);
+      cp_async16_policy(fa + r * LDW + q * 4, act + (r < tn ? r : 0) * (int64_t)ACT_W + 2 * WN + q * 4, r < tn, pol);
+    }
+  } else {
+    bf16* const tiles[3] = {s.h1, s.h2, s.X};
+    for (int c = tid; c < 3 * MT * (WN / 8); c += NTH) {
+      const int k = c / (MT * (WN / 8)), r = (c / (WN / 8)) % MT, q = c % (WN / 8);
+      const bf16* src = rec + (r < tn ? r : 0) * (int64_t)RW + 2 * Ep + k * WN + q * 8;
+      mma::cp_async16(tiles[k] + r * LDW + q * 8, src, r < tn);
+    }
   }
   mma::cp_async_commit();
   mma::cp_async_wait<0>();
@@ -432,15 +523,12 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
       g0 += c1 * s.dc2pb[t * 3];
       g1 += c1 * s.dc2pb[t * 3 + 1];
       g2 += c1 * s.dc2pb[t * 3 + 2];
-      if constexpr (kAct32)
-        gd += act[(int64_t)t * ACT_W + WN + tid] * du[t];
-      else
-        gd += mma::tile_at(s.h2, t, tid) * du[t];
+      if constexpr (!kAct32) gd += mma::tile_at(s.h2, t, tid) * du[t];  // kAct32: once the f32 h2 is staged
     }
     vs[o.wc2 + tid * 3] += g0;
     vs[o.wc2 + tid * 3 + 1] += g1;
     vs[o.wc2 + tid * 3 + 2] += g2;
-    vs[o.wd + tid] += gd;
+    if constexpr (!kAct32) vs[o.wd + tid] += gd;
   }
   if (tid < 3) {
     float sum = 0.f;
@@ -462,7 +550,11 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int t = T::row(i, 2 * h), c0 = T::col(j, 2 * h);
-        const float2 c1 = stored_pair<kAct32>(s.X, act + 2 * WN, t, c0, tn);
+        float2 c1;
+        if constexpr (kAct32)
+          c1 = *reinterpret_cast<const float2*>(fa + t * LDW + c0);
+        else
+          c1 = tile_pair(s.X, t, c0);
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const int c = c0 + q;
@@ -476,7 +568,10 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
         }
       }
   T::store_tile(acc, s.X);
+  if constexpr (kAct32) fence_async_shared();
   float cs = T::col_sum(acc, s.red);
+  // kAct32: the f32 h2 over the f32 c1, behind the next product
+  if constexpr (kAct32) stage_slot(fa, fa + 32 * LDW, act + WN, tn, bar, pol);
   if (tid < nh) {
     vs[o.bc1 + tid] += cs;
     s.ddpart[tid] += cs;
@@ -485,6 +580,14 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
   T::zero(acc);
   T::stream_mma(s.X, LDW, hw.wc1ht, WN, hw.w2t, s.ring, slot, acc);
   T::to_global(s.X, LDW, tn, WN, rec + 2 * Ep + 5 * WN, RW);
+  if constexpr (kAct32) {
+    wait_stage(bar, 0);
+    if (tid < nh) {
+      float gd = 0.f;
+      for (int t = 0; t < tn; ++t) gd += fa[t * LDW + tid] * du[t];
+      vs[o.wd + tid] += gd;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -492,7 +595,11 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int t = T::row(i, 2 * h), c0 = T::col(j, 2 * h);
-        const float2 h2 = stored_pair<kAct32>(s.h2, act + WN, t, c0, tn);
+        float2 h2;
+        if constexpr (kAct32)
+          h2 = *reinterpret_cast<const float2*>(fa + t * LDW + c0);
+        else
+          h2 = tile_pair(s.h2, t, c0);
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const int c = c0 + q, e = 2 * h + q;
@@ -500,6 +607,13 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
                                           : 0.f;
         }
       }
+  if constexpr (kAct32) {
+    // every thread has read its f32 h2 and its share of dc1pb before the f32
+    // h1 lands over rows 0-31 of fa and over X, behind the next product
+    fence_async_shared();
+    __syncthreads();
+    stage_slot(fa, fx, act, tn, bar, pol);
+  }
   T::store_tile(acc, s.h2);
   cs = T::col_sum(acc, s.red);
   if (tid < nh) vs[o.b2 + tid] += cs;
@@ -507,6 +621,7 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
   T::zero(acc);
   T::stream_mma(s.h2, LDW, hw.w2t, WN, nullptr, s.ring, slot, acc);
   T::to_global(s.h2, LDW, tn, WN, rec + 2 * Ep + 4 * WN, RW);
+  if constexpr (kAct32) wait_stage(bar, 1);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -514,13 +629,18 @@ __device__ __forceinline__ void tile_backward(const FieldArgs& a, const HalfWeig
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int t = T::row(i, 2 * h), c0 = T::col(j, 2 * h);
-        const float2 h1 = stored_pair<kAct32>(s.h1, act, t, c0, tn);
+        float2 h1;
+        if constexpr (kAct32)
+          h1 = *reinterpret_cast<const float2*>((t < 32 ? fa + t * LDW : fx + (t - 32) * LDW) + c0);
+        else
+          h1 = tile_pair(s.h1, t, c0);
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const int c = c0 + q, e = 2 * h + q;
           acc[i][j][e] = t < tn && c < nh ? acc[i][j][e] * sig_from_act(q ? h1.y : h1.x, beta) : 0.f;
         }
       }
+  if constexpr (kAct32) __syncthreads();  // every thread has read its f32 h1 before dh1pb lands over it
   T::store_tile(acc, s.h1);
   cs = T::col_sum(acc, s.red);
   if (tid < nh) vs[o.b1 + tid] += cs;

@@ -8,6 +8,7 @@ Run on a machine with the card:  python -m pytest tests/test_torch_gpu.py -q
 """
 
 import copy
+import hashlib
 import os
 
 import numpy as np
@@ -354,6 +355,51 @@ def test_field_color_kernels_match_plain(cuda, cfg, n_halves, R, P):
     if act == "float32":  # and the float32 variant its f32 record too
         with pytest.raises(ValueError, match="acts"):
             field_kernel.field_color_bwd_cuda(dn, fm, weights, {"record": res_k["record"]}, *args[4:])
+
+
+# SHA-256 of the float32-activation variants' outputs from _bundle_inputs at
+# seed R + P (``_act32_digest``): K4's 13 grads, loss sums and EA weights at
+# the train step's fine shape, a ragged tile (P = 77) and the grouped
+# ladder; K6's 13 grads at a chunk's shape, on K5's records and random
+# cotangents.  Recorded on an H100 80GB HBM3 (torch 2.11.0 + cu128) with the
+# build of commit c9bb11c, whose pass B read its f32 activations from device
+# memory: staging them on chip moves where they are read from, not one bit.
+ACT32_DIGESTS = {
+    ("k4", "direct", 2, 1200, 320): "db2718c994f4e6ce45a2e09475fd62f23309e849899e225e10d50d5b4c17990e",
+    ("k4", "direct", 2, 5, 77): "5f47ac5d7006e8a35834614a11665b8372ad4c8bb20a2d2c21c27571a4f347ac",
+    ("k4", "grouped", 2, 257, 320): "ad231b80fae49e6b7e9a5cb1aa815e03bf7c87558656e143f2333725b66cea20",
+    ("k6", "direct", 2, 704, 320): "bec9f064eeefa2b8f69a3622b69d83f4b8df87915160a8d7b0d20e2fb3b98dbc",
+}
+
+
+def _act32_digest(path, embed, n_halves, R, P, dev) -> str:
+    """SHA-256 over the bytes of the float32-activation K4's (``path``
+    "k4") or K6's ("k6") outputs at ``FieldConfig(embed_method=embed)``."""
+    cfg = FieldConfig(embed_method=embed)
+    pts, dn, tgt, fm, weights, ladder = _bundle_inputs(cfg, n_halves, R, P, dev, R + P)
+    beta = cfg.softplus_beta
+    if path == "k4":
+        grads, loss, w = field_kernel.bundle_loss_cuda(pts, dn, tgt, fm, weights, ladder, beta, 0.1, 500.0 / R, True,
+                                                       "float32")
+        outs = (*grads, loss, w)
+    else:
+        dk, rk, res = field_kernel.field_color_fwd_cuda(pts, dn, fm, weights, ladder, beta, "float32")
+        g = torch.Generator(device=dev).manual_seed(R)
+        gdens = torch.randn(dk.shape, generator=g, device=dev)
+        grgb = torch.randn(rk.shape, generator=g, device=dev)
+        outs = field_kernel.field_color_bwd_cuda(dn, fm, weights, res, dk, rk, gdens, grgb, ladder, beta, "float32")
+    digest = hashlib.sha256()
+    for t in outs:
+        digest.update(t.contiguous().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+@pytest.mark.parametrize("path,embed,n_halves,R,P", list(ACT32_DIGESTS))
+def test_act32_kernels_give_the_recorded_bits(cuda, path, embed, n_halves, R, P):
+    """K4's and K6's float32-activation variants give the recorded bits
+    (``ACT32_DIGESTS``): the P = 77 case reads the ragged tile's
+    zero-filled rows."""
+    assert _act32_digest(path, embed, n_halves, R, P, cuda) == ACT32_DIGESTS[(path, embed, n_halves, R, P)]
 
 
 @pytest.mark.parametrize("path", ["k4", "k5k6"])
