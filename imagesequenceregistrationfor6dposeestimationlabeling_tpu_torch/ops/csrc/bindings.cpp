@@ -15,11 +15,11 @@ T* ptr(uintptr_t p) {
 }
 
 void density(uintptr_t pts, int64_t n, uintptr_t fmat, int n_base, int ladder, int ep, uintptr_t w1, uintptr_t w2,
-             uintptr_t b1, uintptr_t b2, uintptr_t wd, uintptr_t bd, int n_hidden, float beta, int embed_only,
-             uintptr_t out, uintptr_t stream) {
+             uintptr_t b1, uintptr_t b2, uintptr_t wd, uintptr_t bd, int n_hidden, float beta, uintptr_t out,
+             uintptr_t stream) {
   launch_density(ptr<const float>(pts), n, ptr<const float>(fmat), n_base, ladder, ep, ptr<const void>(w1),
                  ptr<const void>(w2), ptr<const float>(b1), ptr<const float>(b2), ptr<const float>(wd),
-                 ptr<const float>(bd), n_hidden, beta, embed_only, ptr<float>(out), ptr<void>(stream));
+                 ptr<const float>(bd), n_hidden, beta, ptr<float>(out), ptr<void>(stream));
 }
 
 void nn_min(uintptr_t query, int64_t n, uintptr_t ref, uintptr_t mask, int64_t m, int n_splits, int64_t split_len,

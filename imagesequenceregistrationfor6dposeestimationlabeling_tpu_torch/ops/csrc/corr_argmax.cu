@@ -33,7 +33,7 @@
 //   1.907e-06, 1.907e-06 and 1.335e-05 at 45,000 x 1,024, 5,625 x 80,000
 //   and 45,000 x 80,000 (the f64 sum: 1.907e-06 at each), for 4 % less
 //   time at the largest (2.890 against 3.017 ms; one H100 80GB HBM3 at
-//   700 W, chip_smoke.py).
+//   700 W).
 // No tensor cores: with E = 12, TF32 would round the inputs to 10 bits and
 // flip argmaxes; 3xTF32 would remove only a pair's 12 FFMAs, while the
 // exponential, the compares and the sum (about half of a pair's

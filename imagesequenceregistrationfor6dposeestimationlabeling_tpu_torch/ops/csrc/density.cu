@@ -48,7 +48,7 @@ __global__ void __launch_bounds__(256, 2)
 density_kernel(const float* __restrict__ pts, int64_t n, const float* __restrict__ fmat, int n_base, int ladder,
                int Ep, const bf16* __restrict__ w1, const bf16* __restrict__ w2, const float* __restrict__ b1,
                const float* __restrict__ b2, const float* __restrict__ wd, const float* __restrict__ bd, int nh,
-               float beta, int embed_only, float* __restrict__ out) {
+               float beta, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int E = n_base * max(ladder, 1);  // width of each of the sin / cos blocks
   const int lda = 2 * Ep + 8;
@@ -61,17 +61,12 @@ density_kernel(const float* __restrict__ pts, int64_t n, const float* __restrict
   const int tn = n - p0 < MT ? (int)(n - p0) : MT;
 
   int slot = 0;
-  if (!embed_only) T::issue_slab(w1, ring);
+  T::issue_slab(w1, ring);
   field::embed(pts + p0 * 3, tn, MT, fmat, n_base, ladder, lda, A, A + Ep);
   for (int i = tid; i < MT * (Ep - E); i += 256) {  // the K padding reads as zeros
     const int p = i / (Ep - E), c = E + i % (Ep - E);
     A[p * lda + c] = __float2bfloat16_rn(0.f);
     A[p * lda + Ep + c] = __float2bfloat16_rn(0.f);
-  }
-  if (embed_only) {  // the embedding alone, for timing it: keep one value a point
-    __syncthreads();
-    if (tid < tn) out[p0 + tid] = __bfloat162float(A[tid * lda]) + __bfloat162float(A[tid * lda + Ep + E - 1]);
-    return;
   }
 
   T::Acc acc;
@@ -108,7 +103,7 @@ density_kernel(const float* __restrict__ pts, int64_t n, const float* __restrict
 
 void launch_density(const float* pts, int64_t n, const float* fmat, int n_base, int ladder, int ep, const void* w1,
                     const void* w2, const float* b1, const float* b2, const float* wd, const float* bd, int n_hidden,
-                    float beta, int embed_only, float* out, void* stream) {
+                    float beta, float* out, void* stream) {
   if (n <= 0) return;
   TORCH_CHECK(n_hidden > 0 && n_hidden <= mma::WN, "density kernel: n_hidden must be in [1, 256]");
   const int E = n_base * (ladder > 1 ? ladder : 1);
@@ -120,6 +115,6 @@ void launch_density(const float* pts, int64_t n, const float* fmat, int n_base, 
   const int64_t blocks = (n + MT - 1) / MT;
   density_kernel<<<(unsigned)blocks, 256, smem, static_cast<cudaStream_t>(stream)>>>(
       pts, n, fmat, n_base, ladder, ep, static_cast<const bf16*>(w1), static_cast<const bf16*>(w2), b1, b2, wd, bd,
-      n_hidden, beta, embed_only, out);
+      n_hidden, beta, out);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

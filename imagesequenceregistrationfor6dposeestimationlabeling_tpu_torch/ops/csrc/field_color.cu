@@ -33,7 +33,7 @@
 // cotangent slots and runs dw_kernel on it unchanged; K6 allocates the
 // per-ray records (ds | dc | bf16(ddpart)).
 //
-// What bounds them (chip_smoke.py's count at a chunked step, 4,800 rays x
+// What bounds them (counted at a chunked step, 4,800 rays x
 // (64 + 320) points, reference width): K5 moves 2,332 B a point (points in,
 // dens, rgb and the residual row out), 4.3 GB, 1.28 ms at 3.35 TB/s,
 // against 0.45 MFLOP a point of products, 0.84 ms at 989 TFLOP/s: bytes.

@@ -10,11 +10,10 @@
 // K1: density field (density.cu).  out[n] = 1 - exp(-softplus(h2 . wd + bd))
 // for points pts[n] (N, 3).  w1 (2 ep, 256) = [W1s; W1c] and w2 (256, 256)
 // are bf16, zero-padded (each embedding half to ep rows, a multiple of 16);
-// b1, b2, wd (n_hidden,), bd (1,) f32.  embed_only: the embedding alone,
-// for timing it (out then holds one embedding value a point).
+// b1, b2, wd (n_hidden,), bd (1,) f32.
 void launch_density(const float* pts, int64_t n, const float* fmat, int n_base, int ladder, int ep, const void* w1,
                     const void* w2, const float* b1, const float* b2, const float* wd, const float* bd, int n_hidden,
-                    float beta, int embed_only, float* out, void* stream);
+                    float beta, float* out, void* stream);
 
 // K2: nearest neighbour (nn_min.cu).  For query (N, 3): dist (N,) and the
 // lowest index (N,) of the closest ref (M, 3) point with mask > 0 (mask

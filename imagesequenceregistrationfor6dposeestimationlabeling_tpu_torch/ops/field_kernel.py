@@ -199,7 +199,8 @@ def _padded(blocks, row_offsets, rows: int) -> torch.Tensor:
     return out
 
 
-def _density_launch(pts, weights, ladder: int, beta: float, embed_only: bool) -> torch.Tensor:
+def density_cuda(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch.Tensor:
+    """K1 on the card: (N, 3) f32 -> (N, 1) f32 densities."""
     fm, w1s, w1c, b1, w2, b2, wd, bd = weights
     dev = pts.device
     n = pts.shape[0]
@@ -220,27 +221,13 @@ def _density_launch(pts, weights, ladder: int, beta: float, embed_only: bool) ->
     w2p = _padded((w2,), (0,), _TILE_N)
     out = torch.empty((n, 1), dtype=f32, device=dev)
     if n:
-        # the embed-only diagnostic is K1's kernel run apart: no span, no count
-        ctx = torch.cuda.device(dev) if embed_only else cuda_build.launch(density_cuda, "density", dev)
-        with ctx:
+        with cuda_build.launch(density_cuda, "density", dev):
             cuda_build.kernels().density(
                 pts.data_ptr(), n, fm.data_ptr(), n_base, ladder, ep, w1.data_ptr(), w2p.data_ptr(), b1.data_ptr(),
-                b2.data_ptr(), wd.data_ptr(), bd.data_ptr(), nh, float(beta), int(embed_only), out.data_ptr(),
+                b2.data_ptr(), wd.data_ptr(), bd.data_ptr(), nh, float(beta), out.data_ptr(),
                 cuda_build.stream_ptr(dev),
             )
     return out
-
-
-def density_cuda(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch.Tensor:
-    """K1 on the card: (N, 3) f32 -> (N, 1) f32 densities."""
-    return _density_launch(pts, weights, ladder, beta, embed_only=False)
-
-
-def density_embed_cuda(pts: torch.Tensor, weights, ladder: int, beta: float) -> torch.Tensor:
-    """K1's sin / cos embedding stage alone on the card (the kernel with its
-    products skipped), to time what the full-range ``sincosf`` costs; its
-    output is one embedding value a point, not a density."""
-    return _density_launch(pts, weights, ladder, beta, embed_only=True)
 
 
 cuda_build.reset(density_cuda)

@@ -1,8 +1,9 @@
 """Kernels K1-K6 on the card against their plain PyTorch versions, at the
-shapes the serving path and the NeRF train steps give them; descriptor
-training's bit-reproducibility and the command-line program on the card.  Marked ``gpu``:
-they skip where torch.cuda is unavailable, and build the kernels on first
-use.
+shapes the serving path and the NeRF train steps give them, and their
+products on the tensor cores; descriptor training's bit-reproducibility,
+the command-line program and the synthetic chain end to end on the card.
+Marked ``gpu``: they skip where torch.cuda is unavailable, and build the
+kernels on first use.
 
 Run on a machine with the card:  python -m pytest tests/test_torch_gpu.py -q
 """
@@ -10,6 +11,8 @@ Run on a machine with the card:  python -m pytest tests/test_torch_gpu.py -q
 import copy
 import hashlib
 import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -282,7 +285,9 @@ FIELD_COLOR_CASES = [  # cfg, halves, rays, points: a chunk's shapes, ragged R, 
     (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16"), 2, 5, 77),
     (FieldConfig(n_harmonic_functions=8, n_hidden=48, act_dtype="bfloat16", embed_method="grouped"), 1, 9, 77),
     (FieldConfig(act_dtype="bfloat16"), 1, 704, 320),
+    (FieldConfig(act_dtype="bfloat16"), 1, 4096, 320),
     (FieldConfig(), 1, 4096, 64),
+    (FieldConfig(), 1, 4096, 320),
     (FieldConfig(), 2, 704, 320),
     (FieldConfig(embed_method="grouped"), 2, 257, 64),
     (FieldConfig(), 2, 5, 77),
@@ -355,6 +360,74 @@ def test_field_color_kernels_match_plain(cuda, cfg, n_halves, R, P):
     if act == "float32":  # and the float32 variant its f32 record too
         with pytest.raises(ValueError, match="acts"):
             field_kernel.field_color_bwd_cuda(dn, fm, weights, {"record": res_k["record"]}, *args[4:])
+
+
+# the device functions of each kernel in the built extension (K4 and K6 are
+# two each: the tile kernel and the weight-grad contraction kernel they
+# share; each float32-activation variant has a tile kernel of its own)
+DEVICE_FUNCTIONS = {
+    "density": ("density_kernel",),
+    "nn_min": ("nn_min_kernel", "nn_min_merge_kernel"),
+    "corr_argmax": ("corr_argmax_kernel", "corr_argmax_merge_kernel"),
+    "bundle_loss": ("bundle_loss_kernel", "dw_kernel"),
+    "field_color_fwd": ("field_color_fwd_kernel",),
+    "field_color_bwd": ("field_color_bwd_kernel", "dw_kernel"),
+    "bundle_loss_act32": ("bundle_loss_act32_kernel", "dw_kernel"),
+    "field_color_fwd_act32": ("field_color_fwd_act32_kernel",),
+    "field_color_bwd_act32": ("field_color_bwd_act32_kernel", "dw_kernel"),
+}
+# the kernels whose products must run on the tensor cores: K1, K4-K6
+TENSOR_CORE_KERNELS = ("density", "bundle_loss", "field_color_fwd", "field_color_bwd", "bundle_loss_act32",
+                       "field_color_fwd_act32", "field_color_bwd_act32")
+
+
+def test_field_kernels_run_on_the_tensor_cores(cuda):
+    """Each device function of ``DEVICE_FUNCTIONS`` is found once in the
+    built extension's SASS (``cuobjdump -sass``), and every one of K1, K4,
+    K5, K6, their float32-activation variants and ``dw_kernel`` holds HMMA /
+    HGMMA instructions."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        pytest.skip("needs cuobjdump (the CUDA toolkit) to read the extension's SASS")
+    sass = subprocess.run([tool, "-sass", cuda_build.kernels().__file__], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    per_function, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :")[1].strip()
+            per_function[current] = 0
+        elif current is not None and ("HMMA" in line or "HGMMA" in line):
+            per_function[current] += 1
+    counts = {}
+    for name, functions in DEVICE_FUNCTIONS.items():
+        for fn in functions:
+            hits = [n for k, n in per_function.items() if fn in k]
+            assert len(hits) == 1, (fn, hits)
+            counts[name, fn] = hits[0]
+    print("tensor-core instructions in SASS:", counts)
+    for name in TENSOR_CORE_KERNELS:
+        for fn in DEVICE_FUNCTIONS[name]:
+            assert counts[name, fn] > 0, (name, fn)
+
+
+def test_fps_graphs_select_what_the_launch_sequence_selects(cuda, monkeypatch):
+    """Farthest-point sampling of all of 20,000 points near a shell (the
+    bake's key count) on the card: its selections replayed from CUDA graphs
+    of ``FPS_GRAPH_BLOCK`` (the program's path; the last block ragged) and
+    launched one selection at a time (``FPS_GRAPH_BLOCK`` 0) pick the same
+    indices."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pointcloud
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    v = torch.randn((20_000, 3), generator=g, device=cuda)
+    pts = 0.5 * v / v.norm(dim=-1, keepdim=True) + 0.01 * torch.randn((20_000, 3), generator=g, device=cuda)
+    assert pointcloud.FPS_GRAPH_BLOCK > 0 and (pts.shape[0] - 2) % pointcloud.FPS_GRAPH_BLOCK
+    graphs = pointcloud.farthest_point_sampling(pts, pts.shape[0])
+    monkeypatch.setattr(pointcloud, "FPS_GRAPH_BLOCK", 0)
+    launches = pointcloud.farthest_point_sampling(pts, pts.shape[0])
+    assert torch.equal(graphs, launches)
+    assert graphs.unique().numel() == pts.shape[0]
 
 
 # SHA-256 of the float32-activation variants' outputs from _bundle_inputs at
@@ -786,17 +859,81 @@ def test_cli_poses_est_launches_the_correspondence_kernel(cuda, tmp_path):
 # ------------------------------------------- SurfEmb inference and the mesh scene
 
 
+def sharp_features(p):
+    """A high-frequency injective descriptor of surface points, norm 3."""
+    f = torch.cat([torch.sin(14.0 * p), torch.cos(11.0 * p), torch.sin(17.0 * p.flip(-1)), 2.0 * p], -1)
+    return 3.0 * f / f.norm(dim=-1, keepdim=True)
+
+
+def ideal_view(pts, S: int):
+    """A planted pose of the blob's points ``pts`` (M, 3), the camera of an S
+    px crop on it and the ideal maps of that view (S, S, 13): the sharp
+    keys of each pixel's nearest point and mask logits (+6 on the object,
+    -6 off it).  Returns (R, t, K, maps) on the points' device."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.rotations import rotvec_to_matrix
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.rasterize import render_object_coords
+
+    dev = pts.device
+    R = rotvec_to_matrix(torch.tensor([0.3, -0.2, 0.4], device=dev))
+    t = torch.tensor([0.05, -0.03, 4.0], device=dev)
+    K = torch.tensor([[2.1 * S, 0.0, S / 2 - 0.5], [0.0, 2.1 * S, S / 2 - 0.5], [0.0, 0.0, 1.0]], device=dev)
+    coords, mask = render_object_coords(pts, R, t, K, S)
+    maps = torch.cat([sharp_features(coords) * mask[..., None], (mask * 12.0 - 6.0)[..., None]], -1)
+    return R, t, K, maps
+
+
+def ideal_cnn(maps):
+    """A CNN stand-in: ``maps`` (S, S, 13) for any image."""
+
+    class IdealMaps(torch.nn.Module):
+        def forward(self, images):
+            return maps[None].expand(images.shape[0], *maps.shape)
+
+    return IdealMaps()
+
+
+def cdf_drift(dev, seed: int, n: int, m: int, n_draws: int = 40_000) -> dict:
+    """The SurfEmb cdf at n pixels x m keys (random queries and keys of the
+    trained descriptors' norm, sigmoid mask probabilities, alpha 1.5): the
+    share of ``n_draws`` uniform draws whose index moves, against an f64
+    running sum of the same f32 entries, for the port's two-level f64 cdf
+    and for a single f32 ``torch.cumsum`` (the reference's expression)."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import no_tf32
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_est_surf as pes
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((n, 12), generator=g, device=dev)
+    k = torch.randn((m, 12), generator=g, device=dev)
+    q, k = 3 * q / q.norm(dim=-1, keepdim=True), 3 * k / k.norm(dim=-1, keepdim=True)
+    mask_prob = torch.sigmoid(4 * torch.randn((n,), generator=g, device=dev))
+    u = torch.rand((n_draws,), generator=g, device=dev)
+    _, cdf = pes.correspondence_distribution(q, k, mask_prob, 1.5)
+    got = pes.inverse_cdf(cdf, u)
+    del cdf
+    flat = torch.empty((n, m), device=dev)
+    for r0 in range(0, n, pes.ROW_CHUNK):
+        rows = slice(r0, r0 + pes.ROW_CHUNK)
+        with no_tf32():
+            logits = q[rows] @ k.T
+        flat[rows] = (torch.exp(torch.log_softmax(logits, 1)) * mask_prob[rows, None]) ** 1.5
+    flat = flat.view(-1)
+    c64 = torch.cumsum(flat.double(), 0)
+    want = torch.searchsorted(c64 / c64[-1], u.double()).clamp_max(n * m - 1)
+    del c64
+    c32 = torch.cumsum(flat, 0)
+    f32 = torch.searchsorted(c32 / c32[-1], u).clamp_max(n * m - 1)
+    return {"port": float((got != want).float().mean()), "f32": float((f32 != want).float().mean())}
+
+
 def _surf_scene(S: int, subdivisions: int):
     """The blob's vertices as baked points (sharp keys, its normals), a
     planted pose, the crop camera of an S px crop and the ideal maps of
-    that view (``chip_smoke.ideal_view``): CPU tensors."""
-    import chip_smoke
-
+    that view (``ideal_view``): CPU tensors."""
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import mesh_scene
 
     verts, _, _, normals = (torch.as_tensor(x) for x in mesh_scene.blob_mesh(subdivisions))
-    R, t, K, maps = chip_smoke.ideal_view(verts, S)
-    return dict(verts=verts, normals=normals, feats=chip_smoke.sharp_features(verts), R=R, t=t, K=K, maps=maps)
+    R, t, K, maps = ideal_view(verts, S)
+    return dict(verts=verts, normals=normals, feats=sharp_features(verts), R=R, t=t, K=K, maps=maps)
 
 
 def test_estimate_pose_surfemb_on_card_matches_cpu(cuda):
@@ -808,12 +945,11 @@ def test_estimate_pose_surfemb_on_card_matches_cpu(cuda):
     same on the card (mask scores to 1e-5; coord scores to 1e-3 on 99 % of
     them: a z-buffer winner flips at a rounding edge), and
     ``estimate_pose_surfemb`` with 10 BFGS steps lands within 0.1 of the
-    planted rotation and 5 % of its distance on both.  The hypotheses themselves are not compared slot
+    planted rotation and 5 % of its distance on both, and repeats itself on
+    the card bit for bit.  The hypotheses themselves are not compared slot
     for slot: on random draws many P3P triples are ill-posed, and f32
     Grunert under the card's rounding moves their roots by up to 0.2
     (ROADMAP C, P3P conditioning)."""
-    import chip_smoke
-
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import InferenceConfig
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.cameras import downsample_K
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import inference, pose_est_surf
@@ -837,9 +973,14 @@ def test_estimate_pose_surfemb_on_card_matches_cpu(cuda):
         pose_est_surf._max_pool_3x3_keys(corr_log, 32)
         scores = pose_est_surf.score_poses(hyp.R.to(dev), hyp.t.to(dev), downsample_K(on["K"], 3), on["verts"],
                                            corr_log, mlp, nmlp, 32)
-        est = inference.estimate_pose_surfemb(chip_smoke.ideal_cnn(on["maps"]), torch.zeros((96, 96, 3), device=dev),
-                                              on["K"], on["verts"], on["normals"], on["feats"], 1.2, cfg=cfg,
-                                              refine_steps=10, draws=inference.SurfEmbDraws(*(x.to(dev) for x in draws)))
+        args = (ideal_cnn(on["maps"]), torch.zeros((96, 96, 3), device=dev), on["K"], on["verts"], on["normals"],
+                on["feats"], 1.2)
+        est = inference.estimate_pose_surfemb(*args, cfg=cfg, refine_steps=10,
+                                              draws=inference.SurfEmbDraws(*(x.to(dev) for x in draws)))
+        if dev != "cpu":
+            again = inference.estimate_pose_surfemb(*args, cfg=cfg, refine_steps=10,
+                                                    draws=inference.SurfEmbDraws(*(x.to(dev) for x in draws)))
+            assert all(torch.equal(torch.as_tensor(a), torch.as_tensor(b)) for a, b in zip(est, again))
         res[str(dev)] = idx.cpu(), [x.cpu() for x in scores], [torch.as_tensor(x).cpu() for x in est], flat_cdf
     (ic, sc_c, ec, cdf_c), (ig, sc_g, eg, _) = res["cpu"], res[str(cuda)]
     moved = ic != ig
@@ -881,10 +1022,8 @@ def test_surfemb_cdf_at_full_shape(cuda):
     """The SurfEmb cdf at a 224 px crop's 5,476 cells x 80,000 keys: no
     draw of 40,000 moves against an f64 running sum of the same entries
     (the port's two-level f64 cdf); a single f32 torch.cumsum is reported
-    (chip_smoke.cdf_drift)."""
-    import chip_smoke
-
-    drift = chip_smoke.cdf_drift(cuda, 0, 5_476, 80_000)
+    (``cdf_drift``)."""
+    drift = cdf_drift(cuda, 0, 5_476, 80_000)
     print(f"moved draws: port {drift['port']:.2e}, f32 cumsum {drift['f32']:.2e}")
     assert drift["port"] == 0.0
 
@@ -912,6 +1051,237 @@ def test_render_mesh_on_card_matches_cpu(cuda):
         bad = ((sc != sg) | ((rc - rg).abs().amax(-1) > 1e-4)
                | (torch.where(both, (dc - dg).abs(), torch.zeros_like(dc)) > 1e-4 * 4))
         assert float(sc.mean()) > 0.05 and float(bad.float().mean()) <= 5e-3
+
+
+# ------------------------------------------------------------ the chain on the card
+
+
+# The synthetic chain's sizes: 8 views a half at 224 px; NeRF steps of 3
+# views x 400 rays a half, 400 of them (a surface at the correspondence
+# threshold), warmup min(300, 400 // 3); correspondences, negatives and the
+# bake on a 128^3 grid at threshold 0.2; 100 descriptor steps with the
+# distractor augmentation; 8 images posed at InferenceConfig(); ICP 20
+# iterations.  ``same_steps``: the NeRF steps that show the MLP key head
+# leaves NeRF training as it is
+CHAIN = {"views": 8, "image_size": 224, "n_rays": 400, "batch": 3, "nerf_steps": 400, "warmup": 133,
+         "grid_res": 128, "threshold": 0.2, "neg_loops": 20, "pose_steps": 100, "n_points": 20_000,
+         "n_infer": 8, "icp_iters": 20, "same_steps": 50}
+
+
+def _launched(fn):
+    """``fn()`` and each of K1-K6's launches during it, by kernel."""
+    for w in WRAPPERS.values():
+        cuda_build.reset(w)
+    out = fn()
+    return out, {k: w.launches for k, w in WRAPPERS.items()}
+
+
+def _is_head(name: str) -> bool:
+    """Is the field's parameter ``name`` one of its key head's?"""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.fields import NON_FEATURE_MODULES
+
+    return name.split(".")[0] not in NON_FEATURE_MODULES
+
+
+def _body(states, head: bool = False) -> list:
+    """The NeRF states' tensors outside the key head (``head``: its own),
+    coarse and fine fields of each half in order."""
+    return [p for st in states for f in (st.coarse, st.fine) for n, p in f.state_dict().items() if _is_head(n) == head]
+
+
+def _hits_on_the_mesh(cors: str, scene, cfg, S: int, dev):
+    """What generate_cors wrote for one half: front and back hits within
+    ``mesh_filter_dist`` of its surface a1, each back hit behind its front
+    hit along the back ray (the direction -camera origin) and no nearer the
+    camera."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import cameras as cam_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts
+
+    a1 = torch.as_tensor(artifacts.load_array(cors, "a1.npy"), device=dev)
+    origins = cam_lib.camera_center(cam_lib.camera_from_bop(scene.R_bop, scene.t_bop, scene.K, S)).cpu().numpy()
+    n_front = n_back = 0
+    for v in range(scene.R_bop.shape[0]):
+        xys, front, bxys, back = artifacts.load_view_rays(cors, S, v)
+        for hits in (front, back):
+            if hits.shape[0]:
+                d, _ = point_kernels.nn_min_plain(torch.as_tensor(hits, device=dev), a1)
+                assert float(d.max()) < cfg.mesh_filter_dist
+        pixel = [np.rint((1.0 - x) * S / 2.0 - 0.5).astype(np.int64) for x in (xys, bxys)]
+        row = dict(zip((pixel[0][:, 1] * S + pixel[0][:, 0]).tolist(), range(xys.shape[0])))
+        front = front[[row[q] for q in (pixel[1][:, 1] * S + pixel[1][:, 0]).tolist()]]
+        o = origins[v]
+        if back.shape[0]:
+            assert ((back - front) @ (-o / np.linalg.norm(o)) >= 0.0).all()
+            assert (np.linalg.norm(back - o, axis=-1) >= np.linalg.norm(front - o, axis=-1)).all()
+        n_front, n_back = n_front + xys.shape[0], n_back + back.shape[0]
+    assert n_front > 0 and n_back > 0
+
+
+def _icp_card_vs_cpu(dev, upper, lower, cad, R_gt, t_gt, diameter: float, scale: float):
+    """ICP of the baked keys from the ground-truth pose composed with a
+    3-degree rotation and a 0.02 x scale shift, on the card and on the CPU:
+    both find inliers and move the pose, and they agree."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry import rotations
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import registration
+
+    axis = np.array([1.0, 2.0, 3.0]) / np.sqrt(14.0)
+    dR = rotations.rotvec_to_matrix(torch.as_tensor(axis * np.deg2rad(3.0), dtype=torch.float32)).numpy()
+    R0, t0 = R_gt @ dR, t_gt + 0.02 * scale * axis.astype(np.float32)
+    R_start, t_start = (x.numpy() for x in rotations.invert_pose(torch.as_tensor(R0), torch.as_tensor(t0)))
+    args = (upper, lower[::5], R_gt, t_gt, R0, t0, cad[::5])
+    kw = dict(diameter=diameter, icp_threshold=0.2 * scale, icp_iters=CHAIN["icp_iters"])
+    card = registration.register_halves(*args, device=dev, **kw)
+    cpu = registration.register_halves(*args, device="cpu", **kw)
+    print(f"ICP from a perturbed GT pose: fitness card {card['fitness']:.3f} / CPU {cpu['fitness']:.3f}, card - CPU "
+          f"|dR| {np.abs(card['R'] - cpu['R']).max():.2e}, |dt| {np.abs(card['t'] - cpu['t']).max():.2e}")
+    assert card["fitness"] > 0.5 and cpu["fitness"] > 0.5
+    assert float(np.abs(card["t"] - t_start).max() + np.abs(card["R"] - R_start).max()) > 1e-4
+    assert np.abs(card["R"] - cpu["R"]).max() < 1e-3 and np.abs(card["t"] - cpu["t"]).max() < 1e-3 * scale
+    assert abs(card["chamfer"] - cpu["chamfer"]) < 1e-4 * max(1.0, cpu["chamfer"])
+
+
+@pytest.mark.parametrize("siren", [True, False])
+def test_chain_on_card(cuda, tmp_path, monkeypatch, siren):
+    """The synthetic chain on one card through its entry points at
+    ``CHAIN``'s sizes, with the SIREN key head or the softplus MLP head
+    (``siren=False``): both halves' NeRFs (``train_nerf_fused``, K4 twice a
+    step), ``generate_cors`` (K1, K2; its hits on the mesh), negatives (K1,
+    K2), descriptor training (the loss falls; the head moves, the trunk
+    does not), the bake (K1, K2), ``run_sequence`` (K3),
+    ``verify_consecutive`` and ``register_halves`` (K2): every kernel of a
+    stage launches, the outputs are finite, and ICP from a perturbed
+    ground-truth pose agrees with the CPU.  NeRF training leaves the key
+    head bit-identical, and the MLP head's NeRF runs as the SIREN one's
+    from the same weights, bit for bit."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import (
+        CorsConfig,
+        FeatConfig,
+        InferenceConfig,
+        NerfTrainConfig,
+        PoseTrainConfig,
+        RenderConfig,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import normalize_image
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import metrics
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import (
+        artifacts,
+        gen_feat,
+        generate_cors,
+        inference,
+        registration,
+    )
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment, nerf_trainer, pose_trainer
+
+    monkeypatch.setattr(mesh_lib, "auto_mesh", lambda *a, **k: None)      # one card, however many there are
+    c, dev = CHAIN, cuda
+    S, V = c["image_size"], c["views"]
+    halves = [synthetic.make_scene(V, S, torch.Generator(device=dev).manual_seed(uh), device=dev) for uh in (0, 1)]
+    data = [torch.stack([getattr(h, f) for h in halves]) for f in ("images", "sils", "R_bop", "t_bop", "K")]
+    cfg = FieldConfig(act_dtype="bfloat16", siren=siren)
+    render = RenderConfig(n_rays_per_image=c["n_rays"])
+    train = NerfTrainConfig(warmup_steps=c["warmup"], batch_size=c["batch"])
+
+    def fresh(field_cfg):
+        return [nerf_trainer.init_state(field_cfg, train, torch.Generator().manual_seed(1 + h), device=dev)
+                for h in (0, 1)]
+
+    def nerf(field_cfg, states, n_steps):
+        return nerf_trainer.train_nerf_fused(*data, field_cfg, render, train, n_steps=n_steps, seed=1, device=dev,
+                                             init_states=states)
+
+    if not siren:
+        twin, states = fresh(FieldConfig(act_dtype="bfloat16")), fresh(cfg)
+        for st, src in zip(states, twin):
+            for f, g in ((st.coarse, src.coarse), (st.fine, src.fine)):
+                f.load_state_dict({k: v for k, v in g.state_dict().items() if not _is_head(k)}, strict=False)
+        assert len(_body(twin)) == len(_body(states))
+        assert all(torch.equal(a, b) for a, b in zip(_body(twin), _body(states)))
+        twin, _ = nerf(FieldConfig(act_dtype="bfloat16"), twin, c["same_steps"])
+        states, _ = nerf(cfg, states, c["same_steps"])
+        assert all(torch.equal(a, b) for a, b in zip(_body(twin), _body(states)))
+
+    states = fresh(cfg)
+    head = [p.clone() for p in _body(states, head=True)]
+    (states, losses), n = _launched(lambda: nerf(cfg, states, c["nerf_steps"]))
+    assert n == dict.fromkeys(WRAPPERS, 0) | {"bundle_loss": 2 * c["nerf_steps"]}
+    losses = np.asarray(losses)
+    assert np.isfinite(losses).all() and (losses[:, -10:].mean(1) < losses[:, :10].mean(1)).all()
+    assert all(torch.equal(a, b) for a, b in zip(head, _body(states, head=True)))
+    fields_ = [st.fine for st in states]
+
+    cors_cfg = CorsConfig(density_threshold=c["threshold"])
+    cors, n = _launched(lambda: [
+        generate_cors.generate_cors(f, h.R_bop, h.t_bop, h.K, h.sils, str(tmp_path / f"{uh}_synth_obj_1"), 1,
+                                    cors_cfg, grid_res=c["grid_res"], image_size=S, device=dev)
+        for uh, (f, h) in enumerate(zip(fields_, halves))])
+    assert n["density"] > 0 and n["nn_min"] > 0
+    for d, h in zip(cors, halves):
+        _hits_on_the_mesh(d, h, cors_cfg, S, dev)
+
+    h0, h1 = halves
+    pose_cfg = PoseTrainConfig(warmup_steps=100)
+    neg, n = _launched(lambda: pose_trainer.build_negatives(
+        fields_[0], h0.R_bop, h0.t_bop, h0.K, h0.sils, artifacts.load_array(cors[0], "a1.npy"), pose_cfg,
+        image_size=S, n_loops=c["neg_loops"], threshold=c["threshold"],
+        generator=torch.Generator(device=dev).manual_seed(0), device=dev))
+    assert n["density"] > 0 and n["nn_min"] > 0 and neg.shape[0] > 0
+
+    aug_cfg = augment.AugmentConfig(crop_res=S, min_mask_sum=10.0, p_distractor=0.5, scale_jitter=0.15,
+                                    trans_frac=0.2)
+    bank = pose_trainer.load_ray_bank(cors[0], S, V, device=dev)
+    pstate, losses = pose_trainer.train_pose(fields_[0], h0.images, h0.sils, bank, neg, cfg=pose_cfg, aug_cfg=aug_cfg,
+                                             n_steps=c["pose_steps"], seed=1, device=dev)
+    losses = np.asarray(losses)
+    print(f"siren={siren}: descriptor loss, first 10 steps {losses[:10].mean():.6f}, last 10 {losses[-10:].mean():.6f}")
+    assert np.isfinite(losses).all() and losses[-10:].mean() < losses[:10].mean()
+    assert torch.equal(pstate.field.trunk1.weight, fields_[0].trunk1.weight)
+    assert not torch.equal(pose_trainer.head_params(pstate.field)[-2], pose_trainer.head_params(fields_[0])[-2])
+
+    diam = h0.diameter
+    scale = diam / 1.8
+    exp0 = str(tmp_path / "serve" / "0_synth_obj_1")
+    (verts_scaled, feats, _), n = _launched(lambda: gen_feat.gen_feat(
+        pstate.field, h0.R_bop, h0.t_bop, h0.K, h0.sils, diam, exp0, 1,
+        FeatConfig(mc_threshold=0.05, n_points=c["n_points"], sample_loops=3), image_size=S, grid_res=c["grid_res"],
+        threshold=c["threshold"], generator=torch.Generator(device=dev).manual_seed(0)))
+    assert n["density"] > 0 and n["nn_min"] > 0
+    assert feats.shape == (verts_scaled.shape[0], 12) and np.isfinite(feats).all()
+    if not siren:   # the MLP head's sigmoid keys
+        assert feats.min() > 0.0 and feats.max() < 1.0
+
+    k = c["n_infer"]
+    Ks = h1.K[:k].clone()
+    Ks[:, 0:2, 2] -= 0.5  # pixel-center convention
+    (pred_R, pred_t), n = _launched(lambda: inference.run_sequence(
+        pstate.cnn, normalize_image(h1.images[:k]), h1.sils[:k], Ks, verts_scaled, feats, cfg=InferenceConfig(),
+        seed=0, batch=k, device=dev))
+    assert n["corr_argmax"] > 0
+    assert np.isfinite(pred_R).all() and np.isfinite(pred_t).all()
+    assert np.abs(np.einsum("nij,nkj->nik", pred_R, pred_R) - np.eye(3)).max() < 1e-3
+    verts_real, _, _, n_real = artifacts.load_keys(artifacts.pose_dir(exp0, 1))
+    R_gt, t_gt = h1.R_bop[:k], h1.t_bop[:k] * scale
+    adds = metrics.add_metric(torch.as_tensor(verts_real, device=dev), R_gt, t_gt, torch.as_tensor(pred_R, device=dev),
+                              torch.as_tensor(pred_t, device=dev))
+    assert n_real > 0 and bool(torch.isfinite(adds).all())
+
+    cad_pts, ok = synthetic.analytic_surface_points(20_000, torch.Generator(device=dev).manual_seed(9), device=dev)
+    cad = (cad_pts[ok] * scale).cpu().numpy()
+    upper, lower = verts_real[:20_000], cad[cad[:, 2] < 2]
+
+    def register():
+        best, chamfers = registration.verify_consecutive(verts_real[::max(verts_real.shape[0] // 4000, 1)], R_gt,
+                                                         t_gt, pred_R, pred_t, device=dev)
+        out = registration.register_halves(upper, lower, R_gt[best].cpu().numpy(), t_gt[best].cpu().numpy(),
+                                           pred_R[best], pred_t[best], cad, diameter=diam * scale,
+                                           icp_threshold=0.2 * scale, icp_iters=c["icp_iters"], device=dev)
+        return best, chamfers, out
+
+    (best, chamfers, out), n = _launched(register)
+    assert n["nn_min"] > 0
+    assert len(chamfers) == k - 1 and np.isfinite(out["chamfer"])
+    _icp_card_vs_cpu(dev, upper, lower, cad, R_gt[best].cpu().numpy(), t_gt[best].cpu().numpy(), diam * scale, scale)
 
 
 # ------------------------------------------------------------ several devices

@@ -17,7 +17,6 @@ import imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch import native
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import cuda_build
 ref = "imagesequenceregistrationfor6dposeestimationlabeling_tpu"

@@ -3,9 +3,8 @@
 ptxas resource use of every kernel each tree builds (registers, stack
 frame, spill stores and loads, from ``-Xptxas=-v``), then K4 (the
 bundle-loss kernel) at the NeRF train step's shapes, K2 (nearest
-neighbour) and K3 (dense correspondence) at the shapes ``chip_smoke.py``
-times, their outputs bit for bit and their times, run in the order A, B,
-B, A.
+neighbour) and K3 (dense correspondence) at the serving path's shapes,
+their outputs bit for bit and their times, run in the order A, B, B, A.
 
     python3 tools/compare_builds.py OLD_ROOT NEW_ROOT
 

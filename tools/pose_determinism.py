@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Is descriptor training bit-reproducible on the card, and what does a
 step cost?  Runs ``train_pose`` of the package under ``--root`` on one CUDA
-device at the chain's settings (chip_smoke.py's ``PIPELINE``: 8 synthetic
-views at 224 px, a full-width bf16 NerfField and ResNetUNet, 1,024 samples
-a view, the round-5 augmentation with the batch's rolled views as
-distractors), with a random ray bank and random negatives:
+device at the chain's settings (8 synthetic views at 224 px, a full-width
+bf16 NerfField and ResNetUNet, 1,024 samples a view, the round-5
+augmentation with the batch's rolled views as distractors), with a random
+ray bank and random negatives:
 
 1. ``--steps`` steps under ``torch.use_deterministic_algorithms(True,
    warn_only=True)``: every warning the run raises is printed once (an op
