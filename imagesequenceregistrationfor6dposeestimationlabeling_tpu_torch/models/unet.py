@@ -13,6 +13,7 @@ module works in NCHW inside.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -134,15 +135,20 @@ _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
 
 
+# copied to a device once, read-only and shared: a copy from the host waits
+# for the device's queue, and cannot be captured into a CUDA graph
+@functools.lru_cache(maxsize=None)
+def _mean_std_on(device: torch.device, dtype: torch.dtype) -> tuple:
+    return torch.tensor(_MEAN, dtype=dtype, device=device), torch.tensor(_STD, dtype=dtype, device=device)
+
+
 def normalize_image(img: torch.Tensor) -> torch.Tensor:
     """ImageNet normalization of (..., 3) images."""
-    mean = torch.tensor(_MEAN, dtype=img.dtype, device=img.device)
-    std = torch.tensor(_STD, dtype=img.dtype, device=img.device)
+    mean, std = _mean_std_on(img.device, img.dtype)
     return (img - mean) / std
 
 
 def denormalize_image(img: torch.Tensor) -> torch.Tensor:
     """The inverse of ``normalize_image``."""
-    mean = torch.tensor(_MEAN, dtype=img.dtype, device=img.device)
-    std = torch.tensor(_STD, dtype=img.dtype, device=img.device)
+    mean, std = _mean_std_on(img.device, img.dtype)
     return img * std + mean

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import normalize_image
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils import graphs
 
 
 class AugmentConfig(NamedTuple):
@@ -387,12 +388,18 @@ def select_ray_samples(xys: torch.Tensor, valid: torch.Tensor, sample_size: int,
     """(B, sample_size) ray indices drawn with replacement, uniformly over
     each view's valid rays with |x|, |y| < 1; ray 0 every time where there
     are none (the reference's categorical over logits of -1e9 alike always
-    picks the first)."""
+    picks the first).  Inside a CUDA graph's capture the draw runs eagerly
+    between two graphs (``graphs.cut``), from the generator's state at
+    that call."""
     w = ((xys[..., 0].abs() < 1.0) & (xys[..., 1].abs() < 1.0) & valid).to(torch.float32)
     first = torch.zeros_like(w)
     first[:, 0] = 1.0
     w = torch.where(w.sum(-1, keepdim=True) > 0, w, first)
-    return torch.multinomial(w, sample_size, replacement=True, generator=generator)
+    return graphs.cut(_draw_with_replacement, w, sample_size, generator)
+
+
+def _draw_with_replacement(w: torch.Tensor, n: int, generator: torch.Generator | None) -> torch.Tensor:
+    return torch.multinomial(w, n, replacement=True, generator=generator)
 
 
 def _list_image_files(dir_path: str, max_images: int, kind: str) -> list:

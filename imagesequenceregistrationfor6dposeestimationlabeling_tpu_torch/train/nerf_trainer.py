@@ -182,10 +182,15 @@ def draw(generators, n_cams: int, render_cfg: RenderConfig, device):
     return tuple(torch.stack(x) for x in zip(*out))
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s draws: from (seed, step) alone, so a
+    resumed run draws what the uninterrupted run drew at that step."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """A generator seeded from (seed, step) alone, so a resumed run draws
-    what the uninterrupted run drew at that step."""
-    return torch.Generator(device=device).manual_seed(int(np.random.SeedSequence([seed, step]).generate_state(1)[0]))
+    """A generator on ``device`` seeded with ``step_seed(seed, step)``."""
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step))
 
 
 def replicate_states(states, mesh: mesh_lib.Mesh) -> list:

@@ -15,6 +15,13 @@
      head at ``lr_mlp`` (AdamW with ``head_weight_decay``), each rate with
      a linear warmup; the rest of the NeRF stays frozen.
 
+On one CUDA device (no mesh) the step's loss and gradient run as a CUDA
+graph (``utils/graphs.py``): a signature's first call runs eagerly, its
+second captures the graph (the sampled rays drawn eagerly between two
+graphs, from the caller's generator), and later calls replay it, so the
+step launches a few graphs and Adam's ops instead of ~1,300 kernels.
+Adam stays eager, reading the grads the graph writes.
+
 f32 matmuls and convolutions run without TF32.  A step is bit-reproducible
 on the card: cuDNN runs its deterministic algorithms in the step
 (``device.deterministic_cudnn``) and the query read's backward sums in a
@@ -39,6 +46,8 @@ step there, and the new weights are copied into every copy in place.
 from __future__ import annotations
 
 import copy
+import itertools
+from collections import OrderedDict
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -55,10 +64,8 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.grid_sam
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import artifacts, surface_sampling
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment as aug_lib
-from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train.nerf_trainer import (
-    adam_update_,
-    step_generator,
-)
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train.nerf_trainer import adam_update_, step_seed
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils import graphs
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils.profiling import span
 
 
@@ -329,6 +336,88 @@ def _sharded_losses(mesh, replicas, images, sils, pos_vec, xys, valid, neg_pts, 
     return [mesh_lib.reduce_sum(list(x), mesh) for x in zip(*terms)], [replicas[i] for i, _, _ in shards]
 
 
+# the descriptor step's CUDA graphs (utils/graphs.py), one per input
+# signature, the most recently used kept: each pins the step's activations
+# in its memory pool
+MAX_GRAPHS = 2
+# CUDA calls of pose_train_step: graphs captured, calls replayed through a
+# graph captured earlier, and calls run eagerly (a signature's first call,
+# a mesh of several entries, or a stream that is capturing already)
+POSE_GRAPH_COUNT = {"captures": 0, "replays": 0, "eager": 0}
+_GRAPHS: OrderedDict = OrderedDict()    # signature -> _StepGraph
+_SEEN: OrderedDict = OrderedDict()      # signature called once -> its modules (so their ids stay theirs)
+
+
+class _StepGraph(NamedTuple):
+    graph: graphs.Graph
+    grads: list      # the trained parameters' grads, as every replay writes them
+
+
+def _one_entry_args(images, sils, pos_vec, xys, valid, neg_pts, d: PoseDraws, generator, bg_bank,
+                    distractor) -> tuple:
+    """The one-entry step's inputs as ``_one_entry_losses`` takes them."""
+    dis = distractor if distractor is not None else (None, None)
+    return (images, sils, pos_vec, xys, valid, neg_pts, bg_bank, *dis, d.sel, d.pos_noise, d.neg_idx, d.neg_jitter,
+            generator if d.sel is None else None, *d.aug)
+
+
+def _one_entry_losses(field, cnn, cfg, aug_cfg, images, sils, pos_vec, xys, valid, neg_pts, bg_bank, dis_rgb,
+                      dis_mask, sel, pos_noise, neg_idx, neg_jitter, generator, *aug) -> tuple:
+    """(nce, bce) of the step on one device, its grads in the modules'
+    ``.grad``: the body of the step's graph."""
+    d = PoseDraws(aug_lib.AugmentDraws(*aug), None, sel, pos_noise, neg_idx, neg_jitter)
+    distractor = None if dis_rgb is None else (dis_rgb, dis_mask)
+    terms, _ = _sharded_losses(mesh_lib.Mesh([images.device]), [(field, cnn)], images, sils, pos_vec, xys, valid,
+                               neg_pts, cfg, aug_cfg, d, generator, bg_bank, distractor)
+    return tuple(terms)
+
+
+def _signature(a):
+    if isinstance(a, torch.Generator):
+        return "generator", a.device
+    return None if a is None else (tuple(a.shape), a.dtype)
+
+
+def _one_entry_step(field, cnn, trained, cfg, aug_cfg, args) -> tuple:
+    """``_one_entry_losses`` on ``args``; on a CUDA device through the
+    signature's graph, the trained parameters' ``.grad`` set to the grads
+    it wrote.  The signature: the device, the inputs' shapes and dtypes,
+    the modules and their tensors' addresses (which the graph reads), the
+    configs."""
+    dev = args[0].device
+    body = lambda *a: _one_entry_losses(field, cnn, cfg, aug_cfg, *a)  # noqa: E731
+    if dev.type != "cuda":
+        return body(*args)
+    if torch.cuda.is_current_stream_capturing():
+        POSE_GRAPH_COUNT["eager"] += 1
+        return body(*args)
+    tensors = itertools.chain(field.parameters(), field.buffers(), cnn.parameters(), cnn.buffers())
+    key = (dev, tuple(_signature(a) for a in args), id(field), id(cnn), tuple(t.data_ptr() for t in tensors), cfg,
+           aug_cfg)
+    entry = _GRAPHS.pop(key, None)
+    if entry is None and _SEEN.pop(key, None) is None:
+        _SEEN[key] = (field, cnn)
+        while len(_SEEN) > MAX_GRAPHS:
+            _SEEN.popitem(last=False)
+        POSE_GRAPH_COUNT["eager"] += 1
+        return body(*args)
+    if entry is None:
+        while len(_GRAPHS) >= MAX_GRAPHS:
+            _GRAPHS.popitem(last=False)
+        POSE_GRAPH_COUNT["captures"] += 1
+        graph = graphs.Graph(body, args, dev)
+        out = graph.capture(args)
+        entry = _StepGraph(graph, [p.grad for p in trained])
+    else:
+        POSE_GRAPH_COUNT["replays"] += 1
+        with span("pose.replay"):
+            out = entry.graph(args)
+        for p, g in zip(trained, entry.grads):
+            p.grad = g
+    _GRAPHS[key] = entry
+    return out
+
+
 def pose_train_step(state: PoseTrainState, opt: PoseOptimizer, images, sils, pos_vec, xys, valid, neg_pts,
                     cfg: PoseTrainConfig, aug_cfg: aug_lib.AugmentConfig, draws: PoseDraws,
                     generator: torch.Generator | None = None, bg_bank=None, distractor_bank=None,
@@ -341,7 +430,9 @@ def pose_train_step(state: PoseTrainState, opt: PoseOptimizer, images, sils, pos
     (``replicate_pose_state``; made here when None; without a mesh, the
     state's own modules), which leave the step equal to the new state.  The
     state's modules and moments change in place.  Returns (new state,
-    loss, {"nce", "bce"}), all on the device."""
+    loss, {"nce", "bce"}), all on the device.  Without a mesh, on a CUDA
+    device, the step's loss and gradient run as a CUDA graph after its
+    signature's first call (see the module's docstring)."""
     field, cnn = state.field, state.cnn
     d = draws
     distractor = None
@@ -350,13 +441,21 @@ def pose_train_step(state: PoseTrainState, opt: PoseOptimizer, images, sils, pos
             distractor = (distractor_bank[0][d.pick], distractor_bank[1][d.pick])
         else:
             distractor = (torch.roll(images, 1, 0), torch.roll(sils, 1, 0))
-    if mesh is None:
-        mesh, replicas = mesh_lib.Mesh([images.device]), [(field, cnn)]
-    elif replicas is None:
-        replicas = replicate_pose_state(state, mesh)
     trained = _trained(field, cnn)
-    (nce, bce), used = _sharded_losses(mesh, replicas, images, sils, pos_vec, xys, valid, neg_pts, cfg, aug_cfg, d,
-                                       generator, bg_bank, distractor)
+    if mesh is None:
+        if generator is None and d.sel is None and images.device.type == "cuda":
+            # named, so that a graph can carry its state
+            generator = torch.cuda.default_generators[images.device.index]
+        args = _one_entry_args(images, sils, pos_vec, xys, valid, neg_pts, d, generator, bg_bank, distractor)
+        nce, bce = _one_entry_step(field, cnn, trained, cfg, aug_cfg, args)
+        used = replicas = [(field, cnn)]
+    else:
+        if images.device.type == "cuda":
+            POSE_GRAPH_COUNT["eager"] += 1
+        if replicas is None:
+            replicas = replicate_pose_state(state, mesh)
+        (nce, bce), used = _sharded_losses(mesh, replicas, images, sils, pos_vec, xys, valid, neg_pts, cfg, aug_cfg,
+                                           d, generator, bg_bank, distractor)
     loss = nce + bce
     with span("pose.adam"):
         mesh_lib.reduce_grads_(trained, [_trained(f, c) for f, c in used])
@@ -387,9 +486,10 @@ def train_pose(field, images, sils, ray_bank: RayBank, neg_pts, cfg: PoseTrainCo
     ``n_steps`` is the TOTAL step target: a resumed run continues from its
     state's step with the schedule and draws the uninterrupted run would
     have used, exactly.  Batches follow ``view_schedule(seed)``; a step's
-    draws come from a generator seeded with (seed, step), unless
-    ``draws(step)`` supplies a ``PoseDraws``.  ``on_checkpoint(state,
-    step)`` runs after every ``cfg.ckpt_every``-th step and after the last.
+    draws come from one generator of the run, seeded anew each step with
+    ``step_seed(seed, step)``, unless ``draws(step)`` supplies a
+    ``PoseDraws``.  ``on_checkpoint(state, step)`` runs after every
+    ``cfg.ckpt_every``-th step and after the last.
     ``distractor_bank`` = ((D, S, S, 3), (D, S, S)) of other objects to
     paste (default: the batch's own views, rolled by one); ``bg_bank`` (N,
     S, S, 3) backgrounds.  Runs on ``device``, the card unless named (the
@@ -426,15 +526,16 @@ def train_pose(field, images, sils, ray_bank: RayBank, neg_pts, cfg: PoseTrainCo
     schedule = view_schedule(n, bs, n_steps, seed)
     n_bg = 0 if bg_bank is None else bg_bank.shape[0]
     n_dis = 0 if distractor_bank is None else distractor_bank[0].shape[0]
+    # one generator a run, reseeded each step: it draws what step_generator(seed, step) would
+    gen = torch.Generator(device=dev) if draws is None else None
     losses = []
     for i in range(state.step, n_steps):
         idx = torch.as_tensor(schedule[i], device=dev)
-        gen = None
         if draws is not None:
             step_draws = draws(i)
         else:
-            gen = step_generator(seed, i, dev)
-            step_draws = draw_pose_step(gen, bs, S, neg_pts.shape[0], cfg, aug_cfg, n_bg, n_dis)
+            step_draws = draw_pose_step(gen.manual_seed(step_seed(seed, i)), bs, S, neg_pts.shape[0], cfg, aug_cfg,
+                                        n_bg, n_dis)
         state, loss, _ = pose_train_step(state, opt, images[idx], sils[idx], ray_bank.pos_vec[idx],
                                          ray_bank.xys[idx], ray_bank.valid[idx], neg_pts, cfg, aug_cfg,
                                          step_draws, gen, bg_bank, distractor_bank, mesh, replicas)

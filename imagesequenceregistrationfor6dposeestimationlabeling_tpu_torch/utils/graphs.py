@@ -4,7 +4,12 @@ A ``Graph`` captures ``fn(*args)`` once and replays it for later
 arguments of the same shapes and dtypes: the same kernels in the same
 order, launched by one call instead of one host launch each.  The
 arguments are copied into the graph's own input buffers, and the outputs
-come back as clones, so a result outlives the next call.
+come back as clones, so a result outlives the next call.  A
+``torch.Generator`` argument has a generator of the graph's own in its
+place: each call starts it from the argument's state and hands its state
+back after, so ``fn``'s draws (in a cut, see below) take the argument's
+numbers and advance it as an eager call would, and the warm-up before a
+capture leaves the argument where it was.
 
 An op that syncs the card with the host (a result or an error flag read
 back) cannot be captured.  ``fn`` runs such an op through ``cut(op,
@@ -36,14 +41,21 @@ def _tensors(out) -> tuple:
     return (out,) if isinstance(out, torch.Tensor) else tuple(out)
 
 
+def _buffer(a):
+    if a is None:
+        return None
+    if isinstance(a, torch.Generator):
+        return torch.Generator(device=a.device)
+    return torch.empty_like(a, memory_format=torch.contiguous_format)
+
+
 class Graph:
-    """``fn`` (tensors or None -> a tuple of tensors) captured on
-    ``device`` at the shapes of its first arguments."""
+    """``fn`` (tensors, generators or None -> a tuple of tensors) captured
+    on ``device`` at the shapes of its first arguments."""
 
     def __init__(self, fn, args, device):
         self.fn, self.device = fn, torch.device(device)
-        self.inputs = [None if a is None else torch.empty_like(a, memory_format=torch.contiguous_format)
-                       for a in args]
+        self.inputs = [_buffer(a) for a in args]
         # in replay order: a CUDAGraph, or a cut (op, its args, its outputs)
         self.steps = []
         self.pool = None
@@ -51,8 +63,18 @@ class Graph:
 
     def _load(self, args):
         for buf, a in zip(self.inputs, args):
-            if buf is not None:
+            if isinstance(buf, torch.Generator):
+                buf.set_state(a.get_state())
+            elif buf is not None:
                 buf.copy_(a)
+
+    def _generators(self, args) -> list:
+        """(the graph's generator, the argument's) pairs."""
+        return [(buf, a) for buf, a in zip(self.inputs, args) if isinstance(buf, torch.Generator)]
+
+    def _store(self, args):
+        for buf, a in self._generators(args):
+            a.set_state(buf.get_state())
 
     def _begin(self):
         g = torch.cuda.CUDAGraph()
@@ -81,6 +103,8 @@ class Graph:
             side.wait_stream(main)
             with torch.cuda.stream(side):
                 self.fn(*self.inputs)
+                for buf, a in self._generators(args):
+                    buf.set_state(a.get_state())    # the warm-up's draws are taken back
                 self.pool = torch.cuda.graph_pool_handle()
                 _capturing = self
                 try:
@@ -94,6 +118,7 @@ class Graph:
                 finally:
                     _capturing = None
             main.wait_stream(side)
+            self._store(args)
             return tuple(o.clone() for o in self.outputs)
 
     def __call__(self, args) -> tuple:
@@ -107,4 +132,5 @@ class Graph:
                         o.copy_(new)
                 else:
                     step.replay()
+            self._store(args)
             return tuple(o.clone() for o in self.outputs)

@@ -8,6 +8,7 @@ kernels on first use.
 Run on a machine with the card:  python -m pytest tests/test_torch_gpu.py -q
 """
 
+import contextlib
 import copy
 import hashlib
 import os
@@ -744,37 +745,145 @@ def test_nosiren_keys_at_full_width_on_card_match_cpu(cuda):
     assert bool(((k_g > 0) & (k_g < 1)).all())
 
 
-def test_train_pose_is_bit_reproducible_on_card(cuda):
-    """Two 5-step descriptor runs from one seed on the card (a full-width
-    bf16 field and ResNetUNet, 4 views at 112 px, the distractor
-    augmentation): bit-identical parameters, Adam moments and losses."""
+def _pose_run(dev):
+    """``run(n_steps, **kw)``: ``train_pose`` on ``dev`` at the chain's
+    widths (a full-width bf16 field and ResNetUNet, 4 views at 112 px,
+    256 samples a view, the distractor augmentation), from one seed; it
+    returns (state, losses)."""
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import PoseTrainConfig
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment as aug_lib
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import pose_trainer
 
     V, S, M = 4, 112, 1024
-    scene = synthetic.make_scene(V, S, torch.Generator(device=cuda).manual_seed(0), device=cuda)
-    g = torch.Generator(device=cuda).manual_seed(1)
-    xys = torch.rand((V, M, 2), generator=g, device=cuda) * 2.0 - 1.0
-    pos = torch.randn((V, M, 3), generator=g, device=cuda) * 0.4
-    valid = torch.ones((V, M), dtype=torch.bool, device=cuda)
+    scene = synthetic.make_scene(V, S, torch.Generator(device=dev).manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    xys = torch.rand((V, M, 2), generator=g, device=dev) * 2.0 - 1.0
+    pos = torch.randn((V, M, 3), generator=g, device=dev) * 0.4
+    valid = torch.ones((V, M), dtype=torch.bool, device=dev)
     bank = pose_trainer.RayBank(pos, xys, pos, xys, valid, valid)
-    neg = torch.randn((2000, 3), generator=g, device=cuda) * 0.4
-    field = NerfField(FieldConfig(act_dtype="bfloat16")).reset_parameters(torch.Generator().manual_seed(2)).to(cuda)
+    neg = torch.randn((2000, 3), generator=g, device=dev) * 0.4
+    field = NerfField(FieldConfig(act_dtype="bfloat16")).reset_parameters(torch.Generator().manual_seed(2)).to(dev)
     cfg = PoseTrainConfig(warmup_steps=4, sample_size=256)
     aug_cfg = aug_lib.AugmentConfig(crop_res=S, min_mask_sum=10.0, p_distractor=0.5)
 
-    def run():
-        state, losses = pose_trainer.train_pose(field, scene.images, scene.sils, bank, neg, cfg=cfg, aug_cfg=aug_cfg,
-                                                n_steps=5, seed=1, device=cuda)
-        opt = state.opt
-        return (list(state.field.parameters()) + list(state.cnn.parameters()) + opt.head_mu + opt.head_nu
-                + opt.cnn_mu + opt.cnn_nu, losses)
+    def run(n, **kw):
+        return pose_trainer.train_pose(field, scene.images, scene.sils, bank, neg, cfg=cfg, aug_cfg=aug_cfg,
+                                       n_steps=n, seed=1, device=dev, **kw)
 
-    (a, la), (b, lb) = run(), run()
+    return run
+
+
+def _pose_tensors(state) -> list:
+    opt = state.opt
+    return (list(state.field.parameters()) + list(state.cnn.parameters()) + opt.head_mu + opt.head_nu + opt.cnn_mu
+            + opt.cnn_nu)
+
+
+def test_train_pose_is_bit_reproducible_on_card(cuda):
+    """Two 5-step descriptor runs from one seed on the card (``_pose_run``;
+    each step after a run's second replays its graph): bit-identical
+    parameters, Adam moments and losses."""
+    run = _pose_run(cuda)
+    (a, la), (b, lb) = run(5), run(5)
     assert la == lb and len(la) == 5
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(_pose_tensors(a), _pose_tensors(b)))
+
+
+def test_train_pose_resumed_on_card_equals_the_whole_run(cuda):
+    """A run resumed at step 2 from a copy of its state (new modules: its
+    step 2 runs eagerly, step 3 captures a graph anew, step 4 replays it)
+    gives the losses, parameters and Adam moments of the uninterrupted
+    5-step run (eager, capture, three replays), bit for bit."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import pose_trainer
+
+    run = _pose_run(cuda)
+    full, full_losses = run(5)
+    saved = []
+    _, head = run(2, on_checkpoint=lambda st, i: saved.append(copy.deepcopy(st)))
+    captures = pose_trainer.POSE_GRAPH_COUNT["captures"]
+    end, tail = run(5, resume_state=saved[-1])
+    assert pose_trainer.POSE_GRAPH_COUNT["captures"] == captures + 1
+    assert head + tail == full_losses and end.step == full.step == 5
+    assert all(torch.equal(x, y) for x, y in zip(_pose_tensors(end), _pose_tensors(full)))
+
+
+@contextlib.contextmanager
+def _cuda_sync_mode(mode):
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def test_pose_step_graph_matches_eager_step(cuda, monkeypatch):
+    """Eight descriptor steps at full width (8 of 16 views at 224 px a step,
+    1,024 samples a view, 80,000 negatives, the SIREN field and the
+    ResNetUNet in bf16, the default augmentation, the sampled rays drawn
+    in the step): the eager first call, the capture, two replays, an eager
+    step of 4 views, three replays.  Run once as the program runs them,
+    the replays under sync-debug "error" but for the ray draw between
+    their graphs, and once on a copy of the state with the graph lookup
+    replaced by the eager body: after every step the loss terms, grads
+    (the replay's own after the 4-view step), parameters, Adam moments and
+    the step generator's state are equal bit for bit; one capture and five
+    replays."""
+    from collections import OrderedDict
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import PoseTrainConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import synthetic
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import ResNetUNet
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment as aug_lib
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import pose_trainer
+
+    monkeypatch.setattr(pose_trainer, "_GRAPHS", OrderedDict())
+    monkeypatch.setattr(pose_trainer, "_SEEN", OrderedDict())
+    monkeypatch.setattr(pose_trainer, "POSE_GRAPH_COUNT", dict.fromkeys(pose_trainer.POSE_GRAPH_COUNT, 0))
+    draw = aug_lib._draw_with_replacement
+
+    def draw_allowed_to_sync(*a):
+        with _cuda_sync_mode(0):
+            return draw(*a)
+
+    monkeypatch.setattr(aug_lib, "_draw_with_replacement", draw_allowed_to_sync)
+    V, B, B_other, S, M, n_neg = 16, 8, 4, 224, 4096, 80_000
+    scene = synthetic.make_scene(V, S, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    xys = torch.rand((V, M, 2), generator=g, device=cuda) * 2.2 - 1.1
+    pos = torch.randn((V, M, 3), generator=g, device=cuda) * 0.4
+    valid = torch.rand((V, M), generator=g, device=cuda) > 0.1
+    neg = torch.randn((n_neg, 3), generator=g, device=cuda) * 0.4
+    field = NerfField(FieldConfig(act_dtype="bfloat16")).reset_parameters(torch.Generator().manual_seed(2))
+    cnn = ResNetUNet().reset_parameters(torch.Generator().manual_seed(3))
+    cfg = PoseTrainConfig(batch_size=B, warmup_steps=3)
+    aug_cfg = aug_lib.AugmentConfig(crop_res=S, min_mask_sum=10.0)
+    opt = pose_trainer.make_pose_optimizer(cfg)
+    sides = [pose_trainer.init_pose_state(field, cfg, cnn, device=cuda) for _ in range(2)]
+    gens = [torch.Generator(device=cuda).manual_seed(4) for _ in range(2)]
+    eager = lambda field, cnn, trained, cfg, aug_cfg, args: pose_trainer._one_entry_losses(  # noqa: E731
+        field, cnn, cfg, aug_cfg, *args)
+    sizes = [B] * 4 + [B_other] + [B] * 3
+    for i, b in enumerate(sizes):
+        idx = torch.randperm(V, generator=torch.Generator().manual_seed(10 + i))[:b].to(cuda)
+        draws = pose_trainer.draw_pose_step(torch.Generator(device=cuda).manual_seed(20 + i), b, S, n_neg, cfg,
+                                            aug_cfg)
+        args = (scene.images[idx], scene.sils[idx], pos[idx], xys[idx], valid[idx], neg, cfg, aug_cfg, draws)
+        replays = pose_trainer.POSE_GRAPH_COUNT["replays"]
+        with _cuda_sync_mode("error" if i >= 2 and b == B else 0):
+            sides[0], loss, terms = pose_trainer.pose_train_step(sides[0], opt, *args, gens[0])
+        assert pose_trainer.POSE_GRAPH_COUNT["replays"] == replays + (i >= 2 and b == B), i
+        with monkeypatch.context() as mp:
+            mp.setattr(pose_trainer, "_one_entry_step", eager)
+            sides[1], loss_e, terms_e = pose_trainer.pose_train_step(sides[1], opt, *args, gens[1])
+        assert torch.equal(loss, loss_e) and all(torch.equal(terms[k], terms_e[k]) for k in terms), i
+        assert torch.equal(gens[0].get_state(), gens[1].get_state()), i
+        assert all(torch.equal(x, y) for x, y in zip(_pose_tensors(sides[0]), _pose_tensors(sides[1]))), i
+        grads = [pose_trainer._trained(st.field, st.cnn) for st in sides]
+        assert all(torch.equal(x.grad, y.grad) for x, y in zip(*grads)), i
+    assert float(sides[0].opt.cnn_mu[0].abs().max()) > 0
+    assert pose_trainer.POSE_GRAPH_COUNT == {"captures": 1, "replays": 5, "eager": 2}
 
 
 def _cli_argv(root, *extra, uh=1, act="bfloat16"):

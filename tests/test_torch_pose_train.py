@@ -13,6 +13,7 @@ random draw is the reference's, made along its key path with
 """
 
 import copy
+import dataclasses
 import functools
 
 import jax
@@ -34,6 +35,7 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models impor
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.models.unet import ResNetUNet as TUNet
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import augment as taug
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train import pose_trainer as tpt
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.train.nerf_trainer import step_generator, step_seed
 
 torch.set_num_threads(1)
 
@@ -551,6 +553,48 @@ def test_train_pose_distractor_bank(data):
     with pytest.raises(ValueError, match="p_distractor"):
         tpt.train_pose(field, data["images"], data["sils"], _port_bank(data), data["neg"], cfg=cfg,
                        aug_cfg=aug_cfg._replace(p_distractor=0.0), n_steps=1, distractor_bank=bank, device="cpu")
+
+
+@pytest.mark.parametrize("n_bg", [0, 3])
+def test_reseeded_generator_draws_what_a_fresh_step_generator_draws(data, n_bg):
+    """``train_pose`` keeps one generator a run and reseeds it each step
+    with ``step_seed(seed, step)``: after the draws of the steps before,
+    it draws what a fresh ``step_generator(seed, step)`` draws, every
+    draw of ``draw_pose_step`` (distractor picks, the augmentation with
+    background noise or bank rows, positive-key noise, negatives and their
+    jitter) and the sampled rays of ``select_ray_samples``."""
+    cfg = dataclasses.replace(_port_cfg(POSE), pos_noise=0.01)
+    aug_cfg = taug.AugmentConfig(*AUG)
+    xys, valid = _t(data["xys"][:B]), _t(data["valid"][:B])
+    kept = torch.Generator()
+    for step in (0, 1, 2, 7):
+        got = []
+        for g in (step_generator(SEED, step, "cpu"), kept.manual_seed(step_seed(SEED, step))):
+            d = tpt.draw_pose_step(g, B, S, 50, cfg, aug_cfg, n_bg=n_bg, n_distractors=4)
+            got.append(list(d.aug) + [d.pick, d.pos_noise, d.neg_idx, d.neg_jitter,
+                                      taug.select_ray_samples(xys, valid, cfg.sample_size, g)])
+        assert all(torch.equal(a, b) for a, b in zip(*got)), step
+    assert got[0][len(d.aug)] is not None and got[0][len(d.aug) + 1] is not None
+
+
+def test_cpu_steps_leave_the_graph_counter_untouched(data):
+    """A descriptor step on the CPU runs eagerly and is not counted among
+    the step's CUDA calls (``POSE_GRAPH_COUNT``); nothing is remembered
+    for a graph."""
+    before = dict(tpt.POSE_GRAPH_COUNT)
+    seen, graphs_ = dict(tpt._SEEN), dict(tpt._GRAPHS)
+    cfg = _port_cfg(POSE)
+    aug_cfg = taug.AugmentConfig(*AUG)
+    cnn = TUNet(**UNET, dtype=torch.float32).reset_parameters(torch.Generator().manual_seed(0))
+    state = tpt.init_pose_state(_port_field(), cfg, cnn, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    draws = tpt.draw_pose_step(gen, B, S, 50, cfg, aug_cfg)
+    args = (_t(data["images"][:B]), _t(data["sils"][:B]), _t(data["pos"][:B]), _t(data["xys"][:B]),
+            _t(data["valid"][:B]), _t(data["neg"]), cfg, aug_cfg)
+    for _ in range(3):
+        state, loss, _ = tpt.pose_train_step(state, tpt.make_pose_optimizer(cfg), *args, draws, gen)
+    assert state.step == 3 and bool(torch.isfinite(loss))
+    assert tpt.POSE_GRAPH_COUNT == before and dict(tpt._SEEN) == seen and dict(tpt._GRAPHS) == graphs_
 
 
 def test_nocs_map_matches_reference():

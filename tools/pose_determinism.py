@@ -14,8 +14,10 @@ ray bank and random negatives:
    tree has the step's two repairs (``grid_sample.gather_rows``,
    ``device.deterministic_cudnn``), also with each of them undone and with
    both: which op breaks the repeat;
-3. warm ms a step: ``--time-steps`` steps after one step of warm-up, timed
-   on the host clock between two synchronizations.
+3. warm ms a step: a run of ``--time-steps`` + 2 steps less a run of 2,
+   each timed on the host clock between two synchronizations, so a run's
+   set-up and its first two steps (on the card: the eager step and the
+   capture of the step's graph) cancel.
 
     python3 tools/pose_determinism.py [--root DIR] [--steps 5] [--time-steps 20]
 
@@ -125,17 +127,15 @@ def main():
         print(f"{name}: two {args.steps}-step runs, {len(a)} tensors (params, Adam moments, losses), {differ} "
               f"differ; losses {a[-1].tolist()} / {b[-1].tolist()}")
 
-    run(1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(args.time_steps + 1)
-    torch.cuda.synchronize()
-    t_all = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    run(1)
-    torch.cuda.synchronize()
-    t_one = time.perf_counter() - t0
-    ms = 1e3 * (t_all - t_one) / args.time_steps
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed(2)
+    ms = 1e3 * (timed(args.time_steps + 2) - timed(2)) / args.time_steps
     print(json.dumps({"root": args.root, "device": torch.cuda.get_device_name(0), "tensors_differing": repeat,
                       "warnings": ops, "warm_ms_per_step": ms}))
 

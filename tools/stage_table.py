@@ -37,7 +37,10 @@ NERF = ("nerf.train_step", ["nerf.rays", "nerf.field", "nerf.adam"],
 CELLS = {
     "nerf_train": NERF,
     "nerf_train_act32": NERF,  # nerf_train's window, its check with a probe step more
-    "pose_train": ("pose.train_step", ["pose.augment", "pose.forward", "pose.backward", "pose.adam"], ()),
+    # a replayed step's loss and gradient run inside pose.replay, the eager
+    # and captured steps' in the three stages before it
+    "pose_train": ("pose.train_step", ["pose.augment", "pose.forward", "pose.backward", "pose.replay", "pose.adam"],
+                   ()),
     "serve": ("serve.estimate_poses", ["infer.unet", "infer.k3", "infer.filter", "infer.draw", "infer.ransac"],
               (("k3_roofline_pct", "kernel.corr_argmax"),)),
 }
