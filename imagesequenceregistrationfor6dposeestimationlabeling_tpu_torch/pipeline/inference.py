@@ -19,7 +19,8 @@ distribution (``pose_est_surf``), then refines the best by gradient
 pixels x keys per image, so images go one at a time: the reference's
 ``make_batch_surfemb_estimator`` (``lax.map`` over mesh-sharded image
 groups) has no counterpart, and ``run_sequence_surfemb`` is a loop over
-the images.
+the images.  Its spans and counters: ``pose_est_surf`` and ``pose_refine``,
+and ``surf.unet`` around the CNN here.
 
 With a device ``mesh`` (``parallel.mesh``; ``mesh="auto"`` is every card
 when there are several), ``run_sequence`` splits each batch of images over
@@ -32,14 +33,13 @@ the poses do not depend on the split.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import InferenceConfig
-from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device, sync
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import resolve as resolve_device
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.cameras import (
     downsample_K,
     surfemb_crop_M,
@@ -47,11 +47,8 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.cam
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pnp, similarity
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.grid_sample import grid_sample
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_est_surf, pose_refine
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils.profiling import span
-
-# when a list, each SurfEmb image appends its stage seconds (a device sync
-# between stages), its best score and, on the card, its peak device bytes
-STAGE_LOG = None
 
 
 class PoseEstimate(NamedTuple):
@@ -223,8 +220,6 @@ def _draw_surfemb(generator: torch.Generator, cfg: InferenceConfig, n_keys: int,
     """One image's ``SurfEmbDraws`` from ``generator`` on its device, in
     the order ``_surfemb_core`` draws them (``sel`` None without
     refinement)."""
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_est_surf
-
     dev = generator.device
     hyp = pose_est_surf.draw_hypotheses(cfg.max_poses, generator, dev)
     sel = torch.randperm(n_keys, generator=generator, device=dev) if refine else None
@@ -237,36 +232,23 @@ def _surfemb_core(cnn, image, cam_K, verts, normals, feats, diameter: float, cfg
     """One image: CNN -> hypothesis sampling and z-buffer scoring (split
     over ``hyp_mesh`` when given) -> the best -> optional refinement.
     Returns (R (3, 3), t (3,), score ())."""
-    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_est_surf, pose_refine
-
-    dev = image.device
-    stages = {} if STAGE_LOG is not None else None
-    if stages is not None and dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    with torch.no_grad():
+    with span("surf.unet"), torch.no_grad():
         feat_full = cnn(image[None])[0]
-    query_img, mask_lgts = feat_full[..., :12], feat_full[..., 12]
+        query_img, mask_lgts = feat_full[..., :12], feat_full[..., 12]
     hyp = None if draws is None else pose_est_surf.HypothesisDraws(draws.u, draws.pick)
     res = pose_est_surf.estimate_pose(
         mask_lgts, query_img, verts, normals, feats, diameter, cam_K, generator, down_sample=cfg.down_sample,
         max_poses=cfg.max_poses, max_pose_evaluations=cfg.max_pose_evaluations, alpha=cfg.alpha,
-        dist_2d_min=cfg.dist_2d_min, draws=hyp, stages=stages, mesh=hyp_mesh,
+        dist_2d_min=cfg.dist_2d_min, draws=hyp, mesh=hyp_mesh,
     )
     best = torch.argmax(res.pose_scores)
+    # each index by a device scalar reads it back on the card
+    pose_est_surf.SURF_COUNT["host_reads"] += 3 * (best.device.type == "cuda")
     R, t, score = res.R[best], res.t[best], res.pose_scores[best]
     if refine:
-        t0 = time.perf_counter()
         R, t, _ = pose_refine.refine_pose(R, t, query_img, cam_K, verts, feats, generator, n_steps=refine_steps,
                                           translation_only=translation_only,
                                           sel=None if draws is None else draws.sel)
-        if stages is not None:
-            sync(dev)
-            stages["refinement"] = time.perf_counter() - t0
-    if stages is not None:
-        stages["best_score"] = float(score)
-        if dev.type == "cuda":
-            stages["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-        STAGE_LOG.append(stages)
     return R, t, score
 
 
@@ -282,6 +264,7 @@ def estimate_pose_surfemb(cnn, image, cam_K, verts, normals, feats, diameter: fl
     the hypotheses' P3P, pruning and scoring over its entries."""
     R, t, score = _surfemb_core(cnn, image, cam_K, verts, normals, feats, diameter, cfg, refine, refine_steps,
                                 translation_only, generator, draws, mesh_lib.resolve(hyp_mesh, image.device))
+    pose_est_surf.SURF_COUNT["host_reads"] += 1
     return R, t, float(score)
 
 
@@ -321,4 +304,5 @@ def run_sequence_surfemb(cnn, images, cam_Ks, verts, normals, feats, diameter: f
                 out[k] = _surfemb_core(cnns[i], images[k].to(d), cam_Ks[k].to(d), *consts[i], diameter, cfg, refine,
                                        refine_steps, translation_only, None, mesh_lib.to(draws[k], d))
     R, t, s = (torch.stack([o[j].to(dev) for o in out]) for j in range(3))
+    pose_est_surf.SURF_COUNT["host_reads"] += 3
     return R.cpu().numpy(), t.cpu().numpy(), s.cpu().numpy().astype(np.float32)

@@ -31,29 +31,41 @@ reference's single f32 ``cumsum`` over n x M entries does not: at the full
 5,476 x 80,000 a sequential f32 running sum stops growing long before its
 end (PERF.md gives the share of draws whose index moves), and a 1-D scan on
 the card sums in an order that varies from run to run.
+
+Spans (``utils/profiling.py``): ``surf.distribution`` (mask terms, the
+distribution, the keys' max pool), ``surf.sample`` (the draws, their
+inversion, the gathers), ``surf.p3p`` (P3P with the pruning, the survivors'
+selection) and ``surf.score``.  ``SURF_COUNT`` counts on the host, from
+shapes and call sites, never from a value on the device.
 """
 
 from __future__ import annotations
 
 import math
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import no_tf32, sync
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.device import no_tf32
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.cameras import downsample_K
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops import pnp
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.rasterize import segment_min
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.parallel import mesh as mesh_lib
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils.profiling import span
 
 # pixels of the distribution built at a time, hypotheses scored at a time,
 # and keys max-pooled at a time
 ROW_CHUNK = 256
 POSE_CHUNK = 125
 KEY_CHUNK = 4096
+# the SurfEmb path's work: images posed (``estimate_pose`` calls),
+# hypotheses drawn, hypotheses scored, and the times it waits for a value
+# on the host: each cdf's row totals and the best score; on the card also
+# the offsets' copy back, the P3P SVD's convergence check (twice) and the
+# best hypothesis' three picks (``inference._surfemb_core``)
+SURF_COUNT = {"images": 0, "hypotheses": 0, "scored": 0, "host_reads": 0}
 
 
 def _avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -119,6 +131,7 @@ def correspondence_distribution(queries: torch.Tensor, keys: torch.Tensor, mask_
         flat = (torch.exp(corr_log[rows]) * mask_prob[rows, None]) ** alpha
         cdf[rows] = torch.cumsum(flat.to(torch.float64), dim=1)
     # the rows' offsets: a sequential f64 sum of the row totals on the host
+    SURF_COUNT["host_reads"] += 1 + (cdf.device.type == "cuda")
     totals = cdf[:, -1].cpu().numpy()
     offsets = np.concatenate([[0.0], np.cumsum(totals)[:-1]])
     cdf += torch.from_numpy(offsets).to(cdf.device)[:, None]
@@ -189,6 +202,7 @@ def _solve_and_prune(p3d, p2d, n3d, u_pick, Kd, res: int, obj_diameter: float, d
     """P3P of each hypothesis' first three correspondences with one valid
     root picked by ``u_pick``, then the pruning: (R (P, 3, 3), t (P, 3),
     keep (P,))."""
+    SURF_COUNT["host_reads"] += 2 * (p3d.device.type == "cuda")
     Rs, ts, valid4 = pnp.solve_p3p_batch(p3d[:, :3], p2d[:, :3], Kd)
     pick = torch.argmax(torch.where(valid4, u_pick, -1.0), dim=1)
     rows = torch.arange(p3d.shape[0], device=p3d.device)
@@ -214,71 +228,62 @@ def estimate_pose(mask_lgts: torch.Tensor, query_img: torch.Tensor, obj_pts: tor
                   generator: torch.Generator | None = None,
                   down_sample: int = 3, max_poses: int = 10000, max_pose_evaluations: int = 1000,
                   alpha: float = 1.5, dist_2d_min: float = 0.1, max_pool: bool = True,
-                  draws: HypothesisDraws | None = None, stages: dict | None = None, mesh=None) -> SurfEmbResult:
+                  draws: HypothesisDraws | None = None, mesh=None) -> SurfEmbResult:
     """Hypotheses of one image: mask_lgts (r, r), query_img (r, r, e), the
     baked points, normals and keys (M, 3) / (M, 3) / (M, e), the crop's
     intrinsics K (3, 3).  The draws come from ``generator`` unless ``draws``
-    hands them in.  With a ``stages`` dict, the seconds of the distribution,
-    P3P with pruning, and scoring are written into it (a device sync each).
-    With ``mesh`` (home: the inputs' device) the hypotheses split over its
-    entries for P3P with pruning and for scoring."""
+    hands them in.  With ``mesh`` (home: the inputs' device) the hypotheses
+    split over its entries for P3P with pruning and for scoring."""
     dev = query_img.device
-    t0 = time.perf_counter()
     m = obj_keys.shape[0]
     Kd = downsample_K(K, down_sample)
-
-    mask_log_prob, neg_mask_log_prob, mask_prob = mask_terms(mask_lgts, down_sample, max_pool)
     res = mask_lgts.shape[0] // down_sample
     n = res * res
+    SURF_COUNT["images"] += 1
 
-    queries = _avg_pool(query_img, down_sample).reshape(n, -1)
-    corr_log, cdf = correspondence_distribution(queries, obj_keys, mask_prob, alpha)
-    if max_pool:
-        _max_pool_3x3_keys(corr_log, res)
+    with span("surf.distribution"):
+        mask_log_prob, neg_mask_log_prob, mask_prob = mask_terms(mask_lgts, down_sample, max_pool)
+        queries = _avg_pool(query_img, down_sample).reshape(n, -1)
+        corr_log, cdf = correspondence_distribution(queries, obj_keys, mask_prob, alpha)
+        if max_pool:
+            _max_pool_3x3_keys(corr_log, res)
 
     # inversion sampling of 4-tuples
-    if draws is None:
-        draws = draw_hypotheses(max_poses, generator, dev)
-    u, u_pick = (torch.as_tensor(d, device=dev) for d in draws)
-    corr_idx = inverse_cdf(cdf, u)
-    del cdf
-    p2d_idx = torch.div(corr_idx, m, rounding_mode="floor")
-    p3d_idx = corr_idx % m
-    yy = torch.div(p2d_idx, res, rounding_mode="floor")
-    xx = p2d_idx % res
-    p2d = torch.stack([xx, yy], dim=-1).to(torch.float32)       # (P, 4, 2)
-    p3d = obj_pts[p3d_idx]                                       # (P, 4, 3)
-    n3d = obj_normals[p3d_idx[:, :3]]                            # (P, 3, 3)
-    if stages is not None:
-        sync(dev)
-        stages["distribution"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
+    with span("surf.sample"):
+        if draws is None:
+            draws = draw_hypotheses(max_poses, generator, dev)
+        u, u_pick = (torch.as_tensor(d, device=dev) for d in draws)
+        SURF_COUNT["hypotheses"] += u.shape[0]
+        corr_idx = inverse_cdf(cdf, u)
+        del cdf
+        p2d_idx = torch.div(corr_idx, m, rounding_mode="floor")
+        p3d_idx = corr_idx % m
+        yy = torch.div(p2d_idx, res, rounding_mode="floor")
+        xx = p2d_idx % res
+        p2d = torch.stack([xx, yy], dim=-1).to(torch.float32)       # (P, 4, 2)
+        p3d = obj_pts[p3d_idx]                                       # (P, 4, 3)
+        n3d = obj_normals[p3d_idx[:, :3]]                            # (P, 3, 3)
 
-    prune = dict(res=res, obj_diameter=obj_diameter, dist_2d_min=dist_2d_min)
-    if mesh is None:
-        R, t, keep = _solve_and_prune(p3d, p2d, n3d, u_pick, Kd, **prune)
-    else:
-        R, t, keep = mesh_lib.gather([_solve_and_prune(*(x[s].to(d) for x in (p3d, p2d, n3d, u_pick)), Kd.to(d),
-                                                       **prune) for _, d, s in mesh_lib.shards(max_poses, mesh)],
-                                     mesh)
+    with span("surf.p3p"):
+        prune = dict(res=res, obj_diameter=obj_diameter, dist_2d_min=dist_2d_min)
+        if mesh is None:
+            R, t, keep = _solve_and_prune(p3d, p2d, n3d, u_pick, Kd, **prune)
+        else:
+            R, t, keep = mesh_lib.gather([_solve_and_prune(*(x[s].to(d) for x in (p3d, p2d, n3d, u_pick)),
+                                                           Kd.to(d), **prune)
+                                          for _, d, s in mesh_lib.shards(max_poses, mesh)], mesh)
+        # the first max_pose_evaluations survivors, in their order
+        sel = torch.argsort((~keep).to(torch.int8), stable=True)[:max_pose_evaluations]
+        R_e, t_e, valid_e = R[sel], t[sel], keep[sel]
 
-    # the first max_pose_evaluations survivors, in their order
-    sel = torch.argsort((~keep).to(torch.int8), stable=True)[:max_pose_evaluations]
-    R_e, t_e, valid_e = R[sel], t[sel], keep[sel]
-    if stages is not None:
-        sync(dev)
-        stages["p3p"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-
-    maps = (Kd, obj_pts, corr_log, mask_log_prob, neg_mask_log_prob)
-    if mesh is None:
-        mask_score, coord_score = score_poses(R_e, t_e, *maps, res)
-    else:
-        each = mesh_lib.broadcast(maps, mesh)
-        mask_score, coord_score = mesh_lib.gather([score_poses(R_e[s].to(d), t_e[s].to(d), *each[i], res)
-                                                   for i, d, s in mesh_lib.shards(R_e.shape[0], mesh)], mesh)
-    score = torch.where(valid_e, mask_score + coord_score, torch.full_like(mask_score, -float("inf")))
-    if stages is not None:
-        sync(dev)
-        stages["scoring"] = time.perf_counter() - t0
+    with span("surf.score"):
+        SURF_COUNT["scored"] += R_e.shape[0]
+        maps = (Kd, obj_pts, corr_log, mask_log_prob, neg_mask_log_prob)
+        if mesh is None:
+            mask_score, coord_score = score_poses(R_e, t_e, *maps, res)
+        else:
+            each = mesh_lib.broadcast(maps, mesh)
+            mask_score, coord_score = mesh_lib.gather([score_poses(R_e[s].to(d), t_e[s].to(d), *each[i], res)
+                                                       for i, d, s in mesh_lib.shards(R_e.shape[0], mesh)], mesh)
+        score = torch.where(valid_e, mask_score + coord_score, torch.full_like(mask_score, -float("inf")))
     return SurfEmbResult(R_e, t_e, score, mask_score, coord_score, valid_e)

@@ -7,8 +7,14 @@ gradient descent when ``lr > 0``.  ``translation_only`` holds the rotation.
 
 The line search evaluates its 12 trial points (alpha = 1, 1/2, ..., 1/2^11:
 they depend only on the step direction) as one batch and takes the first
-that passes, as the reference's scan over all 12 with no early exit does;
-no step reads a value back to the host.
+that passes, as the reference's scan over all 12 with no early exit does.
+On the card a step waits once for the card: indexing the trials' alphas by
+the device argmax reads it back.
+
+Spans (``utils/profiling.py``): ``surf.refine`` around a call, holding
+``surf.refine_setup`` (the rendered coordinates, the key lookup, the
+denominator image) and ``surf.bfgs`` (the optimizer's steps).
+``REFINE_COUNT`` counts on the host, from call sites alone.
 """
 
 from __future__ import annotations
@@ -20,12 +26,18 @@ from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.rot
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.grid_sample import grid_sample
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.pointcloud import nn_query
 from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.ops.rasterize import render_object_coords
+from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.utils.profiling import span
 
 # pixels of the denominator image's logits (pixels x keys) taken at a time
 DENOM_CHUNK = 4096
+# the refiner's work: BFGS steps, value-and-gradient evaluations (a
+# gradient step's too), batches of line-search trials, and the values it
+# waits for on the host (on the card, each step's alpha index)
+REFINE_COUNT = {"bfgs_steps": 0, "value_and_grad": 0, "trial_batches": 0, "host_reads": 0}
 
 
 def _value_and_grad(f, x: torch.Tensor):
+    REFINE_COUNT["value_and_grad"] += 1
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
         fx = f(x[None])[0]
@@ -41,6 +53,9 @@ def _bfgs(f, x0: torch.Tensor, n_steps: int, n_backtrack: int = 12, max_step: fl
     alphas = 0.5 ** torch.arange(n_backtrack, dtype=x0.dtype, device=x0.device)
     x, (fx, g), H = x0, _value_and_grad(f, x0), eye
     for _ in range(n_steps):
+        REFINE_COUNT["bfgs_steps"] += 1
+        REFINE_COUNT["trial_batches"] += 1
+        REFINE_COUNT["host_reads"] += x0.device.type == "cuda"
         p = torch.nan_to_num(-(H @ g))
         p_norm = torch.linalg.vector_norm(p)
         p = torch.where(p_norm > max_step, p * (max_step / p_norm.clamp_min(1e-12)), p)
@@ -76,63 +91,65 @@ def refine_pose(R0: torch.Tensor, t0: torch.Tensor, query_img: torch.Tensor, K: 
     the surface covers under the initial pose.  The denominator's key subset
     is ``sel`` (the first n_denom entries of a permutation of the M keys)
     when passed in, else drawn from ``generator``."""
-    res = query_img.shape[0]
-    dev = query_img.device
-    with torch.no_grad():
-        # the visible surface under the initial pose, and its keys: the key
-        # of each rendered coordinate's nearest baked point (K2 on the card)
-        coords, mask = render_object_coords(surf_pts, R0, t0, K, res)
-        coord_flat = coords.reshape(-1, 3)
-        vis = (mask.reshape(-1) > 0.5).to(torch.float32)
-        _, nn_idx = nn_query(coord_flat, surf_pts)
-        keys_vis = surf_keys[nn_idx.long()]
-        # the per-pixel log-denominator over a random key subset
-        m = surf_keys.shape[0]
-        if sel is None:
-            sel = torch.randperm(m, generator=generator, device=dev)
-        sub = surf_keys[torch.as_tensor(sel, device=dev)[: min(n_denom, m)].long()]
-        q_flat = query_img.reshape(-1, query_img.shape[-1])
-        parts = []
-        for c in torch.split(q_flat, DENOM_CHUNK):
+    with span("surf.refine"):
+        res = query_img.shape[0]
+        dev = query_img.device
+        with span("surf.refine_setup"), torch.no_grad():
+            # the visible surface under the initial pose, and its keys: the key
+            # of each rendered coordinate's nearest baked point (K2 on the card)
+            coords, mask = render_object_coords(surf_pts, R0, t0, K, res)
+            coord_flat = coords.reshape(-1, 3)
+            vis = (mask.reshape(-1) > 0.5).to(torch.float32)
+            _, nn_idx = nn_query(coord_flat, surf_pts)
+            keys_vis = surf_keys[nn_idx.long()]
+            # the per-pixel log-denominator over a random key subset
+            m = surf_keys.shape[0]
+            if sel is None:
+                sel = torch.randperm(m, generator=generator, device=dev)
+            sub = surf_keys[torch.as_tensor(sel, device=dev)[: min(n_denom, m)].long()]
+            q_flat = query_img.reshape(-1, query_img.shape[-1])
+            parts = []
+            for c in torch.split(q_flat, DENOM_CHUNK):
+                with no_tf32():
+                    parts.append(torch.logsumexp(c @ sub.T, dim=-1))
+            denom_img = torch.cat(parts).reshape(res, res, 1)
+            # rotations in radians, translations in units of 10 % of the camera
+            # distance: balanced gradients, one trust region for both blocks
+            t_scale = 0.1 * torch.linalg.vector_norm(t0)
+            n_vis = vis.sum().clamp_min(1.0)
+
+        def pose(params):
+            w, dt = params[..., :3], params[..., 3:] * t_scale
+            if translation_only:
+                w = w * 0.0
+            return rotvec_to_matrix(w) @ R0, t0 + dt
+
+        def objective(params):                       # (B, 6) -> (B,)
+            R, t = pose(params)
             with no_tf32():
-                parts.append(torch.logsumexp(c @ sub.T, dim=-1))
-        denom_img = torch.cat(parts).reshape(res, res, 1)
-        # rotations in radians, translations in units of 10 % of the camera
-        # distance: balanced gradients, one trust region for both blocks
-        t_scale = 0.1 * torch.linalg.vector_norm(t0)
-        n_vis = vis.sum().clamp_min(1.0)
+                xc = coord_flat @ R.transpose(-1, -2) + t[:, None, :]   # (B, N, 3)
+            u = K[0, 0] * xc[..., 0] / xc[..., 2] + K[0, 2]
+            v = K[1, 1] * xc[..., 1] / xc[..., 2] + K[1, 2]
+            # grid_sample's align_corners=False pixel convention
+            grid = torch.stack([(u + 0.5) * (2.0 / res) - 1.0, (v + 0.5) * (2.0 / res) - 1.0], dim=-1)
+            B, N = grid.shape[:2]
+            grid = grid.reshape(1, B * N, 2)
+            q = grid_sample(query_img[None], grid, mode="bilinear", align_corners=False, padding_mode="border")
+            d = grid_sample(denom_img[None], grid, mode="bilinear", align_corners=False, padding_mode="border")
+            log_nom = (q.reshape(B, N, -1) * keys_vis).sum(-1)
+            per_px = (log_nom - d.reshape(B, N)) * vis
+            return -(per_px.sum(-1) / n_vis) / 2.0
 
-    def pose(params):
-        w, dt = params[..., :3], params[..., 3:] * t_scale
-        if translation_only:
-            w = w * 0.0
-        return rotvec_to_matrix(w) @ R0, t0 + dt
-
-    def objective(params):                       # (B, 6) -> (B,)
-        R, t = pose(params)
-        with no_tf32():
-            xc = coord_flat @ R.transpose(-1, -2) + t[:, None, :]   # (B, N, 3)
-        u = K[0, 0] * xc[..., 0] / xc[..., 2] + K[0, 2]
-        v = K[1, 1] * xc[..., 1] / xc[..., 2] + K[1, 2]
-        # grid_sample's align_corners=False pixel convention
-        grid = torch.stack([(u + 0.5) * (2.0 / res) - 1.0, (v + 0.5) * (2.0 / res) - 1.0], dim=-1)
-        B, N = grid.shape[:2]
-        grid = grid.reshape(1, B * N, 2)
-        q = grid_sample(query_img[None], grid, mode="bilinear", align_corners=False, padding_mode="border")
-        d = grid_sample(denom_img[None], grid, mode="bilinear", align_corners=False, padding_mode="border")
-        log_nom = (q.reshape(B, N, -1) * keys_vis).sum(-1)
-        per_px = (log_nom - d.reshape(B, N)) * vis
-        return -(per_px.sum(-1) / n_vis) / 2.0
-
-    x0 = torch.zeros(6, dtype=torch.float32, device=dev)
-    if lr > 0:
-        x = x0
-        for _ in range(n_steps):
-            x = x - lr * _value_and_grad(objective, x)[1]
-        with torch.no_grad():
-            fval = objective(x[None])[0]
-    else:
-        x, fval = _bfgs(objective, x0, n_steps, max_step=0.3)
-    with torch.no_grad():
-        R, t = pose(x)
-    return R, t, fval
+        with span("surf.bfgs"):
+            x0 = torch.zeros(6, dtype=torch.float32, device=dev)
+            if lr > 0:
+                x = x0
+                for _ in range(n_steps):
+                    x = x - lr * _value_and_grad(objective, x)[1]
+                with torch.no_grad():
+                    fval = objective(x[None])[0]
+            else:
+                x, fval = _bfgs(objective, x0, n_steps, max_step=0.3)
+            with torch.no_grad():
+                R, t = pose(x)
+        return R, t, fval

@@ -31,8 +31,9 @@ def trace(log_dir: str):
 
 
 # the namespace of the program's spans: the NeRF step, the descriptor step,
-# pose estimation, RANSAC-PnP and the launches of the hand-written kernels
-SPAN_PREFIXES = ("nerf.", "pose.", "infer.", "pnp.", "kernel.")
+# pose estimation, RANSAC-PnP, SurfEmb's pose estimator and the launches of
+# the hand-written kernels
+SPAN_PREFIXES = ("nerf.", "pose.", "infer.", "pnp.", "surf.", "kernel.")
 
 _OFF = contextlib.nullcontext()
 

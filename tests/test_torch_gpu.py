@@ -11,6 +11,7 @@ Run on a machine with the card:  python -m pytest tests/test_torch_gpu.py -q
 import contextlib
 import copy
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -1135,6 +1136,44 @@ def test_surfemb_cdf_at_full_shape(cuda):
     drift = cdf_drift(cuda, 0, 5_476, 80_000)
     print(f"moved draws: port {drift['port']:.2e}, f32 cumsum {drift['f32']:.2e}")
     assert drift["port"] == 0.0
+
+
+def test_surfemb_full_shape_repeats_and_syncs_as_counted(cuda):
+    """``estimate_pose_surfemb`` at its full shape: a 224 px crop (5,476
+    cells) against 80,000 keys (points of the blob, the ideal maps of a
+    view of them), 10,000 hypotheses, 1,000 scored, 10 BFGS steps.  Two
+    calls on the same draws give the same bits; under sync-debug "warn" a
+    call syncs exactly as often as ``SURF_COUNT`` and ``REFINE_COUNT``
+    count host reads."""
+    import warnings
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import InferenceConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import mesh_scene
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import (
+        inference,
+        pose_est_surf,
+        pose_refine,
+    )
+
+    verts, _, _, normals = (torch.as_tensor(x) for x in mesh_scene.blob_mesh(7))
+    take = torch.randperm(verts.shape[0], generator=torch.Generator().manual_seed(0))[:80_000]
+    verts, normals = verts[take].contiguous().to(cuda), normals[take].contiguous().to(cuda)
+    _, _, K, maps = ideal_view(verts, 224)
+    cfg = InferenceConfig()
+    args = (ideal_cnn(maps), torch.zeros((224, 224, 3), device=cuda), K, verts, normals, sharp_features(verts), 1.2)
+    draws = inference._draw_surfemb(torch.Generator(device=cuda).manual_seed(1), cfg, 80_000, True)
+    one = lambda: inference.estimate_pose_surfemb(*args, cfg=cfg, refine_steps=10, draws=draws)  # noqa: E731
+    first, again = one(), one()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]) and first[2] == again[2]
+    assert math.isfinite(first[2])
+    reads = pose_est_surf.SURF_COUNT["host_reads"] + pose_refine.REFINE_COUNT["host_reads"]
+    with warnings.catch_warnings(record=True) as seen, _cuda_sync_mode("warn"):
+        warnings.simplefilter("always")
+        one()
+    syncs = sum("called a synchronizing" in str(w.message) for w in seen)
+    counted = pose_est_surf.SURF_COUNT["host_reads"] + pose_refine.REFINE_COUNT["host_reads"] - reads
+    print(f"syncs an image: {syncs}, counted host reads: {counted}")
+    assert syncs == counted > 0
 
 
 def test_render_mesh_on_card_matches_cpu(cuda):

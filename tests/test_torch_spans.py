@@ -2,9 +2,9 @@
 context of the hand-written kernels (``ops/cuda_build.py`` ``launch``), on
 the CPU: a span costs one check while the profiler is off and opens a
 ``record_function`` while it records, and the NeRF step (fused through
-K4's plain version, and chunked), the descriptor step and pose estimation
-show each of their stage spans under a CPU profiler, nested as their
-modules document."""
+K4's plain version, and chunked), the descriptor step, pose estimation and
+SurfEmb's estimator show each of their stage spans under a CPU profiler,
+nested as their modules document; SurfEmb's counters count its work."""
 
 import contextlib
 
@@ -227,3 +227,45 @@ def test_estimate_poses_spans():
                                                                generator=torch.Generator().manual_seed(2))))
     assert out[0].R.shape == (B, 3, 3)
     _assert_stages(spans, INFER, {"infer.ransac": 1, "pnp.refine": 1})
+
+
+# ------------------------------------------------- SurfEmb's pose estimator
+
+SURF = (["surf.unet", "surf.distribution", "surf.sample", "surf.p3p", "surf.score", "surf.refine"],
+        {"surf.refine": ["surf.refine_setup", "surf.bfgs"]})
+
+
+def test_estimate_pose_surfemb_spans_and_counters(monkeypatch):
+    """Two images through ``estimate_pose_surfemb`` under a CPU profiler:
+    every ``surf.*`` span once an image, the refiner's two inside
+    ``surf.refine``; the counters count what the shapes say (on the CPU two
+    host reads an image: the cdf's row totals and the best score; the
+    refiner none)."""
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import InferenceConfig
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_est_surf, pose_refine
+
+    monkeypatch.setattr(pose_est_surf, "SURF_COUNT", dict.fromkeys(pose_est_surf.SURF_COUNT, 0))
+    monkeypatch.setattr(pose_refine, "REFINE_COUNT", dict.fromkeys(pose_refine.REFINE_COUNT, 0))
+    g = torch.Generator().manual_seed(3)
+    n_keys, steps = 300, 3
+    cnn = ResNetUNet(**UNET).reset_parameters(g).eval()
+    image = torch.randn((S, S, 3), generator=g)
+    K = torch.tensor([[2.1 * S, 0.0, S / 2 - 0.5], [0.0, 2.1 * S, S / 2 - 0.5], [0.0, 0.0, 1.0]])
+    verts = torch.randn((n_keys, 3), generator=g) * 0.3
+    normals = verts / verts.norm(dim=-1, keepdim=True)
+    feats = torch.randn((n_keys, 12), generator=g)
+    cfg = InferenceConfig(max_poses=64, max_pose_evaluations=16)
+    out = []
+
+    def two_images():
+        for seed in (4, 5):
+            out.append(inference.estimate_pose_surfemb(cnn, image, K, verts, normals, feats, 1.0, cfg=cfg,
+                                                       refine_steps=steps,
+                                                       generator=torch.Generator().manual_seed(seed)))
+
+    spans = _spans(two_images)
+    assert len(out) == 2 and out[0][0].shape == (3, 3)
+    _assert_stages(spans, SURF, {name: 2 for name in SURF[0] + SURF[1]["surf.refine"]})
+    assert pose_est_surf.SURF_COUNT == {"images": 2, "hypotheses": 128, "scored": 32, "host_reads": 4}
+    assert pose_refine.REFINE_COUNT == {"bfgs_steps": 2 * steps, "value_and_grad": 2 * (steps + 1),
+                                        "trial_batches": 2 * steps, "host_reads": 0}

@@ -43,6 +43,9 @@ CELLS = {
                    ()),
     "serve": ("serve.estimate_poses", ["infer.unet", "infer.k3", "infer.filter", "infer.draw", "infer.ransac"],
               (("k3_roofline_pct", "kernel.corr_argmax"),)),
+    # one image through SurfEmb's estimator; K2 in the refiner's set-up
+    "surf_eval": ("surf_eval.estimate", ["surf.unet", "surf.distribution", "surf.sample", "surf.p3p", "surf.score",
+                                         "surf.refine"], (("k2_roofline_pct", "kernel.nn_min"),)),
 }
 
 
