@@ -3,7 +3,8 @@
 A ``Graph`` captures ``fn(*args)`` once and replays it for later
 arguments of the same shapes and dtypes: the same kernels in the same
 order, launched by one call instead of one host launch each.  The
-arguments are copied into the graph's own input buffers, and the outputs
+arguments are copied into the graph's own input buffers (with the first
+arguments' strides, an expanded one's dense), and the outputs
 come back as clones, so a result outlives the next call.  A
 ``torch.Generator`` argument has a generator of the graph's own in its
 place: each call starts it from the argument's state and hands its state
@@ -46,7 +47,13 @@ def _buffer(a):
         return None
     if isinstance(a, torch.Generator):
         return torch.Generator(device=a.device)
-    return torch.empty_like(a, memory_format=torch.contiguous_format)
+    if 0 in a.stride():
+        # an expanded argument: a dense buffer of its shape
+        return torch.empty_like(a, memory_format=torch.contiguous_format)
+    # the argument's own strides: a kernel that picks its variant by the
+    # layout (torch.gather's vectorized one on dense rows) is the one an
+    # eager call on the argument launches
+    return torch.empty_strided(a.shape, a.stride(), dtype=a.dtype, device=a.device)
 
 
 class Graph:

@@ -1144,7 +1144,8 @@ def test_surfemb_full_shape_repeats_and_syncs_as_counted(cuda):
     view of them), 10,000 hypotheses, 1,000 scored, 10 BFGS steps.  Two
     calls on the same draws give the same bits; under sync-debug "warn" a
     call syncs exactly as often as ``SURF_COUNT`` and ``REFINE_COUNT``
-    count host reads."""
+    count host reads: 8 an image, none of them in the refiner (its BFGS is
+    a graph replay that reads nothing back)."""
     import warnings
 
     from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.config import InferenceConfig
@@ -1174,6 +1175,69 @@ def test_surfemb_full_shape_repeats_and_syncs_as_counted(cuda):
     counted = pose_est_surf.SURF_COUNT["host_reads"] + pose_refine.REFINE_COUNT["host_reads"] - reads
     print(f"syncs an image: {syncs}, counted host reads: {counted}")
     assert syncs == counted > 0
+
+
+def test_refine_graph_matches_eager_body_at_full_shape(cuda, monkeypatch):
+    """The refiner at the cell's full shape (a 224 px query image, 80,000
+    baked keys, 10,960 denominator keys, 50 BFGS steps) on two different
+    crops and starts: the first call captures BFGS's graph, the second
+    replays it under sync-debug "error", and each refined R, t and
+    objective equal ``_bfgs`` over the module-level objective of the same
+    inputs, run eagerly, bit for bit.  The second crop's answer differs
+    from the first's: the replay reloaded its inputs."""
+    import time
+    from collections import OrderedDict
+
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.data import mesh_scene
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.geometry.rotations import rotvec_to_matrix
+    from imagesequenceregistrationfor6dposeestimationlabeling_tpu_torch.pipeline import pose_refine
+
+    monkeypatch.setattr(pose_refine, "_GRAPHS", OrderedDict())
+    monkeypatch.setattr(pose_refine, "REFINE_GRAPH_COUNT", dict.fromkeys(pose_refine.REFINE_GRAPH_COUNT, 0))
+    verts = torch.as_tensor(mesh_scene.blob_mesh(7)[0])
+    take = torch.randperm(verts.shape[0], generator=torch.Generator().manual_seed(0))[:80_000]
+    verts = verts[take].contiguous().to(cuda)
+    feats = sharp_features(verts)
+    R, t, K, maps = ideal_view(verts, 224)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    query = maps[..., :12]
+    crops = [query, query + 0.5 * torch.randn(query.shape, generator=g, device=cuda)]
+    starts = [(rotvec_to_matrix(torch.tensor([0.02, -0.015, 0.02], device=cuda)) @ R,
+               t + torch.tensor([0.01, -0.01, 0.05], device=cuda)),
+              (rotvec_to_matrix(torch.tensor([-0.03, 0.01, 0.025], device=cuda)) @ R,
+               t + torch.tensor([-0.02, 0.015, -0.06], device=cuda))]
+    sels = [torch.randperm(80_000, generator=g, device=cuda) for _ in crops]
+    got, took, ends = [], [], []
+    capture_end = torch.cuda.CUDAGraph.capture_end
+
+    def timed_end(graph):       # ends the capture and instantiates the graph
+        start = time.perf_counter()
+        capture_end(graph)
+        ends.append(time.perf_counter() - start)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_end", timed_end)
+    for i, ((R0, t0), q, sel) in enumerate(zip(starts, crops, sels)):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with _cuda_sync_mode("error" if i else 0):
+            got.append(pose_refine.refine_pose(R0, t0, q, K, verts, feats, n_steps=50, sel=sel))
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - start)
+    assert pose_refine.REFINE_GRAPH_COUNT == {"captures": 1, "replays": 1, "eager": 0}
+    for ((R0, t0), q, sel), (R1, t1, f1) in zip(zip(starts, crops, sels), got):
+        inputs = pose_refine.refine_inputs(R0, t0, q, K, verts, feats, sel=sel)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        x, fx = pose_refine._bfgs(lambda p: pose_refine.objective(p, *inputs), torch.zeros(6, device=cuda), 50, 12,
+                                  0.3)
+        R_e, t_e = pose_refine.pose(x, R0, t0, inputs[8])
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - start)
+        assert torch.equal(R1, R_e) and torch.equal(t1, t_e) and torch.equal(f1, fx)
+        assert float((t1 - t0).abs().max()) > 0 and math.isfinite(float(f1))
+    assert not torch.equal(got[0][1], got[1][1]) and not torch.equal(got[0][2], got[1][2])
+    print(f"refine_pose: capture call {took[0]:.3f} s (capture end and instantiation {sum(ends):.3f} s), "
+          f"replay call {took[1]:.3f} s; eager BFGS {took[2]:.3f} / {took[3]:.3f} s")
 
 
 def test_render_mesh_on_card_matches_cpu(cuda):
